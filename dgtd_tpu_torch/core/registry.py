@@ -1,0 +1,28 @@
+"""Name -> class registry (counterpart of ``dgtd_tpu/core/registry.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+
+class Registry:
+    def __init__(self, name: str):
+        self.name = name
+        self._store: Dict[str, Any] = {}
+
+    def register(self, obj: Any):
+        key = obj.__name__
+        if key in self._store and self._store[key] is not obj:
+            raise KeyError(f"{self.name}: duplicate registration for {key!r}")
+        self._store[key] = obj
+        return obj
+
+    def get(self, key: str) -> Any:
+        if key not in self._store:
+            raise KeyError(
+                f"{self.name}: unknown type {key!r}. Registered: {sorted(self._store)}"
+            )
+        return self._store[key]
+
+
+MODELS = Registry("models")

@@ -1,0 +1,85 @@
+"""HitNet: prompt-injected PVTv2 + the iterative refinement decoder
+(counterpart of ``dgtd_tpu/models/hitnet.py``).
+
+All refinement iterations share the decoder modules. Keys follow the
+reference's ``Hitnet`` (``Translayer2_0``, ``decoder_level1``, ``SAM``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn as nn
+
+from ..utils.image import resize_bilinear
+from .diffusion import PromptDecoder, PromptEncoder
+from .layers import BasicConv2d, CABStack, SAMFusion, conv2d
+from .pvt import PVT_V2_CONFIGS, PVTv2
+
+
+class HitNet(nn.Module):
+    """forward(image, depth) NCHW -> (texture, [refine_iters stage logits],
+    second logits), all at the input resolution."""
+
+    def __init__(self, channel=32, variant="b2", latent_dim=24, grid=12, freq_rate=0.3,
+                 diffusion_kernel=7, diffusion_steps=4,
+                 convnext_dims=(128, 256, 512, 1024), convnext_depths=(3, 3, 27, 3),
+                 refine_iters=4):
+        super().__init__()
+        dims, _, _, depths, _ = PVT_V2_CONFIGS[variant]
+        ch = channel
+        self.refine_iters = refine_iters
+        prompt_encoder = PromptEncoder(latent_dim, grid, freq_rate, diffusion_kernel, diffusion_steps,
+                                       convnext_dims, convnext_depths)
+        prompt_decoder = nn.ModuleList(PromptDecoder(dims[s], depths[s], latent_dim) for s in range(4))
+        self.backbone = PVTv2(variant, prompt_encoder=prompt_encoder, prompt_decoder=prompt_decoder)
+
+        self.decoder_level1 = CABStack(dims[0])
+        self.Translayer2_0 = BasicConv2d(dims[0], ch, 1)
+        self.Translayer2_1 = BasicConv2d(dims[1], ch, 1)
+        self.Translayer3_1 = BasicConv2d(dims[2], ch, 1)
+        self.Translayer4_1 = BasicConv2d(dims[3], ch, 1)
+        self.decoder_level4 = CABStack(ch)
+        self.decoder_level3 = CABStack(2 * ch)
+        self.decoder_level2 = CABStack(3 * ch)
+        self.conv4 = BasicConv2d(3 * ch, ch, 3, padding=1)
+        self.compress_out = BasicConv2d(2 * ch, ch, 8, stride=4, padding=2)
+        self.compress_out2 = BasicConv2d(2 * ch, ch, 1)
+        self.out_CFM = conv2d(ch, 1, 1)
+        self.SAM = SAMFusion(ch)
+        self.out_SAM = conv2d(ch, 1, 1)
+
+    def forward(self, image, depth):
+        bb = self.backbone
+        texture, embedding = bb.prompt_encoder(image, depth)
+        prompts = [dec(embedding) for dec in bb.prompt_decoder]
+        x1, x2, x3, x4 = bb(image, prompts)
+
+        cim = self.decoder_level1(x1)
+        x2_t = self.Translayer2_1(x2)
+        x3_t = self.Translayer3_1(x3)
+        x4_t = self.Translayer4_1(x4)
+        s8, s16 = x2.shape[-2:], x3.shape[-2:]
+        full = image.shape[-2:]
+
+        stage_preds: List[torch.Tensor] = []
+        cfm = None
+        for it in range(self.refine_iters):
+            if cfm is not None:
+                x4_up = resize_bilinear(x4_t, s8, align_corners=True, exact=False)
+                x4_t = self.compress_out(torch.cat([x4_up, cfm], dim=1))
+            x4_f = self.decoder_level4(x4_t)
+            x3_f = self.decoder_level3(
+                torch.cat([x3_t, resize_bilinear(x4_f, s16, align_corners=True, exact=False)], dim=1))
+            if it > 0:
+                x2_t = self.compress_out2(torch.cat([x2_t, cfm], dim=1))
+            x2_f = self.decoder_level2(
+                torch.cat([x2_t, resize_bilinear(x3_f, s8, align_corners=True, exact=False)], dim=1))
+            cfm = self.conv4(x2_f)
+            stage_preds.append(resize_bilinear(self.out_CFM(cfm), full))
+
+        t2 = self.Translayer2_0(cim)
+        t2 = resize_bilinear(t2, s8, align_corners=True, exact=False)
+        pred2 = resize_bilinear(self.out_SAM(self.SAM(cfm, t2)), full)
+        return texture, stage_preds, pred2

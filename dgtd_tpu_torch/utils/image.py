@@ -1,0 +1,70 @@
+"""Image ops in NCHW with PyTorch semantics (counterpart of
+``dgtd_tpu/utils/image.py``).
+
+The JAX package emulates ``F.interpolate``/``F.unfold`` with dense matrices
+and slices; here the torch operators are the definition itself. Only the
+legacy ``nearest`` rule and the FFT high-pass mask are spelled out, so their
+index arithmetic matches the JAX side exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def resize_bilinear(
+    x: torch.Tensor,
+    size: Tuple[int, int],
+    align_corners: bool = False,
+    exact: bool = True,
+) -> torch.Tensor:
+    """Bilinear-resize NCHW ``x`` to ``size=(H, W)`` (``F.interpolate``,
+    ``antialias=False``). ``exact=True`` computes in fp32 and casts back, as
+    the JAX ``exact`` path does; ``exact=False`` stays in the input dtype."""
+    out_h, out_w = int(size[0]), int(size[1])
+    if tuple(x.shape[-2:]) == (out_h, out_w):
+        return x
+    src = x.float() if exact else x
+    y = F.interpolate(src, size=(out_h, out_w), mode="bilinear", align_corners=align_corners)
+    return y.to(x.dtype)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Legacy ``nearest``: src index = floor(dst * in / out)."""
+    h, w = x.shape[-2:]
+    out_h, out_w = int(size[0]), int(size[1])
+    if (h, w) == (out_h, out_w):
+        return x
+    rows = np.floor(np.arange(out_h) * (h / out_h)).astype(np.int64)
+    cols = np.floor(np.arange(out_w) * (w / out_w)).astype(np.int64)
+    rows_t = torch.as_tensor(rows, device=x.device)
+    cols_t = torch.as_tensor(cols, device=x.device)
+    return x.index_select(-2, rows_t).index_select(-1, cols_t)
+
+
+def extract_patches(x: torch.Tensor, kernel: int, padding: int) -> torch.Tensor:
+    """im2col for stride-1 stencils: NCHW -> (B, C, k*k, H', W') in
+    ``F.unfold`` tap order (row-major over the window), zero padding."""
+    b, c, h, w = x.shape
+    out_h = h + 2 * padding - kernel + 1
+    out_w = w + 2 * padding - kernel + 1
+    cols = F.unfold(x, kernel, padding=padding)  # (B, C*k*k, L)
+    return cols.view(b, c, kernel * kernel, out_h, out_w)
+
+
+def fft_high_pass(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """FFT high-pass texture: zero a centered low-frequency square of side
+    ``2 * int(sqrt(H*W*rate)//2)`` of the shifted spectrum (norm='forward'),
+    inverse-transform, return ``abs(real)``. NCHW in/out, fp32 inside."""
+    h, w = x.shape[-2:]
+    line = int((h * w * rate) ** 0.5 // 2)
+    keep = np.ones((h, w), dtype=np.float32)
+    keep[h // 2 - line : h // 2 + line, w // 2 - line : w // 2 + line] = 0.0
+    keep_t = torch.as_tensor(np.fft.ifftshift(keep), device=x.device)
+    spec = torch.fft.fft2(x.float(), dim=(-2, -1), norm="forward") * keep_t
+    inv = torch.fft.ifft2(spec, dim=(-2, -1), norm="forward").real
+    return inv.abs().to(x.dtype)
