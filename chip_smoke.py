@@ -43,7 +43,7 @@ BF16_ATOL = 1e-2  # per-step bf16 rounding of O(1) convex combinations
 MEAN_ATOL = 2e-3  # bf16 vs fp32 mean probability (tests/test_golden_forward.py)
 CPU_PROB_ATOL = 1e-3  # fp32 card vs fp32 CPU, TF32 off, full-width model
 N_IMAGES, BATCH, SIZE = 20, 8, 384  # 3 batches, the last padded from 4
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s; fp32 non-tensor FLOP/s
+# H100 SXM peaks: HBM bytes/s; fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 
 
