@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero):
   1. print the card (``nvidia-smi`` name and power limit); build every CUDA
-     kernel of the served path from ``dgtd_tpu_torch/csrc``;
+     kernel of the served and trained paths from ``dgtd_tpu_torch/csrc``
+     (one ``nvcc`` per source, all started together);
   2. hold the diffusion-stencil kernel against its plain PyTorch version
      (k in {1, 3, 7}; 12x12, 13x20, 64x64; P = 192 planes; fp32 and bf16);
   3. serve full-width ``cod`` (PVTv2-b2 + ConvNeXt-B, seeded random weights)
@@ -16,10 +17,24 @@ Phases (any failure exits non-zero):
      on the CPU on a small input;
   4. re-check the kernel against the plain version on the exact
      ``MessagePassing`` inputs captured during phase 3;
-  5. time the kernel, its plain version and served batches with CUDA events.
+  5. time the kernel, its plain version and served batches with CUDA events;
+  6. hold the stencil's backward kernel against the plain backward (the same
+     cases at P = 240, fp32 and bf16) and the autograd Function's 4-step
+     backward against autograd through the plain forward;
+  7. tiny ``cod``: loss and every parameter gradient, fp32 on the card (TF32
+     off) against the CPU, same weights and inputs, drop-path rates 0;
+  8. train full-width ``cod`` through ``dgtd_tpu_torch.train.cli.main`` with
+     ``configs/cod.yml`` (384², batch 10, bf16 autocast) on 30 synthetic
+     images for 2 epochs (6 steps): finite losses, both kernels' launch
+     counts, two epoch checkpoints, the second served through
+     ``predict.main``; one fp32 first step held to the bf16 one; the backward
+     kernel re-checked on the stencil inputs and upstream gradient captured
+     in a train step;
+  9. time train steps back to back (bf16 and fp32), the CLI loop, peak
+     memory, and the backward kernel against its bound and its plain version.
 
-Prints a ``kernels`` JSON line and a served-throughput line, each with the
-card's name and power limit; the last line is
+Prints a ``kernels`` JSON line, a served-throughput line and a ``trained``
+JSON line, each with the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -43,6 +58,29 @@ BF16_ATOL = 1e-2  # per-step bf16 rounding of O(1) convex combinations
 MEAN_ATOL = 2e-3  # bf16 vs fp32 mean probability (tests/test_golden_forward.py)
 CPU_PROB_ATOL = 1e-3  # fp32 card vs fp32 CPU, TF32 off, full-width model
 N_IMAGES, BATCH, SIZE = 20, 8, 384  # 3 batches, the last padded from 4
+P_TRAIN = 10 * 24  # train stencil: batch 10 x 24 latent channels
+# backward, fp32: dx is a 49-term sum in another order than F.fold's, dw an
+# exact product (one step) or a 4-term sum
+BWD_FP32_TOL = dict(rtol=1e-5, atol=1e-6)
+# backward, bf16: both sides sum in fp32 and round to bf16, so a rounding
+# can flip one ulp (2^-7 relative); the chains also round dx after each step
+BWD_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
+# autograd through the plain bf16 forward rounds dw after every step (4
+# roundings of the partial sums) where the kernel rounds once
+AUTOGRAD_BF16_TOL = dict(rtol=3.2e-2, atol=1e-2)
+# tiny cod, fp32 card (TF32 off) vs CPU: the loss to 1e-5, each gradient to
+# 1e-3 of its largest entry (cuDNN and MKL sum in other orders; the CPU port
+# agrees with the JAX package to ~1e-5 of each gradient's scale)
+TINY_LOSS_RTOL, TINY_GRAD_RTOL = 1e-5, 1e-3
+TINY = dict(variant="tiny", convnext_dims=(8, 16, 32, 64), convnext_depths=(1, 1, 1, 1),
+            channel=8, latent_dim=8, grid=8, refine_iters=2, drop_path_rate=0.0, convnext_drop_path_rate=0.0)
+# full-width training run: 30 images, the recipe's batch 10, 2 epochs
+TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 30, 10, 2
+TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
+# bf16 autocast vs fp32 first-step loss (same weights, batch, drop-path
+# masks): the served bf16 mean probability moved 5e-5 from fp32, the loss
+# sums ~6 such terms; 1e-2 relative leaves room for the logits' bf16 error
+FIRST_LOSS_RTOL = 1e-2
 # H100 SXM peaks: HBM bytes/s; fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 
@@ -101,13 +139,54 @@ def check_kernel(D, x, w, kernel, steps, label):
     return err
 
 
-def write_inputs(root):
+def stencil_bwd_bound(g, xs, w, kernel):
+    """Least time (ms) for the backward of ``len(xs)`` steps on these inputs:
+    g, the step inputs and w read once, dx and dw written once, over HBM;
+    against the flops: 2 per in-plane tap for dx, 1 per in-plane tap for
+    dw's product, and the k²·H·W adds per plane of each cross-step sum, over
+    the fp32 rate (the kernel computes in fp32 on the CUDA cores)."""
+    p, h, wd = g.shape
+    r, steps = kernel // 2, len(xs)
+    taps = sum(max(h - abs(d - r), 0) for d in range(kernel)) * sum(max(wd - abs(d - r), 0) for d in range(kernel))
+    nbytes = ((2 + steps) * g.numel() + 2 * w.numel()) * g.element_size()
+    flops = p * (3.0 * taps * steps + (steps - 1) * kernel * kernel * h * wd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def step_inputs(D, x, w, kernel, steps):
+    """The inputs of ``steps`` stencil steps from x (plain forward)."""
+    xs = [x]
+    for _ in range(steps - 1):
+        xs.append(D.diffusion_step_plain(xs[-1], w, kernel))
+    return xs
+
+
+def check_bwd(D, g, xs, w, kernel, label):
+    """Backward kernel vs plain backward on the same inputs; returns the max
+    abs error over dx and dw."""
+    import torch
+
+    dx, dw = D.diffusion_planes_bwd(g, xs, w, kernel)
+    torch.cuda.synchronize()
+    rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, kernel)
+    check(dx.dtype == g.dtype and dw.dtype == w.dtype, f"{label}: dtypes {dx.dtype} {dw.dtype}")
+    tol = BWD_FP32_TOL if g.dtype == torch.float32 else BWD_BF16_TOL
+    err = 0.0
+    for name, got, ref in (("dx", dx, rdx), ("dw", dw, rdw)):
+        torch.testing.assert_close(got.float(), ref.float(), **tol, msg=lambda m: f"{label} {name}: {m}")
+        err = max(err, float((got.float() - ref.float()).abs().max()))
+    say(f"  {label}: max_abs_err={err:.3e}")
+    return err
+
+
+def write_inputs(root, n=N_IMAGES):
     from PIL import Image
 
     rng = np.random.RandomState(0)
     os.makedirs(os.path.join(root, "img"))
     os.makedirs(os.path.join(root, "dep"))
-    for i in range(N_IMAGES):
+    for i in range(n):
         # smooth random scenes: coarse noise upsampled, plus fine noise
         coarse = (rng.rand(6, 6, 3) * 255).astype(np.uint8)
         img = np.asarray(Image.fromarray(coarse).resize((SIZE, SIZE), Image.BICUBIC), np.float32)
@@ -144,11 +223,13 @@ def main():
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} x{count}")
     t0 = time.perf_counter()
-    _build.build(["diffusion_stencil"])
-    say(f"built diffusion_stencil in {time.perf_counter() - t0:.1f} s")
-    for line in _build.BUILD_LOGS.get("diffusion_stencil", "").splitlines():
-        if "ptxas" in line:
-            say(f"  {line.strip()}")
+    sources = ["diffusion_stencil", "diffusion_stencil_bwd"]
+    _build.build(sources)
+    say(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    for name in sources:
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "ptxas" in line:
+                say(f"  {name}: {line.strip()}")
 
     # ---- 2. kernel vs plain ----
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -269,7 +350,183 @@ def main():
         f"fp32 {served_ms['fp32']:.3f} ms/batch, {BATCH * 1e3 / served_ms['fp32']:.2f} images/s "
         f"(batch {BATCH}, {SIZE}², model.predict back to back) [{card}]")
 
+    # ---- 6. backward kernel vs plain backward ----
+    say(f"phase 6: backward kernel vs plain backward (P={P_TRAIN})")
+    for k, (h, w) in SHAPES:
+        x = torch.rand(P_TRAIN, h, w, generator=g, device=dev)
+        wt = MD.normalize_affinity(torch.rand(P_TRAIN, k * k, h, w, generator=g, device=dev), dim=1)
+        gr = torch.rand(P_TRAIN, h, w, generator=g, device=dev)
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            xd, wd, gd = x.to(dt), wt.to(dt), gr.to(dt)
+            check_bwd(D, gd, [xd], wd, k, f"{name} k={k} {h}x{w}, 1 step")
+            check_bwd(D, gd, step_inputs(D, xd, wd, k, STEPS), wd, k, f"{name} k={k} {h}x{w}, {STEPS} steps")
+    for name, dt, tol in (("fp32", torch.float32, BWD_FP32_TOL), ("bf16", torch.bfloat16, AUTOGRAD_BF16_TOL)):
+        x = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev).to(dt)
+        wt = MD.normalize_affinity(torch.rand(P_TRAIN, KERNEL ** 2, 12, 12, generator=g, device=dev), dim=1).to(dt)
+        gout = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev).to(dt)
+        xa, wa = x.clone().requires_grad_(), wt.clone().requires_grad_()
+        xb, wb = x.clone().requires_grad_(), wt.clone().requires_grad_()
+        before = (D.LAUNCHES, D.BWD_LAUNCHES)
+        D.diffusion_planes(xa, wa, KERNEL, STEPS).backward(gout)
+        torch.cuda.synchronize()
+        check((D.LAUNCHES, D.BWD_LAUNCHES) == (before[0] + STEPS, before[1] + STEPS),
+              f"Function {name}: launches {before} -> {(D.LAUNCHES, D.BWD_LAUNCHES)}")
+        D.diffusion_planes_plain(xb, wb, KERNEL, STEPS).backward(gout)
+        err = 0.0
+        for gname, got, ref in (("dx", xa.grad, xb.grad), ("dw", wa.grad, wb.grad)):
+            torch.testing.assert_close(got.float(), ref.float(), **tol, msg=lambda m: f"Function {name} {gname}: {m}")
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+        say(f"  Function {name}, {STEPS} steps, vs autograd through the plain forward: max_abs_err={err:.3e}")
+
+    # ---- 7. tiny cod: loss and gradients, card vs CPU ----
+    say("phase 7: tiny cod loss and every parameter gradient, fp32 card (TF32 off) vs CPU")
+    import copy
+
+    m_cpu = cod(dtype=torch.float32, seed=0, **TINY)
+    m_dev = copy.deepcopy(m_cpu).to(dev)
+    rng = np.random.RandomState(5)
+    inputs = [torch.from_numpy(a) for a in (
+        rng.randn(2, 64, 64, 3).astype(np.float32), rng.rand(2, 64, 64, 1).astype(np.float32),
+        (rng.rand(2, 64, 64, 1) > 0.5).astype(np.float32))]
+    loss_cpu = m_cpu.loss(*inputs)[0]
+    loss_cpu.backward()
+    loss_dev = m_dev.loss(*[t.to(dev) for t in inputs])[0]
+    loss_dev.backward()
+    loss_cpu, loss_dev = loss_cpu.item(), loss_dev.item()
+    check(abs(loss_dev - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu), f"tiny loss card {loss_dev} vs CPU {loss_cpu}")
+    grads_cpu = dict(m_cpu.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in grads_cpu.values())
+    worst = (0.0, "")
+    for n, p in m_dev.named_parameters():
+        ref = grads_cpu[n].grad
+        diff = float((p.grad.cpu() - ref).abs().max())
+        limit = TINY_GRAD_RTOL * max(float(ref.abs().max()), 1e-4 * scale)
+        check(diff <= limit, f"gradient of {n}: card vs CPU {diff:.3e} > {limit:.3e}")
+        worst = max(worst, (diff / limit, n))
+    say(f"  loss card {loss_dev:.7f} CPU {loss_cpu:.7f}; {len(grads_cpu)} gradients within "
+        f"{TINY_GRAD_RTOL} of their scale (closest to its limit: {worst[1]} at {worst[0]:.3f} of it)")
+    del m_cpu, m_dev
+
+    # ---- 8. full-width training through the train CLI ----
+    say(f"phase 8: train full-width cod through dgtd_tpu_torch.train.cli.main: configs/cod.yml, "
+        f"{TRAIN_N} images at {SIZE}², batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs, bf16")
+    from dgtd_tpu_torch.core.config import load_config
+    from dgtd_tpu_torch.train import cli as TC
+    from dgtd_tpu_torch.train.loop import Runner
+    from dgtd_tpu_torch.train.state import train_step
+
+    model.cpu()
+    del model
+    torch.cuda.empty_cache()
+    recipe = os.path.join(ROOT, "configs", "cod.yml")
+    grab = {}
+    planes_unspied = MD.diffusion_planes
+
+    def spy_planes(x, w, kernel, steps):
+        out = planes_unspied(x, w, kernel, steps)
+        if "x" not in grab and out.requires_grad:
+            grab["x"], grab["w"] = x.detach().clone(), w.detach().clone()
+            out.register_hook(lambda gr: grab.setdefault("g", gr.detach().clone()))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        work = os.path.join(tmp, "run")
+        overrides = [
+            f"work_dir={work}", f"train_cfg.max_epochs={TRAIN_EPOCHS}", "train_cfg.val_interval=0",
+            f"train_dataloader.batch_size={TRAIN_BATCH}",
+            f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {TRAIN_N}, 'size': {SIZE}}}",
+            "default_hooks.logger.interval=1", "default_hooks.checkpoint.interval=1",
+        ]
+        argv = [recipe] + [a for o in overrides for a in ("-o", o)]
+        MD.diffusion_planes = spy_planes
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            D.LAUNCHES = D.BWD_LAUNCHES = 0
+            trained = TC.main(argv)
+            fwd_launches, bwd_launches = D.LAUNCHES, D.BWD_LAUNCHES
+            cli_peak = torch.cuda.max_memory_allocated()
+        finally:
+            MD.diffusion_planes = planes_unspied
+        say(f"  {trained['steps']} steps in {trained['loop_s']:.3f} s; stencil launches: forward {fwd_launches}, "
+            f"backward {bwd_launches}; peak memory {cli_peak / 2**30:.3f} GiB")
+        check(trained["steps"] == TRAIN_STEPS, trained)
+        check(fwd_launches == STEPS * TRAIN_STEPS, f"forward launches {fwd_launches} != {STEPS}x{TRAIN_STEPS}")
+        check(bwd_launches == STEPS * 1 * TRAIN_STEPS, f"backward launches {bwd_launches} != {STEPS}x1x{TRAIN_STEPS}")
+        with open(os.path.join(work, "log.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r for r in records if "loss" in r]
+        check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss records")
+        check(all(np.isfinite([r["loss"], r["loss_seg"], r["loss_ssim"]]).all() for r in losses), losses)
+        say("  losses: " + ", ".join(f"{r['loss']:.5f}" for r in losses))
+        ckpts = [os.path.join(work, f"epoch_{e}.pth") for e in range(1, TRAIN_EPOCHS + 1)]
+        check(all(os.path.exists(c) for c in ckpts), ckpts)
+        loaded, missed, unused = P.load_checkpoint(cod(seed=None), ckpts[-1])
+        check(not missed and not unused, f"epoch-{TRAIN_EPOCHS} checkpoint: missed {missed[:3]} unused {unused[:3]}")
+
+        serve = os.path.join(tmp, "serve")
+        write_inputs(serve, TRAIN_BATCH)
+        out_dir = os.path.join(serve, "out")
+        D.LAUNCHES = 0
+        P.main(["--checkpoint", ckpts[-1], "--image-dir", os.path.join(serve, "img"),
+                "--depth-dir", os.path.join(serve, "dep"), "--out-dir", out_dir,
+                "--size", str(SIZE), "--batch", str(TRAIN_BATCH)])
+        check(D.LAUNCHES == STEPS, f"serving the trained checkpoint: {D.LAUNCHES} launches")
+        outs = sorted(os.listdir(out_dir))
+        check(len(outs) == TRAIN_BATCH, outs)
+        for f in outs:
+            with Image.open(os.path.join(out_dir, f)) as im:
+                check(im.size == (SIZE, SIZE) and im.mode == "L", (f, im.size, im.mode))
+        say(f"  epoch-{TRAIN_EPOCHS} checkpoint ({len(loaded)} keys) served {len(outs)} masks")
+
+        # one fp32 first step: same seed, weights, first batch, drop-path masks
+        runner = Runner(load_config(recipe, overrides[1:]), work_dir=os.path.join(tmp, "fp32"), seed=0,
+                        device=dev, dtype=torch.float32)
+        first = next(iter(runner.train_loader))
+        batch = {k: first[k] for k in ("input", "label", "depth")}
+        loss32 = float(train_step(runner.model, runner.optimizer, batch, 0, runner.seed + 1)["loss"])
+        loss16 = losses[0]["loss"]
+        rel = abs(loss16 - loss32) / abs(loss32)
+        say(f"  first-step loss bf16 {loss16:.5f} fp32 {loss32:.7f} (relative {rel:.2e}, limit {FIRST_LOSS_RTOL})")
+        check(rel <= FIRST_LOSS_RTOL, f"bf16 vs fp32 first-step loss {rel:.2e} > {FIRST_LOSS_RTOL}")
+
+    say("  backward kernel vs plain on the stencil inputs and gradient of a train step")
+    gx, gw, gg = grab["x"], grab["w"], grab["g"]
+    check(tuple(gx.shape) == (P_TRAIN, 12, 12) and gx.dtype == torch.bfloat16 and gg.dtype == torch.bfloat16,
+          (gx.shape, gx.dtype, gg.dtype))
+    gxs = step_inputs(D, gx, gw, KERNEL, STEPS)
+    train_err = check_bwd(D, gg, gxs, gw, KERNEL, f"trained bf16, {STEPS} steps")
+    train_err32 = check_bwd(D, gg.float(), [t.float() for t in gxs], gw.float(), KERNEL,
+                            f"trained, as fp32, {STEPS} steps")
+
+    # ---- 9. timings ----
+    say("phase 9: train-step and backward-kernel timings (CUDA events)")
+    bwd_rows = {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        tg, txs, tw = gg.to(dt), [t.to(dt) for t in gxs], gw.to(dt)
+        ms = cuda_time_ms(lambda: D.diffusion_planes_bwd(tg, txs, tw, KERNEL), 200)
+        plain_ms = cuda_time_ms(lambda: D.diffusion_planes_bwd_plain(tg, txs, tw, KERNEL), 50)
+        bound_ms, bound_by = stencil_bwd_bound(tg, txs, tw, KERNEL)
+        bwd_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        say(f"  stencil backward {name} ({STEPS} steps, {P_TRAIN}x12x12, k={KERNEL}): kernel {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    bwd_rows["fp32"]["err"] = train_err32
+    step_ms, peak = {}, {}
+    counter = [1]
+
+    def one_step():
+        train_step(runner.model, runner.optimizer, batch, counter[0], runner.seed + 1)
+        counter[0] += 1
+
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        runner.model.dtype = dt
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[name] = cuda_time_ms(one_step, 10, warmup=3)
+        peak[name] = torch.cuda.max_memory_allocated()
+        say(f"  train step {name}: {step_ms[name]:.3f} ms, {TRAIN_BATCH * 1e3 / step_ms[name]:.2f} images/s, "
+            f"peak memory {peak[name] / 2**30:.3f} GiB (batch {TRAIN_BATCH}, {SIZE}², back to back) [{card}]")
+
     b = rows["bf16"]
+    bb = bwd_rows["bf16"]
     say(json.dumps({"kernels": [{
         "name": "diffusion_stencil",
         "route": "cuda",
@@ -285,9 +542,40 @@ def main():
         "dtype": "bfloat16",
         "shape": f"x ({P_MAIN},12,12), w ({P_MAIN},{KERNEL * KERNEL},12,12), {STEPS} steps",
         "launches_per_batch": launches["bf16"] // summaries["bf16"]["batches"],
+        "launches_train": fwd_launches,
+        "launches_per_step": fwd_launches // TRAIN_STEPS,
         "fp32": rows["fp32"],
         "card": card,
+    }, {
+        "name": "diffusion_stencil_bwd",
+        "route": "cuda",
+        "source": "dgtd_tpu_torch/csrc/diffusion_stencil_bwd.cu",
+        "replaces": "dgtd_tpu/ops/diffusion_pallas.py:162",
+        "launches": bwd_launches,
+        "launches_per_step": bwd_launches // TRAIN_STEPS,
+        "max_abs_err": train_err,
+        "ms": bb["ms"],
+        "plain_ms": bb["plain_ms"],
+        "bound_ms": bb["bound_ms"],
+        "bound_by": bb["bound_by"],
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "shape": f"g, x ({P_TRAIN},12,12), w, dw ({P_TRAIN},{KERNEL * KERNEL},12,12), {STEPS}-step backward",
+        "fp32": bwd_rows["fp32"],
+        "card": card,
     }]}))
+    say(json.dumps({"trained": {
+        "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",
+        "size": SIZE, "batch": TRAIN_BATCH,
+        "step_ms": step_ms,
+        "images_per_s": {k: TRAIN_BATCH * 1e3 / v for k, v in step_ms.items()},
+        "peak_memory_bytes": peak,
+        "cli_steps": trained["steps"],
+        "cli_s_per_step": trained["loop_s"] / trained["steps"],
+        "cli_peak_memory_bytes": cli_peak,
+        "first_step_loss": {"bf16": loss16, "fp32": loss32},
+        "card": card,
+    }}))
     say(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -1,4 +1,5 @@
-"""Name -> class registry (counterpart of ``dgtd_tpu/core/registry.py``)."""
+"""Name -> class registries (counterpart of ``dgtd_tpu/core/registry.py``):
+recipes name components by ``type:``."""
 
 from __future__ import annotations
 
@@ -24,5 +25,14 @@ class Registry:
             )
         return self._store[key]
 
+    def build(self, cfg: dict, **extra) -> Any:
+        """Instantiate from a ``{'type': Name, **kwargs}`` config block."""
+        cfg = dict(cfg)
+        if "type" not in cfg:
+            raise KeyError(f"{self.name}: config block has no 'type' key: {cfg!r}")
+        return self.get(cfg.pop("type"))(**cfg, **extra)
+
 
 MODELS = Registry("models")
+DATASETS = Registry("datasets")
+HOOKS = Registry("hooks")

@@ -28,3 +28,15 @@ def scale_plane(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint8:
         return x.float() / 255.0
     return x
+
+
+def normalize_batch(batch):
+    """A batch dict with ``input`` normalized and uint8 ``depth``/``label``
+    scaled to [0, 1]; other keys (the host-side ``raw``) pass through."""
+    out = dict(batch)
+    if "input" in out:
+        out["input"] = normalize_image(out["input"])
+    for k in ("depth", "label"):
+        if k in out:
+            out[k] = scale_plane(out[k])
+    return out

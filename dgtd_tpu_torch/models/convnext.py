@@ -9,41 +9,48 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.image import resize_bilinear
-from .layers import LayerNorm, LayerNorm2d, conv2d, linear
+from .layers import DropPath, LayerNorm, LayerNorm2d, conv2d, linear
 
 #: channels of the FPN-fused embedding (what the prompt decoders consume)
 EMBED_DIM = 24
 
 
 class Block(nn.Module):
-    """dw7x7 -> LN -> Linear(4x) -> GELU -> Linear -> gamma, plus the residual."""
+    """dw7x7 -> LN -> Linear(4x) -> GELU -> Linear -> gamma -> DropPath, plus
+    the residual."""
 
-    def __init__(self, dim):
+    def __init__(self, dim, drop_path=0.0):
         super().__init__()
         self.dwconv = conv2d(dim, dim, 7, 1, 3, groups=dim, init="pvt")
         self.norm = LayerNorm(dim, eps=1e-6)
         self.pwconv1 = linear(dim, 4 * dim)
         self.pwconv2 = linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.ones(dim))  # layer scale, init 1.0
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x):
         y = self.dwconv(x).permute(0, 2, 3, 1)
         y = self.pwconv2(F.gelu(self.pwconv1(self.norm(y))))
-        y = y * self.gamma.to(y.dtype)
+        y = self.drop_path(y * self.gamma.to(y.dtype))
         return x + y.permute(0, 3, 1, 2)
 
 
 class ConvNeXtFPNEncoder(nn.Module):
     """4-stage ConvNeXt on an RGB-sized input + stride-4 FPN fusion to
-    ``EMBED_DIM`` channels."""
+    ``EMBED_DIM`` channels. The blocks' stochastic-depth rates are
+    ``linspace(0, drop_path_rate, Σdepths)`` in order."""
 
-    def __init__(self, dims: Sequence[int] = (128, 256, 512, 1024), depths: Sequence[int] = (3, 3, 27, 3)):
+    def __init__(self, dims: Sequence[int] = (128, 256, 512, 1024), depths: Sequence[int] = (3, 3, 27, 3),
+                 drop_path_rate: float = 0.4):
         super().__init__()
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
+        starts = np.cumsum([0, *depths])
         self.downsample_layers = nn.ModuleList(
             [nn.Sequential(conv2d(3, dims[0], 4, 4, init="pvt"), LayerNorm2d(dims[0], eps=1e-6))]
             + [
@@ -52,7 +59,7 @@ class ConvNeXtFPNEncoder(nn.Module):
             ]
         )
         self.stages = nn.ModuleList(
-            nn.Sequential(*[Block(dims[i]) for _ in range(depths[i])])
+            nn.Sequential(*[Block(dims[i], float(dpr[starts[i] + j])) for j in range(depths[i])])
             for i in range(len(dims))
         )
         self.convs = nn.ModuleList(conv2d(d, EMBED_DIM, 1, init="pvt") for d in dims)

@@ -4,7 +4,10 @@
 ``MessagePassing`` always runs in plane layout: the 1x1 affinity regressor's
 NCHW output (B, C·k², h, w) is already ``view(B·C, k², h, w)``, channel
 ``o = c·k² + t``, so the stencil (``ops/diffusion.py``) needs no transposes.
-On CUDA every step is a launch of the hand-written kernel, at every grid size.
+On CUDA every step is a launch of the hand-written forward kernel and, in
+backward, of the backward kernel, at every grid size. The gradient reaches
+the affinity regressor through the fp32 normalization and its cast to x's
+dtype.
 """
 
 from __future__ import annotations
@@ -72,14 +75,14 @@ class PromptEncoder(nn.Module):
 
     def __init__(self, latent_dim=24, grid=12, freq_rate=0.3, kernel=7, steps=4,
                  convnext_dims: Sequence[int] = (128, 256, 512, 1024),
-                 convnext_depths: Sequence[int] = (3, 3, 27, 3)):
+                 convnext_depths: Sequence[int] = (3, 3, 27, 3), convnext_drop_path_rate: float = 0.4):
         super().__init__()
         self.grid = grid
         self.freq_rate = freq_rate
         self.propagation_weight_regressor = ShapePropWeightRegressor(3, latent_dim * kernel * kernel)
         self.encoder1 = conv2d(1, latent_dim, 1, init="pvt")
         self.message_passing = MessagePassing(latent_dim, kernel, steps)
-        self.encoder2 = ConvNeXtFPNEncoder(convnext_dims, convnext_depths)
+        self.encoder2 = ConvNeXtFPNEncoder(convnext_dims, convnext_depths, convnext_drop_path_rate)
 
     def forward(self, image, depth):
         g = self.grid

@@ -20,20 +20,23 @@ from .pvt import PVT_V2_CONFIGS, PVTv2
 
 class HitNet(nn.Module):
     """forward(image, depth) NCHW -> (texture, [refine_iters stage logits],
-    second logits), all at the input resolution."""
+    second logits), all at the input resolution. Train or eval follows the
+    module's mode (BatchNorm statistics, DropPath); ``drop_path_rate`` (PVT)
+    and ``convnext_drop_path_rate`` are the recipe's 0.1 and 0.4."""
 
     def __init__(self, channel=32, variant="b2", latent_dim=24, grid=12, freq_rate=0.3,
                  diffusion_kernel=7, diffusion_steps=4,
                  convnext_dims=(128, 256, 512, 1024), convnext_depths=(3, 3, 27, 3),
-                 refine_iters=4):
+                 refine_iters=4, drop_path_rate=0.1, convnext_drop_path_rate=0.4):
         super().__init__()
         dims, _, _, depths, _ = PVT_V2_CONFIGS[variant]
         ch = channel
         self.refine_iters = refine_iters
         prompt_encoder = PromptEncoder(latent_dim, grid, freq_rate, diffusion_kernel, diffusion_steps,
-                                       convnext_dims, convnext_depths)
+                                       convnext_dims, convnext_depths, convnext_drop_path_rate)
         prompt_decoder = nn.ModuleList(PromptDecoder(dims[s], depths[s], latent_dim) for s in range(4))
-        self.backbone = PVTv2(variant, prompt_encoder=prompt_encoder, prompt_decoder=prompt_decoder)
+        self.backbone = PVTv2(variant, prompt_encoder=prompt_encoder, prompt_decoder=prompt_decoder,
+                              drop_path_rate=drop_path_rate)
 
         self.decoder_level1 = CABStack(dims[0])
         self.Translayer2_0 = BasicConv2d(dims[0], ch, 1)

@@ -91,9 +91,45 @@ class PReLU(nn.PReLU):
         return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm ``DropPath``): in train mode each
+    sample is kept with probability ``1 − rate`` and scaled by ``1/keep``.
+
+    The mask is drawn from ``self.generator``, which the caller sets
+    explicitly (:func:`set_drop_path_generator`); with none set, nothing is
+    dropped. ``cod.loss`` refuses to run without one when a rate is not 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0 or self.generator is None:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_drop_path_generator(module: nn.Module, generator) -> None:
+    """Point every ``DropPath`` under ``module`` at ``generator`` (None clears)."""
+    for m in module.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
+
+
 class BasicConv2d(nn.Module):
-    """conv (no bias) -> eval-mode BatchNorm (eps 1e-5). The reference defines
-    a ReLU but never applies it; neither does this."""
+    """conv (no bias) -> BatchNorm (eps 1e-5). The reference defines a ReLU
+    but never applies it; neither does this.
+
+    Train mode normalizes with the batch statistics (fp32) and updates the
+    running ones with flax's rule, momentum 0.9 (torch's 0.1), and flax's
+    **biased** batch variance. The reference's ``nn.BatchNorm2d`` folds the
+    unbiased variance into ``running_var``, a factor n/(n−1) larger (n = B·H·W
+    per channel); the port follows the JAX package, so its running variance
+    is that much smaller than the reference's after the same batches."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0):
         super().__init__()
@@ -101,7 +137,18 @@ class BasicConv2d(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
-        return self.bn(self.conv(x))
+        y = self.conv(x)
+        if not self.training:
+            return self.bn(y)
+        bn = self.bn
+        yf = y.float()
+        out = F.batch_norm(yf, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(yf, dim=(0, 2, 3), unbiased=False)
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+            bn.num_batches_tracked.add_(1)
+        return out.to(y.dtype)
 
 
 class CALayer(nn.Module):

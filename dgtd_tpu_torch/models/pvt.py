@@ -11,12 +11,13 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.image import resize_bilinear
-from .layers import LayerNorm, conv2d, linear
+from .layers import DropPath, LayerNorm, conv2d, linear
 
 PVT_V2_CONFIGS = {
     # name: (embed_dims, num_heads, mlp_ratios, depths, sr_ratios)
@@ -86,16 +87,20 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim, num_heads, mlp_ratio, sr_ratio):
+    """Pre-norm attention and MixFFN, each residual branch through one
+    DropPath (two independent draws per call)."""
+
+    def __init__(self, dim, num_heads, mlp_ratio, sr_ratio, drop_path=0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, sr_ratio)
+        self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x, h, w):
-        x = x + self.attn(self.norm1(x), h, w)
-        return x + self.mlp(self.norm2(x), h, w)
+        x = x + self.drop_path(self.attn(self.norm1(x), h, w))
+        return x + self.drop_path(self.mlp(self.norm2(x), h, w))
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -118,18 +123,24 @@ class PVTv2(nn.Module):
     (keys ``backbone.prompt_*``); the caller runs them and passes the
     per-block prompts to :meth:`forward`.
 
+    ``drop_path_rate`` is the last block's stochastic-depth rate; the blocks
+    get ``linspace(0, rate, Σdepths)`` in order (the dropout rates are all 0).
+
     Returns the 4 stage maps (NCHW, strides 4/8/16/32)."""
 
     def __init__(self, variant="b2", prompt_encoder: Optional[nn.Module] = None,
-                 prompt_decoder: Optional[nn.Module] = None):
+                 prompt_decoder: Optional[nn.Module] = None, drop_path_rate: float = 0.1):
         super().__init__()
         dims, heads, ratios, depths, srs = PVT_V2_CONFIGS[variant]
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
+        cur = 0
         for s in range(4):
             cin = 3 if s == 0 else dims[s - 1]
             setattr(self, f"patch_embed{s + 1}", OverlapPatchEmbed(
                 cin, dims[s], patch=7 if s == 0 else 3, stride=4 if s == 0 else 2))
             setattr(self, f"block{s + 1}", nn.ModuleList(
-                Block(dims[s], heads[s], ratios[s], srs[s]) for _ in range(depths[s])))
+                Block(dims[s], heads[s], ratios[s], srs[s], float(dpr[cur + i])) for i in range(depths[s])))
+            cur += depths[s]
             setattr(self, f"norm{s + 1}", LayerNorm(dims[s], eps=1e-6))
         if prompt_encoder is not None:
             self.prompt_encoder = prompt_encoder

@@ -1,26 +1,37 @@
-"""Where a served batch's time goes on the GPU (counterpart of
-``dgtd_tpu/tools/profile_step.py``, predict mode).
+"""Where a served batch's or a train step's time goes on the GPU
+(counterpart of ``dgtd_tpu/tools/profile_step.py``).
 
-Builds full-width ``cod`` from a seed, serves a few batches of random
-inputs through ``model.predict``, and prints:
-  * host time to enqueue one batch vs its device time (host-bound if close);
-  * device time per layer (CUDA events at module boundaries on the stream);
+Builds full-width ``cod`` from a seed and runs a few served batches of random
+inputs through ``model.predict`` or, with ``--train``, a few train steps
+(``configs/cod.yml``'s optimizer, drop-path on) on one synthetic batch, and
+prints:
+  * host time to enqueue one batch or step vs its device time (host-bound if
+    close);
+  * device time per forward layer (CUDA events at module boundaries on the
+    stream);
   * device busy share and the top kernels by device time (``torch.profiler``).
 
-    python -m dgtd_tpu_torch.tools.profile_step [--batch 8] [--size 384] [--fp32] [--iters 10]
+    python -m dgtd_tpu_torch.tools.profile_step [--train] [--batch 8|10] [--size 384] [--fp32] [--iters 10]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import os
 import subprocess
 import time
 
 import torch
 
+from ..core.config import load_config
 from ..core.device import resolve_device
 from ..models.cod import cod
+from ..train.optim import Optimizer
+from ..train.state import train_step
+
+RECIPE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                      "configs", "cod.yml")
 
 #: layers timed by CUDA events: (label, module path under ``model.hitnet``)
 LAYERS = [
@@ -35,7 +46,9 @@ LAYERS = [
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("stencil_step", "diffusion stencil (ours)"), ("softmax", "softmax"),
+    for key, cat in (("stencil_step", "diffusion stencil (ours)"), ("stencil_bwd", "diffusion stencil backward (ours)"),
+                     ("multi_tensor", "optimizer (foreach)"), ("dgrad", "conv backward"),
+                     ("wgrad", "conv backward"), ("softmax", "softmax"),
                      ("layer_norm", "layer norm"), ("batch_norm", "batch norm"), ("bn_", "batch norm"),
                      ("fft", "fft"), ("im2col", "im2col"), ("upsample", "resize"),
                      ("conv", "conv"), ("gemm", "gemm/matmul"), ("sm90", "gemm/matmul"),
@@ -48,12 +61,15 @@ def _category(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--train", action="store_true", help="profile train steps instead of served batches")
+    ap.add_argument("--batch", type=int, default=None, help="default: 8 served, 10 (the recipe's) in training")
     ap.add_argument("--size", type=int, default=384)
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
+    args.batch = args.batch or (10 if args.train else 8)
     dev = resolve_device("cuda")
+    what = "step" if args.train else "batch"
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -62,8 +78,21 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(0)
     img = torch.randn(args.batch, args.size, args.size, 3, generator=g, device=dev)
     depth = torch.rand(args.batch, args.size, args.size, 1, generator=g, device=dev)
+    if args.train:
+        label = (torch.rand(args.batch, args.size, args.size, 1, generator=g, device=dev) > 0.5).float()
+        opt = Optimizer(model.named_parameters(), load_config(RECIPE)["optim_wrapper"], 100, 1000)
+        batch = {"input": img, "depth": depth, "label": label}
+        count = [0]
+
+        def run():
+            train_step(model, opt, batch, count[0], 1)
+            count[0] += 1
+    else:
+        def run():
+            model.predict(img, depth)
+
     for _ in range(3):
-        model.predict(img, depth)
+        run()
     torch.cuda.synchronize()
 
     # host enqueue vs device time of one batch
@@ -74,14 +103,14 @@ def main(argv=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        model.predict(img, depth)
+        run()
         end.record()
         host.append((time.perf_counter() - t0) * 1e3)
         end.synchronize()
         dev_ms.append(start.elapsed_time(end))
     host_ms, batch_ms = sorted(host)[len(host) // 2], sorted(dev_ms)[len(dev_ms) // 2]
-    print(f"batch {args.batch} at {args.size}², {'fp32' if args.fp32 else 'bf16'}: "
-          f"{batch_ms:.3f} ms per batch on the stream (median of {args.iters}), "
+    print(f"{'train step' if args.train else 'served batch'}, batch {args.batch} at {args.size}², "
+          f"{'fp32' if args.fp32 else 'bf16'}: {batch_ms:.3f} ms per {what} on the stream (median of {args.iters}), "
           f"host enqueue {host_ms:.3f} ms ({host_ms / batch_ms:.0%} of it)")
 
     # device time per layer: events around module forwards, on the stream
@@ -106,11 +135,11 @@ def main(argv=None):
         else:
             handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
     for _ in range(args.iters):
-        model.predict(img, depth)
+        run()
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    print("device time per layer (ms per batch, mean; spans include any idle gaps):")
+    print(f"device time per forward layer (ms per {what}, mean; spans include any idle gaps):")
     for label, _ in LAYERS:
         total = sum(s.elapsed_time(e) for s, e in spans[label]) / args.iters
         print(f"  {label:45s} {total:9.3f}")
@@ -121,13 +150,16 @@ def main(argv=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            model.predict(img, depth)
+            run()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device-side spans of annotations (e.g. "Optimizer.step#AdamW.step")
+    # cover kernels that are also listed: count kernels only
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("Optimizer.")]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(f"profiler window {window_ms:.3f} ms for {args.iters} batches; kernels {len(kernels)} "
-          f"({len(kernels) / args.iters:.0f} per batch), device busy {busy_ms:.3f} ms "
+    print(f"profiler window {window_ms:.3f} ms for {args.iters} {what}s; kernels {len(kernels)} "
+          f"({len(kernels) / args.iters:.0f} per {what}), device busy {busy_ms:.3f} ms "
           f"({busy_ms / window_ms:.0%}; idle {1 - busy_ms / window_ms:.0%})")
     by_name = collections.Counter()
     by_cat = collections.Counter()
@@ -135,10 +167,10 @@ def main(argv=None):
         t = e.time_range.elapsed_us() / 1e3
         by_name[e.name] += t
         by_cat[_category(e.name)] += t
-    print("device time by kernel category (ms per batch):")
+    print(f"device time by kernel category (ms per {what}):")
     for cat, t in by_cat.most_common():
         print(f"  {cat:28s} {t / args.iters:9.3f}  {t / busy_ms:6.1%}")
-    print("top kernels (ms per batch):")
+    print(f"top kernels (ms per {what}):")
     for name, t in by_name.most_common(15):
         print(f"  {t / args.iters:9.3f}  {name[:110]}")
 

@@ -1,0 +1,46 @@
+"""Train from a recipe (counterpart of the root ``train.py``):
+
+    python -m dgtd_tpu_torch.train configs/cod.yml -o work_dir=./output/run \\
+        [-o key=value ...] [--fp32] [--resume work_dir/epoch_N.pth] [--device cpu]
+
+bf16 autocast with fp32 parameters unless ``--fp32``. Runs on CUDA unless
+``--device`` names another device; a missing card raises. ``-m val`` raises:
+the val pass comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..core.config import get_dotted, load_config
+from ..core.device import resolve_device
+from .loop import VAL_SLICE, Runner
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("config")
+    ap.add_argument("-o", "--override", action="append", default=[], help="dotted key=value")
+    ap.add_argument("-m", "--mode", default="train", choices=["train", "val"])
+    ap.add_argument("--fp32", action="store_true", help="disable bf16 compute")
+    ap.add_argument("--resume", default=None, help="checkpoint path to resume from")
+    ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the CLI; returns the Runner's summary plus ``work_dir``."""
+    args = parse_args(argv)
+    if args.mode == "val":
+        raise NotImplementedError(f"-m val: {VAL_SLICE}")
+    device = resolve_device(args.device)
+    cfg = load_config(args.config, args.override)
+    work_dir = get_dotted(cfg, "work_dir", "./output/run")
+    runner = Runner(cfg, work_dir=work_dir, seed=int(get_dotted(cfg, "seed", 0)), device=device,
+                    dtype=torch.float32 if args.fp32 else torch.bfloat16)
+    if args.resume:
+        runner.resume(args.resume)
+    summary = runner.train()
+    return {**summary, "work_dir": work_dir}

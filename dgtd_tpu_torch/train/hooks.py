@@ -1,0 +1,166 @@
+"""Runner hooks: logging, checkpointing, pretrained-weight init (counterpart
+of ``dgtd_tpu/train/hooks.py``). ``ProfilerHook`` waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core.registry import HOOKS
+
+
+class Hook:
+    priority = 50
+
+    def before_train(self, runner):
+        pass
+
+    def before_train_epoch(self, runner):
+        pass
+
+    def after_train_iter(self, runner, metrics: Dict[str, Any]):
+        pass
+
+    def after_train_epoch(self, runner):
+        pass
+
+    def after_train(self, runner):
+        """Fired once when training ends, also when it ends in an exception."""
+        pass
+
+
+@HOOKS.register
+class LoggerHook(Hook):
+    """Every ``interval`` steps one JSON record (step, epoch, images/s since
+    the last record, the loss terms) to stdout and ``log.jsonl``. Unless
+    ``ignore_last``, an epoch's last step is logged too."""
+
+    def __init__(self, interval: int = 20, ignore_last: bool = False):
+        self.interval = interval
+        self.ignore_last = ignore_last
+        self._t0 = None
+        self._last_step = 0
+        self._last_logged = -1
+        self._pending = None
+
+    def before_train_epoch(self, runner):
+        # the window starts with the epoch: a checkpoint save between epochs
+        # is not a slower step
+        self._t0 = time.time()
+        self._last_step = runner.host_step
+
+    def _emit(self, runner, step, metrics):
+        values = {k: round(float(v), 5) for k, v in metrics.items()}  # waits for the step
+        now = time.time()
+        ips = (step - self._last_step) * runner.batch_size / max(now - self._t0, 1e-9)
+        self._t0, self._last_step, self._last_logged = now, step, step
+        runner.log({"step": step, "epoch": runner.epoch, "imgs_per_sec": round(ips, 2), **values})
+
+    def after_train_iter(self, runner, metrics):
+        step = runner.host_step
+        if step % self.interval == 0:
+            self._emit(runner, step, metrics)
+        else:
+            self._pending = metrics
+
+    def after_train_epoch(self, runner):
+        step = runner.host_step
+        if not self.ignore_last and step != self._last_logged and self._pending is not None:
+            self._emit(runner, step, self._pending)
+        self._pending = None
+
+
+@HOOKS.register
+class CheckpointHook(Hook):
+    """``work_dir/epoch_N.pth`` every ``interval`` epochs; with ``max_keep``
+    only the newest N are kept."""
+
+    def __init__(self, interval: int = 10, by_epoch: bool = True, max_keep: Optional[int] = None):
+        if not by_epoch:
+            raise ValueError("CheckpointHook saves by epoch only (by_epoch: true)")
+        self.interval = interval
+        self.max_keep = max_keep
+        self._saved = []
+
+    def after_train_epoch(self, runner):
+        if runner.epoch % self.interval == 0:
+            self._saved.append(runner.save_checkpoint(f"epoch_{runner.epoch}"))
+            while self.max_keep and len(self._saved) > self.max_keep:
+                old = self._saved.pop(0)
+                if os.path.exists(old):
+                    os.remove(old)
+                runner.log({"checkpoint_evicted": old})
+
+
+def _pretrain_state(path: str, port_prefix: str, jax_subtree: str) -> Dict[str, torch.Tensor]:
+    """A pretrained tower's weights, keyed relative to ``port_prefix``: a
+    ``.pth`` state_dict with keys relative to the tower (the official PVTv2
+    and ConvNeXt files), or a ``.npz`` of the JAX package's converted tower
+    (keys relative to ``jax_subtree``), carried across by the key table."""
+    if path.endswith(".npz"):
+        from ..convert import map_flax_key
+
+        out = {}
+        with np.load(path) as z:
+            for k in z.files:
+                key = k[len("params/"):] if k.startswith("params/") else k
+                hit = map_flax_key(f"{jax_subtree}/{key}")
+                if hit is not None and hit[0].startswith(port_prefix + "."):
+                    out[hit[0][len(port_prefix) + 1:]] = torch.from_numpy(
+                        np.array(hit[1](np.asarray(z[k], np.float32)), order="C"))
+        return out
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for wrap in ("model", "state_dict"):
+        if isinstance(state, dict) and wrap in state:
+            state = state[wrap]
+    return state
+
+
+@HOOKS.register
+class our_init(Hook):
+    """The ``cod`` init hook: before training, load a pretrained PVTv2 into
+    ``hitnet.backbone`` and a ConvNeXt into the prompt encoder's tower.
+
+    With no paths it does nothing (the recipe names none). A named file that
+    is missing, or that matches no parameter, raises. After a resume it
+    loads nothing: the checkpoint already holds the fine-tuned weights.
+    ``val_ckpt`` belongs to the val pass, which waits for a later slice."""
+
+    priority = 40
+    towers = (("backbone_ckpt", "hitnet.backbone", "hitnet/backbone"),
+              ("convnext_ckpt", "hitnet.backbone.prompt_encoder.encoder2", "hitnet/prompt_encoder/encoder2"))
+
+    def __init__(self, backbone_ckpt: Optional[str] = None, convnext_ckpt: Optional[str] = None,
+                 val_ckpt: Optional[str] = None):
+        self.backbone_ckpt = backbone_ckpt
+        self.convnext_ckpt = convnext_ckpt
+        self.val_ckpt = val_ckpt
+
+    def before_train(self, runner):
+        if runner.resumed:
+            runner.log({"hook": "our_init", "skip_pretrains": "resumed"})
+            return
+        for attr, port_prefix, jax_subtree in self.towers:
+            path = getattr(self, attr)
+            if path:
+                self._load(runner, path, port_prefix, jax_subtree)
+
+    def _load(self, runner, path, port_prefix, jax_subtree):
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"our_init: {path} does not exist")
+        module = runner.model.get_submodule(port_prefix)
+        state = _pretrain_state(path, port_prefix, jax_subtree)
+        own = module.state_dict()
+        matched = {k: v for k, v in state.items() if k in own and tuple(v.shape) == tuple(own[k].shape)}
+        if not matched:
+            raise ValueError(
+                f"our_init: 0 of {len(state)} arrays from {path} match a parameter of {port_prefix}"
+                " — wrong checkpoint for this tower?"
+            )
+        module.load_state_dict(matched, strict=False)
+        runner.log({"hook": "our_init", "loaded": len(matched), "from": path, "into": port_prefix})

@@ -56,6 +56,25 @@ def extract_patches(x: torch.Tensor, kernel: int, padding: int) -> torch.Tensor:
     return cols.view(b, c, kernel * kernel, out_h, out_w)
 
 
+def avg_pool(x: torch.Tensor, kernel: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """``F.avg_pool2d`` with ``count_include_pad=True``, fp32 inside, in x's
+    dtype."""
+    y = F.avg_pool2d(x.float(), kernel, stride, padding, count_include_pad=True)
+    return y.to(x.dtype)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflection pad of the two spatial dims (``nn.ReflectionPad2d``)."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def normalize_01(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Min-max normalize with ONE min and max over the whole tensor (the
+    whole batch, not per image), as the reference's loss does."""
+    lo, hi = x.min(), x.max()
+    return (x - lo) / (hi - lo + eps)
+
+
 def fft_high_pass(x: torch.Tensor, rate: float) -> torch.Tensor:
     """FFT high-pass texture: zero a centered low-frequency square of side
     ``2 * int(sqrt(H*W*rate)//2)`` of the shifted spectrum (norm='forward'),

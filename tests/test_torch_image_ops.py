@@ -99,3 +99,34 @@ def test_list_images_and_override_parser_match_jax(tmp_path):
     assert list_images(str(tmp_path)) == jax_list_images(str(tmp_path)) == ["a.JPG", "b.png", "c.webp"]
     for raw in ("b0", "[1,1,2,1]", "true", "False", "null", "3", "0.5", "(8, 16)", "x=y"):
         assert _parse_value(raw) == jax_parse_value(raw)
+
+
+@pytest.mark.parametrize("kernel,stride,pad,hw", [(31, 1, 15, (40, 33)), (3, 1, 0, (12, 17)), (3, 2, 1, (9, 10))])
+def test_avg_pool_matches_jax(kernel, stride, pad, hw):
+    x = np.random.RandomState(kernel + hw[1]).rand(2, *hw, 3).astype(np.float32)
+    ref = np.asarray(J.avg_pool(jnp.asarray(x), kernel, stride, pad))
+    np.testing.assert_allclose(nhwc(T.avg_pool(nchw(x), kernel, stride, pad)), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_reflect_pad_and_normalize_01_match_jax():
+    x = np.random.RandomState(3).randn(2, 7, 9, 3).astype(np.float32)
+    np.testing.assert_array_equal(nhwc(T.reflect_pad(nchw(x), 1)), np.asarray(J.reflect_pad(jnp.asarray(x), 1)))
+    # one min and max over the whole batch: image 0, inside image 1's range,
+    # does not reach 0 or 1
+    x[1] *= 4.0
+    got = nhwc(T.normalize_01(nchw(x)))
+    np.testing.assert_allclose(got, np.asarray(J.normalize_01(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+    assert 0.0 < got[0].min() and got[0].max() < 1.0
+
+
+def test_normalize_batch_matches_jax():
+    rng = np.random.RandomState(4)
+    batch = {"input": rng.randint(0, 256, (2, 5, 6, 3)).astype(np.uint8),
+             "depth": rng.randint(0, 256, (2, 5, 6, 1)).astype(np.uint8),
+             "label": rng.rand(2, 5, 6, 1).astype(np.float32), "raw": ["a", "b"]}
+    ref = jax_norm.normalize_batch({k: jnp.asarray(v) if k != "raw" else v for k, v in batch.items()})
+    got = port_norm.normalize_batch({k: torch.from_numpy(v) if k != "raw" else v for k, v in batch.items()})
+    assert got["raw"] == ["a", "b"]
+    for k in ("input", "depth", "label"):
+        assert got[k].dtype == torch.float32
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-6, atol=1e-6)
