@@ -31,9 +31,30 @@ Phases (any failure exits non-zero):
      kernel re-checked on the stencil inputs and upstream gradient captured
      in a train step;
   9. time train steps back to back (bf16 and fp32), the CLI loop, peak
-     memory, and the backward kernel against its bound and its plain version.
+     memory, and the backward kernel against its bound and its plain version;
+ 10. hold the three multi-scale deformable attention kernels (forward,
+     dValue, dLocation/dWeight) against their plain versions: channels
+     {30, 32, 64, 71, 1025, 2048, 3096} on two small levels and the 4-level
+     layout, fp32 and bf16 value, locations off the levels and on integer
+     pixel coordinates;
+ 11. train the ``MSDeformAttn`` layer at Deformable DETR's encoder width
+     (d_model 256, 8 heads, 4 levels of 64²/32²/16²/8², 4 points; N = 2,
+     Lq = S = 5440; seeded weights): 4 forward+backward iterations on
+     distinct seeded reference points with each kernel's launch count read
+     around them; the first iteration's output and every gradient held to
+     the same layer on the CPU; a bf16-autocast iteration; the op, each
+     kernel and its plain version timed at the captured tensors;
+ 12. the NHWC stencil on tap-major weights: its forward kernel against the
+     plain version (the phase-2 grids, B = 8, C = 24, fp32 and bf16), its
+     gradient (through the plane backward kernel) against autograd through
+     the plain version, and its time at the served stencil's work;
+ 13. the LayerNorm kernel against its plain version (C in {64, 130, 1024,
+     2048}, fp32 and bf16, mean-0 and mean-100 rows), then forward and
+     backward at a PVTv2-b2 stage-1 and a ConvNeXt-B stage-1 shape of a
+     served batch, timed beside ``F.layer_norm``.
 
-Prints a ``kernels`` JSON line, a served-throughput line and a ``trained``
+Prints a ``kernels`` JSON line (all seven counterparts of the JAX package's
+Pallas kernels), a served-throughput line, a ``trained`` and an ``msda``
 JSON line, each with the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -83,6 +104,36 @@ TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
 FIRST_LOSS_RTOL = 1e-2
 # H100 SXM peaks: HBM bytes/s; fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+SOURCES = ["diffusion_stencil", "diffusion_stencil_bwd", "msda_fwd", "msda_bwd", "layernorm"]
+# MSDA kernel checks: tests/test_msda.py's channel widths on its two small
+# levels, and the 4-level layout of its backward test
+MSDA_CHANNELS = (30, 32, 64, 71, 1025, 2048, 3096)
+MSDA_SMALL = ((6, 4), (3, 2))
+MSDA_FOUR = ((8, 8), (4, 4), (2, 2), (1, 1))
+# tests/test_msda.py's tolerances (forward and dValue atol 1e-6, dLocation
+# 1e-5, dWeight 1e-6, rtol 1e-4); a bf16 output one bf16 ulp (kernel and
+# plain both sum in fp32 and round once)
+MSDA_TOL = {"out": dict(rtol=1e-4, atol=1e-6), "dvalue": dict(rtol=1e-4, atol=1e-6),
+            "dloc": dict(rtol=1e-4, atol=1e-5), "daw": dict(rtol=1e-4, atol=1e-6)}
+MSDA_BF16_OUT_TOL = dict(rtol=2 ** -7, atol=1e-6)
+# at the encoder layer's own tensors value is O(1) (value_proj of N(0, 1)
+# inputs), not [0, 0.01): the channel sums that cancel (dLocation, dWeight)
+# keep fp32 rounding of ~1e-7 of the sum of their |terms|, and dLocation
+# carries a factor W_l = 64; there each output is held to 1e-6 of its
+# largest entry where that exceeds the atol above
+MSDA_SCALE_ATOL = 1e-6
+# the encoder layer: tools/revalidate_onchip.py's MSDA configuration
+ENC_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
+ENC_N, ENC_D_MODEL, ENC_HEADS, ENC_POINTS, ENC_ITERS = 2, 256, 8, 4, 4
+ENC_S = sum(h * w for h, w in ENC_SHAPES)  # = Lq = 5440
+LAYER_RTOL = 1e-4  # card vs CPU, each tensor to 1e-4 of its largest entry
+# LayerNorm: the same fp32 two-pass arithmetic in another order, at
+# tests/test_layernorm_pallas.py's rtol 1e-4 / atol 1e-5; on mean-100 rows
+# the means differ by a few ulps of 100 (7.6e-6 each) times rstd·|scale|, so
+# atol 1e-4; bf16 one ulp
+LN_FP32_TOL = {0.0: dict(rtol=1e-4, atol=1e-5), 100.0: dict(rtol=1e-4, atol=1e-4)}
+LN_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+LN_SHAPES = {"pvt_b2_stage1": (8 * 96 * 96, 64), "convnext_b_stage1": (8 * 96 * 96, 128)}
 
 
 def say(*parts):
@@ -180,6 +231,109 @@ def check_bwd(D, g, xs, w, kernel, label):
     return err
 
 
+def msda_inputs(channels, seed, shapes, lq, n=2, m=2, p=3, dev="cuda"):
+    """value in [0, 0.01) as tests/test_msda.py makes it (dLocation is a
+    difference of corner sums over the channels, whose fp32 rounding at 3096
+    channels of O(1) values alone would pass atol 1e-5), g in [0, 1); loc in
+    [-0.2, 1.2) with a third of the samples on integer pixel coordinates
+    (corners off every side); aw normalized over levels x points. fp32
+    tensors on ``dev``."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    s = sum(h * w for h, w in shapes)
+    value = rng.rand(n, s, m, channels).astype(np.float32) * 0.01
+    loc = (rng.rand(n, lq, m, len(shapes), p, 2) * 1.4 - 0.2).astype(np.float32)
+    third = lq // 3
+    for lid, (h, w) in enumerate(shapes):
+        loc[:, :third, :, lid, :, 0] = (rng.randint(-1, w + 1, size=(n, third, m, p)) + 0.5) / w
+        loc[:, :third, :, lid, :, 1] = (rng.randint(-1, h + 1, size=(n, third, m, p)) + 0.5) / h
+    aw = rng.rand(n, lq, m, len(shapes), p).astype(np.float32) + 1e-5
+    aw /= aw.sum(axis=(-1, -2), keepdims=True)
+    g = rng.rand(n, lq, m * channels).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (value, loc, aw, g)]
+
+
+def check_msda(A, value, loc, aw, g, shapes, label, scale_atol=0.0):
+    """The three MSDA kernels vs their plain versions on the same inputs;
+    returns the max abs error of each output. ``scale_atol`` raises each
+    atol to that fraction of the output's largest entry."""
+    import torch
+
+    out = A.ms_deform_attn_fwd(value, shapes, loc, aw)
+    dv = A.ms_deform_attn_dvalue(g, value, shapes, loc, aw)
+    dloc, daw = A.ms_deform_attn_dlocw(g, value, shapes, loc, aw)
+    torch.cuda.synchronize()
+    check(out.dtype == value.dtype and dv.dtype == dloc.dtype == daw.dtype == torch.float32,
+          f"{label}: dtypes {out.dtype} {dv.dtype} {dloc.dtype} {daw.dtype}")
+    rdl, rda = A.ms_deform_attn_dlocw_plain(g, value, shapes, loc, aw)
+    refs = {"out": A.ms_deform_attn_plain(value, shapes, loc, aw),
+            "dvalue": A.ms_deform_attn_dvalue_plain(g, value, shapes, loc, aw), "dloc": rdl, "daw": rda}
+    errs = {}
+    for name, got in (("out", out), ("dvalue", dv), ("dloc", dloc), ("daw", daw)):
+        tol = dict(MSDA_BF16_OUT_TOL if name == "out" and value.dtype != torch.float32 else MSDA_TOL[name])
+        got, ref = got.float(), refs[name].float()
+        tol["atol"] = max(tol["atol"], scale_atol * float(ref.abs().max()))
+        torch.testing.assert_close(got, ref, **tol, msg=lambda msg: f"{label} {name}: {msg}")
+        errs[name] = float((got - ref).abs().max())
+    return errs
+
+
+def msda_corners(loc, shapes):
+    """In-range bilinear corners of these locations (the kernels skip the
+    others): the data-dependent part of the MSDA work."""
+    import torch
+
+    total = 0
+    for lid, (h, w) in enumerate(shapes):
+        x = torch.floor(loc[:, :, :, lid, :, 0] * w - 0.5)
+        y = torch.floor(loc[:, :, :, lid, :, 1] * h - 0.5)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                total += int((((x + dx) >= 0) & ((x + dx) < w) & ((y + dy) >= 0) & ((y + dy) < h)).sum())
+    return total
+
+
+def msda_bounds(value, loc, aw, shapes):
+    """Least time (ms) of each MSDA kernel on these inputs, and what bounds
+    it. Bytes: each input read once, each output written once (forward: value,
+    loc, aw -> out; dValue: g, loc, aw -> an fp32 value-sized gradient;
+    dLocation/dWeight: g, value, loc, aw -> dloc, daw in fp32). Operations on
+    the fp32 rate: per in-range corner and channel, 2 (forward FMA), 2
+    (dValue's product and add), 6 (dLocation/dWeight's three bilinear sums),
+    plus 6 per sample and channel for dLocation/dWeight's products with g."""
+    n, s, m, d = value.shape
+    es = value.element_size()
+    g_bytes = loc.shape[1] * n * m * d * es
+    lb, ab = loc.numel() * 4, aw.numel() * 4
+    corners, samples = msda_corners(loc, shapes), aw.numel()
+    work = {
+        "msda_fwd": (value.numel() * es + lb + ab + g_bytes, 2.0 * corners * d),
+        "msda_dvalue": (g_bytes + lb + ab + value.numel() * 4, 2.0 * corners * d),
+        "msda_dlocw": (g_bytes + value.numel() * es + 2 * (lb + ab), 6.0 * corners * d + 6.0 * samples * d),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def layer_norm_bound(x):
+    """Least time (ms) of one LayerNorm on x: x read and the output written
+    once, scale and bias (fp32) read once; ~8 flops per value on the fp32
+    rate."""
+    c = x.shape[-1]
+    nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 8.0 * x.numel() / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_rel_to_scale(got, ref):
+    """max |got - ref| over the largest |ref|."""
+    return float((got.float().cpu() - ref.float()).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
 def write_inputs(root, n=N_IMAGES):
     from PIL import Image
 
@@ -197,7 +351,10 @@ def write_inputs(root, n=N_IMAGES):
 
 
 def main():
+    import copy
+
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -223,10 +380,9 @@ def main():
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind} x{count}")
     t0 = time.perf_counter()
-    sources = ["diffusion_stencil", "diffusion_stencil_bwd"]
-    _build.build(sources)
-    say(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
-    for name in sources:
+    _build.build(SOURCES)
+    say(f"built {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "ptxas" in line:
                 say(f"  {name}: {line.strip()}")
@@ -380,7 +536,6 @@ def main():
 
     # ---- 7. tiny cod: loss and gradients, card vs CPU ----
     say("phase 7: tiny cod loss and every parameter gradient, fp32 card (TF32 off) vs CPU")
-    import copy
 
     m_cpu = cod(dtype=torch.float32, seed=0, **TINY)
     m_dev = copy.deepcopy(m_cpu).to(dev)
@@ -525,6 +680,221 @@ def main():
         say(f"  train step {name}: {step_ms[name]:.3f} ms, {TRAIN_BATCH * 1e3 / step_ms[name]:.2f} images/s, "
             f"peak memory {peak[name] / 2**30:.3f} GiB (batch {TRAIN_BATCH}, {SIZE}², back to back) [{card}]")
 
+    del runner, batch
+    torch.cuda.empty_cache()
+
+    # ---- 10. MSDA kernels vs plain ----
+    from dgtd_tpu_torch.ops import layernorm as L
+    from dgtd_tpu_torch.ops import msda as A
+
+    say("phase 10: MSDA kernels vs plain (forward, dValue, dLocation/dWeight)")
+    cases = [(c, MSDA_SMALL, dict(lq=40)) for c in MSDA_CHANNELS]
+    cases.append((32, MSDA_FOUR, dict(lq=150, m=8, p=4)))
+    for i, (channels, shapes, kw) in enumerate(cases):
+        value, loc, aw, gr = msda_inputs(channels, 100 + i, shapes, dev=dev, **kw)
+        for name, v, gv in (("fp32", value, gr), ("bf16", value.bfloat16(), gr.bfloat16())):
+            errs = check_msda(A, v, loc, aw, gv, shapes, f"{name} D={channels} {len(shapes)} levels")
+            say(f"  {name} D={channels}, {len(shapes)} levels: max_abs_err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+
+    # ---- 11. the MSDeformAttn layer at Deformable DETR's encoder width ----
+    say(f"phase 11: MSDeformAttn d_model {ENC_D_MODEL}, {ENC_HEADS} heads, levels {ENC_SHAPES}, {ENC_POINTS} points; "
+        f"N={ENC_N}, Lq=S={ENC_S}; {ENC_ITERS} forward+backward iterations, fp32 (TF32 off)")
+    layer = A.MSDeformAttn(ENC_D_MODEL, len(ENC_SHAPES), ENC_HEADS, ENC_POINTS, seed=0)
+    layer_cpu = copy.deepcopy(layer)
+    layer.to(dev)
+    rng = np.random.RandomState(11)
+    query_np = rng.randn(ENC_N, ENC_S, ENC_D_MODEL).astype(np.float32)
+    value_np = rng.randn(ENC_N, ENC_S, ENC_D_MODEL).astype(np.float32)
+    target_np = rng.randn(ENC_N, ENC_S, ENC_D_MODEL).astype(np.float32)
+    refs_np = [rng.rand(ENC_N, ENC_S, len(ENC_SHAPES), 2).astype(np.float32) for _ in range(ENC_ITERS)]
+    query, value_in, target = (torch.from_numpy(a).to(dev) for a in (query_np, value_np, target_np))
+    op_unspied, grabbed = A.ms_deform_attn, {}
+
+    def spy_op(v, shapes, loc, aw):
+        grabbed.setdefault("op", (v.detach().clone(), loc.detach().clone(), aw.detach().clone()))
+        return op_unspied(v, shapes, loc, aw)
+
+    def layer_iteration(lay, q, r, v, tgt):
+        lay.zero_grad(set_to_none=True)
+        q, v = q.clone().requires_grad_(), v.clone().requires_grad_()
+        out = lay(q, r, v, ENC_SHAPES)
+        loss = ((out.float() - tgt) ** 2).mean()
+        loss.backward()
+        return out.detach(), loss.detach(), q.grad, v.grad
+
+    A.ms_deform_attn = spy_op
+    try:
+        first = None
+        A.LAUNCHES = A.DVALUE_LAUNCHES = A.DLOCW_LAUNCHES = 0
+        for it in range(ENC_ITERS):
+            res = layer_iteration(layer, query, torch.from_numpy(refs_np[it]).to(dev), value_in, target)
+            if first is None:
+                first = (res, {n: p.grad.detach().clone() for n, p in layer.named_parameters()})
+        torch.cuda.synchronize()
+        msda_launches = {"msda_fwd": A.LAUNCHES, "msda_dvalue": A.DVALUE_LAUNCHES, "msda_dlocw": A.DLOCW_LAUNCHES}
+    finally:
+        A.ms_deform_attn = op_unspied
+    say(f"  launches in {ENC_ITERS} iterations: {msda_launches}")
+    for name, n_launch in msda_launches.items():
+        check(n_launch == ENC_ITERS, f"{name}: {n_launch} launches in {ENC_ITERS} iterations (one per call)")
+    (out_dev, loss_dev, dq_dev, dv_dev), pgrads_dev = first
+    check(bool(torch.isfinite(out_dev).all()) and out_dev.shape == (ENC_N, ENC_S, ENC_D_MODEL), out_dev.shape)
+
+    # the CPU run samples at the card's locations: cuBLAS and MKL round the
+    # offsets' linear differently, which moves a few of the 1.39M samples
+    # across a pixel coordinate, where dLocation jumps; the gradient still
+    # flows through the CPU's own locations
+    card_loc, pin = grabbed["op"][1].cpu(), {}
+
+    def pinned_op(v, shapes, loc, aw):
+        pin["max_loc_diff"] = float((card_loc - loc.detach()).abs().max())
+        return op_unspied(v, shapes, loc + (card_loc - loc).detach(), aw)
+
+    t0 = time.perf_counter()
+    A.ms_deform_attn = pinned_op
+    try:
+        out_cpu, loss_cpu, dq_cpu, dv_cpu = layer_iteration(
+            layer_cpu, torch.from_numpy(query_np), torch.from_numpy(refs_np[0]), torch.from_numpy(value_np),
+            torch.from_numpy(target_np))
+    finally:
+        A.ms_deform_attn = op_unspied
+    cpu_s = time.perf_counter() - t0
+    layer_errs = {"out": max_rel_to_scale(out_dev, out_cpu), "d_query": max_rel_to_scale(dq_dev, dq_cpu),
+                  "d_value": max_rel_to_scale(dv_dev, dv_cpu)}
+    for n, p in layer_cpu.named_parameters():
+        layer_errs[f"d_{n}"] = max_rel_to_scale(pgrads_dev[n], p.grad)
+    worst = max(layer_errs.items(), key=lambda kv: kv[1])
+    say(f"  card vs CPU (plain path, {cpu_s:.1f} s; locations pinned to the card's, which differed by at most "
+        f"{pin['max_loc_diff']:.2e}), first iteration: loss {float(loss_dev):.7f} vs {float(loss_cpu):.7f}; "
+        f"{len(layer_errs)} tensors within {LAYER_RTOL} of their scale (worst {worst[0]} at {worst[1]:.2e})")
+    for name, err in layer_errs.items():
+        check(err <= LAYER_RTOL, f"MSDeformAttn {name}: card vs CPU {err:.2e} of its scale > {LAYER_RTOL}")
+    del layer_cpu, out_cpu, dq_cpu, dv_cpu
+
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out16, _, dq16, dv16 = layer_iteration(layer, query, torch.from_numpy(refs_np[0]).to(dev), value_in, target)
+    torch.cuda.synchronize()
+    check(out16.dtype == torch.bfloat16 and bool(torch.isfinite(out16.float()).all()), f"bf16 layer output {out16.dtype}")
+    check(bool(torch.isfinite(dq16).all() and torch.isfinite(dv16).all()), "bf16 layer gradients finite")
+    say(f"  bf16 autocast iteration: output {out16.dtype} finite, |out - fp32 out| max "
+        f"{float((out16.float() - out_dev).abs().max()):.3e} (scale {float(out_dev.abs().max()):.3e})")
+
+    ev, el, ea = grabbed["op"]
+    check(ev.shape == (ENC_N, ENC_S, ENC_HEADS, ENC_D_MODEL // ENC_HEADS) and ev.dtype == torch.float32, ev.shape)
+    eg = torch.from_numpy(np.random.RandomState(12).rand(ENC_N, ENC_S, ENC_D_MODEL).astype(np.float32)).to(dev)
+    enc_errs = check_msda(A, ev, el, ea, eg, ENC_SHAPES, "encoder shape fp32", scale_atol=MSDA_SCALE_ATOL)
+    say("  kernels vs plain on the layer's captured tensors: " + ", ".join(f"{k} {e:.3e}" for k, e in enc_errs.items()))
+    msda_bound = msda_bounds(ev, el, ea, ENC_SHAPES)
+    msda_rows = {}
+    timed = {
+        "msda_fwd": (lambda: A.ms_deform_attn_fwd(ev, ENC_SHAPES, el, ea),
+                     lambda: A.ms_deform_attn_plain(ev, ENC_SHAPES, el, ea), ("out",)),
+        "msda_dvalue": (lambda: A.ms_deform_attn_dvalue(eg, ev, ENC_SHAPES, el, ea),
+                        lambda: A.ms_deform_attn_dvalue_plain(eg, ev, ENC_SHAPES, el, ea), ("dvalue",)),
+        "msda_dlocw": (lambda: A.ms_deform_attn_dlocw(eg, ev, ENC_SHAPES, el, ea),
+                       lambda: A.ms_deform_attn_dlocw_plain(eg, ev, ENC_SHAPES, el, ea), ("dloc", "daw")),
+    }
+    for name, (kern, plain, outs) in timed.items():
+        ms = cuda_time_ms(kern, 100)
+        plain_ms = cuda_time_ms(plain, 10, warmup=2)
+        bound_ms, bound_by = msda_bound[name]
+        msda_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               err=max(enc_errs[o] for o in outs))
+        say(f"  {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    vr, lr, ar = (t.clone().requires_grad_() for t in (ev, el, ea))
+    op_fwd_ms = cuda_time_ms(lambda: A.ms_deform_attn(ev, ENC_SHAPES, el, ea), 100)
+    op_step_ms = cuda_time_ms(lambda: torch.autograd.grad(A.ms_deform_attn(vr, ENC_SHAPES, lr, ar), (vr, lr, ar), eg), 50)
+    op_out = A.ms_deform_attn(vr, ENC_SHAPES, lr, ar)
+    op_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(op_out, (vr, lr, ar), eg, retain_graph=True), 50)
+    refs1 = torch.from_numpy(refs_np[1]).to(dev)
+    layer_step_ms = cuda_time_ms(lambda: layer_iteration(layer, query, refs1, value_in, target), 20, warmup=3)
+    say(f"  op forward {op_fwd_ms:.5f} ms, op backward {op_bwd_ms:.5f} ms, op forward+backward {op_step_ms:.5f} ms, layer iteration "
+        f"(4 linears, softmax, op, MSE, backward) {layer_step_ms:.5f} ms [{card}]")
+    del layer, ev, el, ea, eg, vr, lr, ar, op_out, query, value_in, target, refs1
+    torch.cuda.empty_cache()
+
+    # ---- 12. NHWC stencil on tap-major weights ----
+    say("phase 12: NHWC stencil (tap-major weights) vs plain; gradient through the plane backward kernel")
+    for k, (h, w) in SHAPES:
+        x = torch.rand(8, h, w, 24, generator=g, device=dev)
+        nw = MD.normalize_affinity(torch.rand(8, h, w, 24, k * k, generator=g, device=dev), dim=-1)
+        wt = D.to_tap_major(nw)
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            out = D.diffusion_nhwc_tap_major(x.to(dt), wt.to(dt), k, STEPS)
+            torch.cuda.synchronize()
+            ref = D.diffusion_nhwc_plain(x.to(dt).float(), wt.to(dt).float(), k, STEPS)
+            tol = FP32_TOL if dt == torch.float32 else dict(rtol=0, atol=BF16_ATOL)
+            torch.testing.assert_close(out.float(), ref, **tol, msg=lambda m: f"NHWC {name} k={k} {h}x{w}: {m}")
+            say(f"  {name} k={k} {h}x{w}: max_abs_err={float((out.float() - ref).abs().max()):.3e}")
+    x = torch.rand(8, 12, 12, 24, generator=g, device=dev)
+    nw = MD.normalize_affinity(torch.rand(8, 12, 12, 24, KERNEL ** 2, generator=g, device=dev), dim=-1)
+    gout = torch.rand(8, 12, 12, 24, generator=g, device=dev)
+    nhwc_grad_err = {}
+    for name, dt, tol in (("fp32", torch.float32, BWD_FP32_TOL), ("bf16", torch.bfloat16, AUTOGRAD_BF16_TOL)):
+        xa, wa, xb, wb = (t.to(dt).clone().requires_grad_() for t in (x, nw, x, nw))
+        D.NHWC_LAUNCHES = D.BWD_LAUNCHES = 0
+        D.diffusion_nhwc(xa, wa, KERNEL, STEPS).backward(gout.to(dt))
+        torch.cuda.synchronize()
+        nhwc_launches = (D.NHWC_LAUNCHES, D.BWD_LAUNCHES)
+        check(nhwc_launches == (STEPS, STEPS), f"NHWC {name} forward+backward launches {nhwc_launches}")
+        D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), KERNEL, STEPS).backward(gout.to(dt))
+        err = 0.0
+        for gname, got, ref in (("dx", xa.grad, xb.grad), ("dw", wa.grad, wb.grad)):
+            torch.testing.assert_close(got.float(), ref.float(), **tol, msg=lambda m: f"NHWC {name} {gname}: {m}")
+            err = max(err, float((got.float() - ref.float()).abs().max()))
+        nhwc_grad_err[name] = err
+        say(f"  NHWC {name} x (8,12,12,24), k={KERNEL}, {STEPS} steps: launches forward {nhwc_launches[0]}, "
+            f"backward {nhwc_launches[1]}; gradients vs autograd through the plain forward max_abs_err={err:.3e}")
+    nhwc_rows = {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        xt, wt = x.to(dt), D.to_tap_major(nw).to(dt)
+        out = D.diffusion_nhwc_tap_major(xt, wt, KERNEL, STEPS)
+        ref = D.diffusion_nhwc_plain(xt, wt, KERNEL, STEPS)
+        err = float((out.float() - ref.float()).abs().max())
+        ms = cuda_time_ms(lambda: D.diffusion_nhwc_tap_major(xt, wt, KERNEL, STEPS), 200)
+        plain_ms = cuda_time_ms(lambda: D.diffusion_nhwc_plain(xt, wt, KERNEL, STEPS), 50)
+        bound_ms, bound_by = stencil_bound(xt, wt, KERNEL, STEPS)
+        nhwc_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, err=err)
+        say(f"  NHWC stencil {name} ({STEPS} steps, x (8,12,12,24), w (8,12,12,{KERNEL ** 2}*24)): kernel {ms:.5f} ms, "
+            f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+
+    # ---- 13. LayerNorm ----
+    say("phase 13: LayerNorm kernel vs plain; forward+backward at served stage-1 shapes")
+    for c in (64, 130, 1024, 2048):
+        for mean in (0.0, 100.0):
+            xl = torch.randn(1000, c, generator=g, device=dev) * 3 + mean
+            sc, bi = torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
+            for name, dt, tol in (("fp32", torch.float32, LN_FP32_TOL[mean]), ("bf16", torch.bfloat16, LN_BF16_TOL)):
+                out = L.layer_norm_fwd(xl.to(dt), sc, bi, 1e-6)
+                torch.cuda.synchronize()
+                ref = L.layer_norm_plain(xl.to(dt), sc, bi, 1e-6)
+                check(out.dtype == dt, f"LayerNorm output dtype {out.dtype}")
+                torch.testing.assert_close(out.float(), ref.float(), **tol, msg=lambda m: f"LayerNorm {name} C={c} mean {mean}: {m}")
+            say(f"  C={c}, mean {mean:g}: fp32 and bf16 within tolerance")
+    ln_rows, ln_launches = {}, 0
+    for shape_name, (rows_n, c) in LN_SHAPES.items():
+        xl = (torch.randn(rows_n, c, generator=g, device=dev) * 3 + 1).bfloat16()
+        sc, bi = torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
+        xr, sr, br = xl.clone().requires_grad_(), sc.clone().requires_grad_(), bi.clone().requires_grad_()
+        L.LAUNCHES = 0
+        L.layer_norm(xr, sr, br, 1e-6).float().pow(2).mean().backward()
+        torch.cuda.synchronize()
+        check(L.LAUNCHES == 1 and xr.grad is not None and bool(torch.isfinite(xr.grad.float()).all()),
+              f"LayerNorm {shape_name}: {L.LAUNCHES} launches")
+        ln_launches += L.LAUNCHES
+        out = L.layer_norm_fwd(xl, sc, bi, 1e-6)
+        err = float((out.float() - L.layer_norm_plain(xl, sc, bi, 1e-6).float()).abs().max())
+        ms = cuda_time_ms(lambda: L.layer_norm_fwd(xl, sc, bi, 1e-6), 200)
+        plain_ms = cuda_time_ms(lambda: L.layer_norm_plain(xl, sc, bi, 1e-6), 100)
+        # one PyTorch call computes the same function (weights cast to x's dtype)
+        sl, bl = sc.to(xl.dtype), bi.to(xl.dtype)
+        library_ms = cuda_time_ms(lambda: F.layer_norm(xl, (c,), sl, bl, 1e-6), 200)
+        bound_ms, bound_by = layer_norm_bound(xl)
+        ln_rows[shape_name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, err=err, shape=[rows_n, c], dtype="bfloat16")
+        say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+            f"F.layer_norm {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
+
     b = rows["bf16"]
     bb = bwd_rows["bf16"]
     say(json.dumps({"kernels": [{
@@ -563,7 +933,57 @@ def main():
         "shape": f"g, x ({P_TRAIN},12,12), w, dw ({P_TRAIN},{KERNEL * KERNEL},12,12), {STEPS}-step backward",
         "fp32": bwd_rows["fp32"],
         "card": card,
-    }]}))
+    }, {
+        "name": "diffusion_stencil_nhwc",
+        "route": "cuda",
+        "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",
+        "replaces": "dgtd_tpu/ops/diffusion_pallas.py:55",
+        "launches": nhwc_launches[0],
+        "max_abs_err": nhwc_rows["bf16"]["err"],
+        "ms": nhwc_rows["bf16"]["ms"],
+        "plain_ms": nhwc_rows["bf16"]["plain_ms"],
+        "bound_ms": nhwc_rows["bf16"]["bound_ms"],
+        "bound_by": nhwc_rows["bf16"]["bound_by"],
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "shape": f"x (8,12,12,24), w (8,12,12,{KERNEL * KERNEL}*24) tap-major, {STEPS} steps",
+        "backward_launches": nhwc_launches[1],
+        "grad_max_abs_err": nhwc_grad_err,
+        "fp32": nhwc_rows["fp32"],
+        "card": card,
+    }, {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "dgtd_tpu_torch/csrc/layernorm.cu",
+        "replaces": "dgtd_tpu/ops/layernorm_pallas.py:50",
+        "launches": ln_launches,
+        "max_abs_err": ln_rows["pvt_b2_stage1"]["err"],
+        "ms": ln_rows["pvt_b2_stage1"]["ms"],
+        "plain_ms": ln_rows["pvt_b2_stage1"]["plain_ms"],
+        "bound_ms": ln_rows["pvt_b2_stage1"]["bound_ms"],
+        "bound_by": ln_rows["pvt_b2_stage1"]["bound_by"],
+        "library_ms": ln_rows["pvt_b2_stage1"]["library_ms"],
+        "dtype": "bfloat16",
+        "shape": "x (8*96*96, 64)",
+        "convnext_b_stage1": ln_rows["convnext_b_stage1"],
+        "card": card,
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"dgtd_tpu_torch/csrc/{'msda_fwd' if name == 'msda_fwd' else 'msda_bwd'}.cu",
+        "replaces": replaces,
+        "launches": msda_launches[name],
+        "max_abs_err": msda_rows[name]["err"],
+        "ms": msda_rows[name]["ms"],
+        "plain_ms": msda_rows[name]["plain_ms"],
+        "bound_ms": msda_rows[name]["bound_ms"],
+        "bound_by": msda_rows[name]["bound_by"],
+        "library_ms": None,
+        "dtype": "float32",
+        "shape": f"value ({ENC_N},{ENC_S},{ENC_HEADS},{ENC_D_MODEL // ENC_HEADS}), Lq {ENC_S}, levels {ENC_SHAPES}, {ENC_POINTS} points",
+        "card": card,
+    } for name, replaces in (("msda_fwd", "dgtd_tpu/ops/msda.py:165"), ("msda_dvalue", "dgtd_tpu/ops/msda.py:255"),
+                             ("msda_dlocw", "dgtd_tpu/ops/msda.py:353"))]}))
     say(json.dumps({"trained": {
         "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",
         "size": SIZE, "batch": TRAIN_BATCH,
@@ -574,6 +994,16 @@ def main():
         "cli_s_per_step": trained["loop_s"] / trained["steps"],
         "cli_peak_memory_bytes": cli_peak,
         "first_step_loss": {"bf16": loss16, "fp32": loss32},
+        "card": card,
+    }}))
+    say(json.dumps({"msda": {
+        "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
+                 f"n_points={ENC_POINTS}), seeded weights",
+        "n": ENC_N, "lq": ENC_S, "levels": ENC_SHAPES,
+        "iterations": ENC_ITERS, "launches": msda_launches,
+        "op_fwd_ms": op_fwd_ms, "op_bwd_ms": op_bwd_ms, "op_fwd_bwd_ms": op_step_ms,
+        "layer_iteration_ms": layer_step_ms,
+        "card_vs_cpu_rel": layer_errs,
         "card": card,
     }}))
     say(card)

@@ -173,3 +173,32 @@ def state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
     if unmapped:
         raise ValueError(f"{len(unmapped)} JAX leaves have no port key (first: {unmapped[:5]})")
     return out
+
+
+#: the linears of the ``MSDeformAttn`` layer, under one name in both packages
+MSDA_LINEARS = ("value_proj", "sampling_offsets", "attention_weights", "output_proj")
+
+
+def msda_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The port's ``MSDeformAttn`` state_dict from the flax layer's params:
+    a nested ``{name: {"kernel", "bias"}}`` mapping (``variables["params"]``)
+    or a flat one with ``/`` paths, numpy leaves. Kernels (in, out) become
+    weights (out, in); biases are copied. Raises on an unmapped leaf."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix, node):
+        if hasattr(node, "items"):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
+        else:
+            flat[prefix[len("params/"):] if prefix.startswith("params/") else prefix] = np.asarray(node, np.float32)
+
+    walk("", params)
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in flat.items():
+        name, _, leaf = key.partition("/")
+        if name not in MSDA_LINEARS or leaf not in ("kernel", "bias"):
+            raise ValueError(f"flax MSDeformAttn leaf {key!r} has no port key")
+        tf = _lin_to_torch if leaf == "kernel" else _ident
+        out[f"{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = torch.from_numpy(np.array(tf(val), order="C"))
+    return out

@@ -27,7 +27,9 @@ def conv2d(cin, cout, kernel, stride=1, padding=0, groups=1, bias=True, init="to
 
 def linear(cin, cout, bias=True, init="trunc"):
     """``nn.Linear`` tagged with its init scheme: "trunc" (trunc_normal(0.02),
-    zero bias) or "torch" (U(±1/sqrt(fan_in)))."""
+    zero bias), "torch" (U(±1/sqrt(fan_in))) or "lecun" (flax's default
+    ``nn.Dense``: lecun-normal, a normal truncated at ±2 std whose std is
+    sqrt(1/fan_in)/0.8796, zero bias)."""
     m = nn.Linear(cin, cout, bias)
     m.init_scheme = init
     return m
@@ -54,6 +56,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.Linear):
             if scheme == "trunc":
                 nn.init.trunc_normal_(m.weight, 0.0, 0.02, -0.04, 0.04, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif scheme == "lecun":
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
             else:

@@ -16,7 +16,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -25,6 +27,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+#: the dtype code every C interface takes: 0 = float32, 1 = bfloat16
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -82,3 +87,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LIBS[name] = lib
         return lib
+
+
+_FNS: Dict[str, Callable] = {}
+
+
+def function(name: str, symbol: str, argtypes) -> Callable:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types set; it returns a ``cudaError_t`` as an int."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
+    return fn
+
+
+def device_and_stream(t) -> Tuple[int, int]:
+    """The CUDA ordinal of ``t`` and the handle of its current stream, as
+    the C functions take them."""
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(t.device).cuda_stream

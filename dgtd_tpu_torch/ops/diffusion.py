@@ -1,14 +1,23 @@
-"""Depth-diffusion stencil in plane layout: the hand-written Hopper kernels
+"""Depth-diffusion stencil: the hand-written Hopper kernels
 (``csrc/diffusion_stencil.cu`` forward, ``csrc/diffusion_stencil_bwd.cu``
 backward) and their plain PyTorch versions.
 
-Counterpart of ``dgtd_tpu/ops/diffusion_pallas.py::diffusion_pallas_v2_planes``
-and its custom VJP. The forward kernel replaces the Pallas
+Plane layout is the counterpart of
+``dgtd_tpu/ops/diffusion_pallas.py::diffusion_pallas_v2_planes`` and its
+custom VJP. The forward kernel replaces the Pallas
 ``diffusion_step_pallas_v2``, the backward kernel both Pallas kernels of
 ``diffusion_step_bwd_pallas`` (one fused launch per step). Unlike the JAX
 package, which keeps grids under 64 on fused XLA, the port launches them at
-every grid size on CUDA. CPU tensors take the plain versions; a CUDA tensor
-gets the kernels or an exception, never a plain version.
+every grid size on CUDA.
+
+NHWC is the counterpart of ``diffusion_pallas`` (x (B, H, W, C), weights
+(B, H, W, C, k²), tap-major inside): its forward kernel, a second kernel in
+``csrc/diffusion_stencil.cu``, replaces the Pallas ``diffusion_step_pallas``;
+its backward moves g, the step inputs and w into plane layout and runs the
+plane backward kernel (the JAX backward is the VJP of the jnp stencil).
+
+CPU tensors take the plain versions; a CUDA tensor gets the kernels or an
+exception, never a plain version.
 """
 
 from __future__ import annotations
@@ -26,33 +35,30 @@ from . import _build
 #: reset them to 0 before the run they read
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FNS = {}
-
-
-def _kernel_fn(name: str, symbol: str, argtypes):
-    fn = _FNS.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
-    return fn
+#: launches of the NHWC forward kernel (one per step); its backward counts
+#: in ``BWD_LAUNCHES``
+NHWC_LAUNCHES = 0
 
 
 def _fwd_fn():
-    return _kernel_fn("diffusion_stencil", "dgtd_diffusion_step", [
+    return _build.function("diffusion_stencil", "dgtd_diffusion_step", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
 
 
 def _bwd_fn():
-    return _kernel_fn("diffusion_stencil_bwd", "dgtd_diffusion_step_bwd", [
+    return _build.function("diffusion_stencil_bwd", "dgtd_diffusion_step_bwd", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ])
+
+
+def _nhwc_fn():
+    return _build.function("diffusion_stencil", "dgtd_diffusion_step_nhwc", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
 
 
@@ -115,7 +121,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> None:
         raise ValueError(
             f"diffusion_planes needs x and w on one CUDA device, got {x.device} and {w.device}"
         )
-    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in _build.DTYPE_CODES or w.dtype != x.dtype:
         raise TypeError(f"diffusion_planes takes float32 or bfloat16 x and w of one dtype, got {x.dtype}, {w.dtype}")
     if kernel < 1 or kernel % 2 == 0 or steps < 0:
         raise ValueError(f"need an odd kernel >= 1 and steps >= 0, got kernel={kernel}, steps={steps}")
@@ -125,11 +131,6 @@ def _check(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> None:
         )
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("diffusion_planes needs contiguous x and w")
-
-
-def _device_and_stream(x: torch.Tensor):
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return dev, torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _forward_steps(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, keep: bool) -> List[torch.Tensor]:
@@ -146,8 +147,8 @@ def _forward_steps(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, ke
         return [x, x]
     fn = _fwd_fn()
     p, h, wd = x.shape
-    code = _DTYPE_CODES[x.dtype]
-    dev, stream = _device_and_stream(x)
+    code = _build.DTYPE_CODES[x.dtype]
+    dev, stream = _build.device_and_stream(x)
     bufs = None if keep else [torch.empty_like(x) for _ in range(min(steps, 2))]
     outs = [x]
     for s in range(steps):
@@ -177,8 +178,8 @@ def diffusion_planes_bwd(
         return g, torch.zeros_like(w)
     fn = _bwd_fn()
     p, h, wd = g.shape
-    code = _DTYPE_CODES[g.dtype]
-    dev, stream = _device_and_stream(g)
+    code = _build.DTYPE_CODES[g.dtype]
+    dev, stream = _build.device_and_stream(g)
     dw_out = torch.empty_like(w)
     # fp32 weights sum dw in place in the output; bf16 weights in an fp32
     # buffer that the last step reads once and rounds into the output
@@ -190,7 +191,7 @@ def diffusion_planes_bwd(
         dx = torch.empty_like(g)
         rc = fn(g.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
                 None if dw_in is None else dw_in.data_ptr(), dst.data_ptr(),
-                p, h, wd, kernel, code, _DTYPE_CODES[dst.dtype], dev, stream)
+                p, h, wd, kernel, code, _build.DTYPE_CODES[dst.dtype], dev, stream)
         if rc != 0:
             raise RuntimeError(f"diffusion stencil backward launch failed: cudaError {rc}")
         BWD_LAUNCHES += 1
@@ -230,3 +231,121 @@ def diffusion_planes(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) 
     each step is one launch of the forward kernel and, in backward, one of
     the backward kernel; on the CPU the plain versions run."""
     return DiffusionPlanesFn.apply(x, w, kernel, steps)
+
+
+# ---------------------------------------------------------------------------
+# NHWC layout with tap-major weights
+# ---------------------------------------------------------------------------
+
+
+def to_tap_major(norm_weight: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C, k²) channel-major -> (B, H, W, k²·C) tap-major: tap t of
+    channel c lands at t·C + c."""
+    b, h, w, c, kk = norm_weight.shape
+    return norm_weight.transpose(3, 4).reshape(b, h, w, kk * c)
+
+
+def diffusion_step_nhwc_plain(x: torch.Tensor, w_tm: torch.Tensor, kernel: int) -> torch.Tensor:
+    """One NHWC stencil step as ``F.unfold``·w·sum, fp32 inside, stored in
+    x's dtype. x (B, H, W, C), w_tm (B, H, W, k²·C) tap-major."""
+    b, h, wd, c = x.shape
+    kk = kernel * kernel
+    acc = _acc_dtype(x.dtype)
+    taps = F.unfold(x.to(acc).permute(0, 3, 1, 2), kernel, padding=kernel // 2)  # row c·k² + t
+    taps = taps.view(b, c, kk, h, wd).permute(0, 3, 4, 2, 1)  # (B, H, W, k², C)
+    return (taps * w_tm.to(acc).view(b, h, wd, kk, c)).sum(3).to(x.dtype)
+
+
+def diffusion_nhwc_plain(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
+    """``steps`` NHWC stencil steps, each step's result stored in x's dtype."""
+    for _ in range(steps):
+        x = diffusion_step_nhwc_plain(x, w_tm, kernel)
+    return x
+
+
+def _check_nhwc(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> None:
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"diffusion_nhwc needs x and w on one CUDA device, got {x.device} and {w.device}")
+    if x.dtype not in _build.DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"diffusion_nhwc takes float32 or bfloat16 x and w of one dtype, got {x.dtype}, {w.dtype}")
+    if kernel < 1 or kernel % 2 == 0 or steps < 0:
+        raise ValueError(f"need an odd kernel >= 1 and steps >= 0, got kernel={kernel}, steps={steps}")
+    if x.dim() != 4 or tuple(w.shape) != (*x.shape[:3], kernel * kernel * x.shape[3]):
+        raise ValueError(
+            f"diffusion_nhwc takes x (B, H, W, C) and w (B, H, W, k²·C); got {tuple(x.shape)} and {tuple(w.shape)} for k={kernel}"
+        )
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("diffusion_nhwc needs contiguous x and w")
+
+
+def _nhwc_forward_steps(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> List[torch.Tensor]:
+    """Run the steps; returns [x, out_1, ..., out_steps]."""
+    global NHWC_LAUNCHES
+    if x.device.type == "cpu" and w_tm.device.type == "cpu":
+        outs = [x]
+        for _ in range(steps):
+            outs.append(diffusion_step_nhwc_plain(outs[-1], w_tm, kernel))
+        return outs
+    _check_nhwc(x, w_tm, kernel, steps)
+    fn = _nhwc_fn()
+    b, h, wd, c = x.shape
+    code = _build.DTYPE_CODES[x.dtype]
+    dev, stream = _build.device_and_stream(x)
+    outs = [x]
+    for _ in range(steps):
+        dst = torch.empty_like(x)
+        rc = fn(outs[-1].data_ptr(), w_tm.data_ptr(), dst.data_ptr(), b, h, wd, c, kernel, code, dev, stream)
+        if rc != 0:
+            raise RuntimeError(f"NHWC diffusion stencil launch failed: cudaError {rc}")
+        NHWC_LAUNCHES += 1
+        outs.append(dst)
+    return outs
+
+
+def _nhwc_to_planes(t: torch.Tensor) -> torch.Tensor:
+    b, h, w, c = t.shape
+    return t.permute(0, 3, 1, 2).reshape(b * c, h, w)
+
+
+class DiffusionNHWCFn(torch.autograd.Function):
+    """``steps`` NHWC stencil steps on tap-major weights with their
+    backward: the plane backward (kernel on CUDA, plain on the CPU) on g, the
+    step inputs and w moved into plane layout; dw returns tap-major."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, w_tm, kernel, steps):
+        outs = _nhwc_forward_steps(x, w_tm, kernel, steps)
+        ctx.kernel = kernel
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(w_tm, *outs[:-1])
+        return outs[-1].clone() if outs[-1] is x else outs[-1]
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        w_tm, *xs = ctx.saved_tensors
+        b, h, w, c = g.shape
+        k = ctx.kernel
+        kk = k * k
+        wp = w_tm.view(b, h, w, kk, c).permute(0, 4, 3, 1, 2).reshape(b * c, kk, h, w)
+        dxp, dwp = diffusion_planes_bwd(_nhwc_to_planes(g), [_nhwc_to_planes(t) for t in xs], wp, k)
+        dx = dxp.view(b, c, h, w).permute(0, 2, 3, 1).contiguous()
+        dw = dwp.view(b, c, kk, h, w).permute(0, 3, 4, 2, 1).reshape(b, h, w, kk * c)
+        return dx, dw, None, None
+
+
+def diffusion_nhwc_tap_major(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
+    """``steps`` NHWC stencil steps on tap-major weights (B, H, W, k²·C),
+    with their gradient. On CUDA each step is one launch of the NHWC forward
+    kernel and, in backward, one of the plane backward kernel; on the CPU
+    the plain versions run."""
+    return DiffusionNHWCFn.apply(x, w_tm, kernel, steps)
+
+
+def diffusion_nhwc(x: torch.Tensor, norm_weight: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
+    """``steps`` iterations of the normalized-affinity stencil in NHWC, the
+    counterpart of ``dgtd_tpu``'s ``diffusion_pallas``: x (B, H, W, C),
+    norm_weight (B, H, W, C, k²) normalized; the weights go tap-major once
+    and the gradient returns to norm_weight's layout."""
+    return diffusion_nhwc_tap_major(x, to_tap_major(norm_weight), kernel, steps)

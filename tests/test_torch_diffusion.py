@@ -157,3 +157,67 @@ def test_prompt_encoder_matches_flax():
     # FFT round-off feeds the whole tower: fp32 CPU sums in two orders
     np.testing.assert_allclose(nhwc(tex), np.asarray(tex_ref), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(nhwc(emb), np.asarray(emb_ref), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# NHWC layout with tap-major weights (diffusion_pallas, tests/test_diffusion_pallas.py)
+# ---------------------------------------------------------------------------
+
+
+def _nhwc_inputs(rng, b, h, w, c, k):
+    x = rng.randn(b, h, w, c).astype(np.float32)
+    raw = rng.rand(b, h, w, c, k * k).astype(np.float32)
+    return x, raw / (raw.sum(-1, keepdims=True) + 1e-5)
+
+
+@pytest.mark.parametrize("k,steps,h,w,c", [(7, 4, 16, 16, 8), (3, 6, 12, 12, 24), (7, 2, 24, 24, 8), (5, 3, 9, 13, 3)])
+def test_diffusion_nhwc_matches_pallas(k, steps, h, w, c):
+    """The cases of test_diffusion_pallas.py:12-25 plus a rectangular grid."""
+    from dgtd_tpu.ops.diffusion_pallas import diffusion_pallas
+
+    x, nw = _nhwc_inputs(np.random.RandomState(0), 2, h, w, c, k)
+    ref = np.asarray(diffusion_pallas(jnp.asarray(x), jnp.asarray(nw), k, steps, True))
+    before = D.NHWC_LAUNCHES
+    out = D.diffusion_nhwc(torch.from_numpy(x), torch.from_numpy(nw), k, steps)
+    assert D.NHWC_LAUNCHES == before
+    np.testing.assert_allclose(out.numpy(), ref, **STENCIL_TOL)
+
+
+@pytest.mark.parametrize("k,steps,h,w,c", [(3, 2, 8, 8, 4), (7, 3, 12, 10, 5)])
+def test_diffusion_nhwc_gradients_match_jax_grad(k, steps, h, w, c):
+    """test_diffusion_pallas.py:37-57: jax.grad through diffusion_pallas (its
+    backward is the VJP of the jnp stencil); the port's backward runs the
+    plane backward on the transposed tensors and returns dw as (B, H, W, C, k²)."""
+    from dgtd_tpu.ops.diffusion_pallas import diffusion_pallas
+
+    x, nw = _nhwc_inputs(np.random.RandomState(2), 1, h, w, c, k)
+    jgx, jgw = jax.grad(lambda a, b: jnp.sum(diffusion_pallas(a, b, k, steps, True) ** 2), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(nw))
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(nw).requires_grad_()
+    (D.diffusion_nhwc(xt, wt, k, steps) ** 2).sum().backward()
+    assert wt.grad.shape == (1, h, w, c, k * k)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), **STENCIL_TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jgw), **STENCIL_TOL)
+
+
+def test_to_tap_major_matches_jax():
+    """test_diffusion_pallas.py:28-34: tap t of channel c lands at t·C + c."""
+    from dgtd_tpu.ops.diffusion_pallas import to_tap_major as jax_to_tap_major
+
+    nw = np.random.RandomState(1).rand(2, 4, 5, 3, 9).astype(np.float32)
+    tm = D.to_tap_major(torch.from_numpy(nw))
+    assert tm.shape == (2, 4, 5, 27)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jax_to_tap_major(jnp.asarray(nw))))
+    assert tm[0, 2, 3, 3 * 1 + 2] == float(nw[0, 2, 3, 2, 1])
+
+
+def test_nhwc_step_matches_pallas_step():
+    """One NHWC step on tap-major weights vs the Pallas step itself."""
+    from dgtd_tpu.ops.diffusion_pallas import diffusion_step_pallas
+
+    rng = np.random.RandomState(4)
+    x, nw = _nhwc_inputs(rng, 2, 12, 12, 6, 7)
+    wtm = np.ascontiguousarray(nw.transpose(0, 1, 2, 4, 3).reshape(2, 12, 12, 49 * 6))
+    ref = np.asarray(diffusion_step_pallas(jnp.asarray(x), jnp.asarray(wtm), 7, True))
+    out = D.diffusion_nhwc_tap_major(torch.from_numpy(x), torch.from_numpy(wtm), 7, 1)
+    np.testing.assert_allclose(out.numpy(), ref, **STENCIL_TOL)

@@ -1,5 +1,6 @@
-"""The port's CUDA stencil wrappers: dispatch, refusals, and (on a card) the
-forward and backward kernels against their plain versions.
+"""The port's CUDA stencil and LayerNorm wrappers: dispatch, refusals, and
+(on a card) the plane and NHWC stencil kernels, the stencil's backward kernel
+and the LayerNorm kernel against their plain versions.
 
 This file imports neither JAX nor ``dgtd_tpu``, so it also runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest tests/test_torch_kernels.py``
@@ -12,6 +13,7 @@ import torch
 
 from dgtd_tpu_torch.models.diffusion import affinity_planes
 from dgtd_tpu_torch.ops import diffusion as D
+from dgtd_tpu_torch.ops import layernorm as L
 
 # fp32: the kernel's FMA chain vs unfold·w·sum, a few ulps of O(1) values
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -180,3 +182,161 @@ def test_cuda_wrapper_refuses_bad_inputs(cuda):
         D.diffusion_planes(x, w[:, :4], 3, 2)
     with pytest.raises(ValueError):
         D.diffusion_planes(x.transpose(1, 2), w, 3, 2)
+
+
+# ---------------------------------------------------------------------------
+# NHWC stencil on tap-major weights
+# ---------------------------------------------------------------------------
+
+
+def _nhwc(seed, b, h, w, c, k, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(b, h, w, c, generator=g)
+    raw = torch.rand(b, h, w, c, k * k, generator=g)
+    return x.to(device), (raw / (raw.sum(-1, keepdim=True) + 1e-5)).to(device)
+
+
+def test_nhwc_plain_matches_plane_plain():
+    """The NHWC plain step is the plane plain step on transposed tensors."""
+    b, h, w, c, k = 2, 6, 7, 3, 3
+    x, nw = _nhwc(0, b, h, w, c, k)
+    out = D.diffusion_nhwc_plain(x, D.to_tap_major(nw), k, 2)
+    xp = x.permute(0, 3, 1, 2).reshape(b * c, h, w)
+    wp = nw.permute(0, 3, 4, 1, 2).reshape(b * c, k * k, h, w)
+    ref = D.diffusion_planes_plain(xp, wp, k, 2).view(b, c, h, w).permute(0, 2, 3, 1)
+    torch.testing.assert_close(out, ref, **FP32_TOL)
+
+
+def test_nhwc_cpu_takes_plain_and_counts_no_launch():
+    x, nw = _nhwc(1, 2, 5, 6, 4, 3)
+    before = (D.NHWC_LAUNCHES, D.BWD_LAUNCHES)
+    xa, wa = x.clone().requires_grad_(), nw.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), nw.clone().requires_grad_()
+    out = D.diffusion_nhwc(xa, wa, 3, 3)
+    g = torch.rand(out.shape, generator=torch.Generator().manual_seed(2))
+    out.backward(g)
+    assert (D.NHWC_LAUNCHES, D.BWD_LAUNCHES) == before
+    ref = D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), 3, 3)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    ref.backward(g)
+    torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
+    torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
+
+
+def test_nhwc_gradcheck_float64():
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(1, 4, 5, 2, generator=g, dtype=torch.float64, requires_grad=True)
+    raw = torch.rand(1, 4, 5, 2, 9, generator=g, dtype=torch.float64)
+    nw = (raw / raw.sum(-1, keepdim=True)).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b: D.diffusion_nhwc(a, b, 3, 2), (x, nw))
+
+
+def test_nhwc_non_cuda_device_raises():
+    x = torch.empty(1, 5, 5, 2, device="meta")
+    w = torch.empty(1, 5, 5, 18, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        D.diffusion_nhwc_tap_major(x, w, 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 7])
+@pytest.mark.parametrize("hw", [(12, 12), (13, 20), (64, 64)])
+def test_cuda_nhwc_kernel_matches_plain(cuda, k, hw):
+    x, nw = _nhwc(k, 8, *hw, 24, k, cuda)
+    wt = D.to_tap_major(nw)
+    before = D.NHWC_LAUNCHES
+    out = D.diffusion_nhwc_tap_major(x, wt, k, 4)
+    torch.cuda.synchronize()
+    assert D.NHWC_LAUNCHES == before + 4
+    torch.testing.assert_close(out, D.diffusion_nhwc_plain(x, wt, k, 4), **FP32_TOL)
+    outb = D.diffusion_nhwc_tap_major(x.bfloat16(), wt.bfloat16(), k, 4)
+    assert outb.dtype == torch.bfloat16
+    torch.testing.assert_close(outb.float(), D.diffusion_nhwc_plain(x.bfloat16().float(), wt.bfloat16().float(), k, 4),
+                               rtol=0, atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_nhwc_gradients_go_through_both_kernels(cuda):
+    x, nw = _nhwc(5, 8, 12, 12, 24, 7, cuda)
+    g = torch.rand(8, 12, 12, 24, generator=torch.Generator().manual_seed(6)).to(cuda)
+    xa, wa = x.clone().requires_grad_(), nw.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), nw.clone().requires_grad_()
+    before = (D.NHWC_LAUNCHES, D.BWD_LAUNCHES)
+    D.diffusion_nhwc(xa, wa, 7, 4).backward(g)
+    torch.cuda.synchronize()
+    assert (D.NHWC_LAUNCHES, D.BWD_LAUNCHES) == (before[0] + 4, before[1] + 4)
+    D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), 7, 4).backward(g)
+    torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
+    torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
+
+# fp32 kernel vs plain: the same two-pass fp32 arithmetic summed in another
+# order, held to tests/test_layernorm_pallas.py's rtol 1e-4 / atol 1e-5; on
+# mean-100 rows the mean itself differs by a few ulps of 100 (7.6e-6 each)
+# between the two orders, times rstd·|scale| (~1/3 · 4): atol 1e-4. bf16:
+# both round nearly the same fp32 value once, so one ulp at most
+LN_FP32_TOL = {0.0: dict(rtol=1e-4, atol=1e-5), 100.0: dict(rtol=1e-4, atol=1e-4)}
+LN_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+def _ln_inputs(seed, rows, c, mean=0.0, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, c, generator=g) * 3 + mean
+    return x.to(device), torch.randn(c, generator=g).to(device), torch.randn(c, generator=g).to(device)
+
+
+def test_layer_norm_cpu_takes_plain_and_counts_no_launch():
+    x, s, b = _ln_inputs(0, 10, 37)
+    before = L.LAUNCHES
+    out = L.layer_norm(x, s, b, 1e-6)
+    assert L.LAUNCHES == before
+    torch.testing.assert_close(out, L.layer_norm_plain(x, s, b, 1e-6), rtol=0, atol=0)
+    torch.testing.assert_close(out, torch.nn.functional.layer_norm(x, (37,), s, b, 1e-6), rtol=1e-5, atol=1e-5)
+
+
+def test_layer_norm_gradients_are_autograd_of_plain():
+    x, s, b = _ln_inputs(1, 6, 20)
+    ins = [t.clone().requires_grad_() for t in (x, s, b)]
+    refs = [t.clone().requires_grad_() for t in (x, s, b)]
+    (L.layer_norm(*ins) ** 2).sum().backward()
+    (L.layer_norm_plain(*refs) ** 2).sum().backward()
+    for a, r in zip(ins, refs):
+        torch.testing.assert_close(a.grad, r.grad, rtol=0, atol=0)
+
+
+def test_layer_norm_non_cuda_device_raises():
+    with pytest.raises(ValueError, match="CUDA"):
+        L.layer_norm(torch.empty(4, 8, device="meta"), torch.empty(8, device="meta"), torch.empty(8, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 31, 64, 130, 1024, 1025, 2048, 4096])
+def test_cuda_layer_norm_matches_plain(cuda, c):
+    for mean in (0.0, 100.0):
+        x, s, b = _ln_inputs(c, 300, c, mean, cuda)
+        before = L.LAUNCHES
+        out = L.layer_norm(x, s, b, 1e-5)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES == before + 1
+        torch.testing.assert_close(out, L.layer_norm_plain(x, s, b, 1e-5), **LN_FP32_TOL[mean])
+        xb = x.bfloat16()
+        outb = L.layer_norm(xb, s, b, 1e-5)
+        assert outb.dtype == torch.bfloat16
+        torch.testing.assert_close(outb.float(), L.layer_norm_plain(xb, s, b, 1e-5).float(), **LN_BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_refuses_bad_inputs(cuda):
+    x, s, b = _ln_inputs(0, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        L.layer_norm(x.half(), s, b)
+    with pytest.raises(ValueError):
+        L.layer_norm(x, s[:8], b)
+    with pytest.raises(ValueError):
+        L.layer_norm(x.t(), s[:8], b[:8])
+    with pytest.raises(ValueError, match="CUDA"):
+        L.layer_norm(x, s.cpu(), b)
