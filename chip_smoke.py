@@ -127,6 +127,11 @@ ENC_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
 ENC_N, ENC_D_MODEL, ENC_HEADS, ENC_POINTS, ENC_ITERS = 2, 256, 8, 4, 4
 ENC_S = sum(h * w for h, w in ENC_SHAPES)  # = Lq = 5440
 LAYER_RTOL = 1e-4  # card vs CPU, each tensor to 1e-4 of its largest entry
+# the card's and the CPU's sampling locations (normalised): cuBLAS and MKL
+# may round the offsets' linear differently, a few fp32 ulps of O(1)
+# values (1.2e-7 each); 1e-6 is 6.4e-5 of a pixel at the 64-wide level, so
+# the pin of the CPU run to the card's locations absorbs rounding only
+LOC_PIN_ATOL = 1e-6
 # LayerNorm: the same fp32 two-pass arithmetic in another order, at
 # tests/test_layernorm_pallas.py's rtol 1e-4 / atol 1e-5; on mean-100 rows
 # the means differ by a few ulps of 100 (7.6e-6 each) times rstd·|scale|, so
@@ -281,17 +286,22 @@ def check_msda(A, value, loc, aw, g, shapes, label, scale_atol=0.0):
 
 def msda_corners(loc, shapes):
     """In-range bilinear corners of these locations (the kernels skip the
-    others): the data-dependent part of the MSDA work."""
+    others), and the samples with at least one: the data-dependent part of
+    the MSDA work."""
     import torch
 
-    total = 0
+    corners, live = 0, 0
     for lid, (h, w) in enumerate(shapes):
         x = torch.floor(loc[:, :, :, lid, :, 0] * w - 0.5)
         y = torch.floor(loc[:, :, :, lid, :, 1] * h - 0.5)
+        any_in = torch.zeros_like(x, dtype=torch.bool)
         for dy in (0, 1):
             for dx in (0, 1):
-                total += int((((x + dx) >= 0) & ((x + dx) < w) & ((y + dy) >= 0) & ((y + dy) < h)).sum())
-    return total
+                inside = ((x + dx) >= 0) & ((x + dx) < w) & ((y + dy) >= 0) & ((y + dy) < h)
+                corners += int(inside.sum())
+                any_in |= inside
+        live += int(any_in.sum())
+    return corners, live
 
 
 def msda_bounds(value, loc, aw, shapes):
@@ -300,17 +310,20 @@ def msda_bounds(value, loc, aw, shapes):
     loc, aw -> out; dValue: g, loc, aw -> an fp32 value-sized gradient;
     dLocation/dWeight: g, value, loc, aw -> dloc, daw in fp32). Operations on
     the fp32 rate: per in-range corner and channel, 2 (forward FMA), 2
-    (dValue's product and add), 6 (dLocation/dWeight's three bilinear sums),
-    plus 6 per sample and channel for dLocation/dWeight's products with g."""
+    (dValue's product and add); per channel of a sample with an in-range
+    corner, 18 for dLocation/dWeight: s, ds/dx and ds/dy from shared lerps
+    (t0 = v00 + fx(v01 - v00), t1 = v10 + fx(v11 - v10), ds/dy = t1 - t0,
+    s = t0 + fy ds/dy, ds/dx = d0 + fy(d1 - d0): 12) and their three
+    products with g summed (6)."""
     n, s, m, d = value.shape
     es = value.element_size()
     g_bytes = loc.shape[1] * n * m * d * es
     lb, ab = loc.numel() * 4, aw.numel() * 4
-    corners, samples = msda_corners(loc, shapes), aw.numel()
+    corners, live = msda_corners(loc, shapes)
     work = {
         "msda_fwd": (value.numel() * es + lb + ab + g_bytes, 2.0 * corners * d),
         "msda_dvalue": (g_bytes + lb + ab + value.numel() * 4, 2.0 * corners * d),
-        "msda_dlocw": (g_bytes + value.numel() * es + 2 * (lb + ab), 6.0 * corners * d + 6.0 * samples * d),
+        "msda_dlocw": (g_bytes + value.numel() * es + 2 * (lb + ab), 18.0 * live * d),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -767,6 +780,8 @@ def main():
     say(f"  card vs CPU (plain path, {cpu_s:.1f} s; locations pinned to the card's, which differed by at most "
         f"{pin['max_loc_diff']:.2e}), first iteration: loss {float(loss_dev):.7f} vs {float(loss_cpu):.7f}; "
         f"{len(layer_errs)} tensors within {LAYER_RTOL} of their scale (worst {worst[0]} at {worst[1]:.2e})")
+    check(pin["max_loc_diff"] <= LOC_PIN_ATOL,
+          f"MSDeformAttn locations: card vs CPU {pin['max_loc_diff']:.2e} > {LOC_PIN_ATOL} (more than rounding)")
     for name, err in layer_errs.items():
         check(err <= LAYER_RTOL, f"MSDeformAttn {name}: card vs CPU {err:.2e} of its scale > {LAYER_RTOL}")
     del layer_cpu, out_cpu, dq_cpu, dv_cpu
@@ -874,7 +889,10 @@ def main():
     ln_rows, ln_launches = {}, 0
     for shape_name, (rows_n, c) in LN_SHAPES.items():
         xl = (torch.randn(rows_n, c, generator=g, device=dev) * 3 + 1).bfloat16()
-        sc, bi = torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
+        # fp32 scale and bias whose values bf16 holds exactly, so that
+        # F.layer_norm below takes the same values (see there)
+        sc = torch.randn(c, generator=g, device=dev).bfloat16().float()
+        bi = torch.randn(c, generator=g, device=dev).bfloat16().float()
         xr, sr, br = xl.clone().requires_grad_(), sc.clone().requires_grad_(), bi.clone().requires_grad_()
         L.LAUNCHES = 0
         L.layer_norm(xr, sr, br, 1e-6).float().pow(2).mean().backward()
@@ -886,8 +904,15 @@ def main():
         err = float((out.float() - L.layer_norm_plain(xl, sc, bi, 1e-6).float()).abs().max())
         ms = cuda_time_ms(lambda: L.layer_norm_fwd(xl, sc, bi, 1e-6), 200)
         plain_ms = cuda_time_ms(lambda: L.layer_norm_plain(xl, sc, bi, 1e-6), 100)
-        # one PyTorch call computes the same function (weights cast to x's dtype)
+        # one PyTorch call computes the same function: F.layer_norm refuses a
+        # bf16 x with fp32 scale and bias on CUDA ("expected scalar type
+        # BFloat16"), so it gets them in bf16, which holds their values
+        # exactly; it computes its statistics and the affine in fp32 as the
+        # kernel does, so the outputs agree to one bf16 ulp
         sl, bl = sc.to(xl.dtype), bi.to(xl.dtype)
+        check(torch.equal(sl.float(), sc) and torch.equal(bl.float(), bi), "LayerNorm: scale or bias not bf16-exact")
+        torch.testing.assert_close(F.layer_norm(xl, (c,), sl, bl, 1e-6).float(), out.float(), **LN_BF16_TOL,
+                                   msg=lambda m: f"F.layer_norm vs the kernel, {shape_name}: {m}")
         library_ms = cuda_time_ms(lambda: F.layer_norm(xl, (c,), sl, bl, 1e-6), 200)
         bound_ms, bound_by = layer_norm_bound(xl)
         ln_rows[shape_name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,

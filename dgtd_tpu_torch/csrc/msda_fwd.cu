@@ -28,32 +28,10 @@
 // the reads of each corner's D values are coalesced and the sample's
 // location and weight are one broadcast load per warp. D is any width.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#define MSDA_MAX_LEVELS 16
+#include "msda_common.cuh"
 
 namespace {
 
-struct Levels {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int64_t start[MSDA_MAX_LEVELS];
-};
-
-// the sampling coordinate loc * size - 0.5, rounded after the product and
-// after the difference as the plain version rounds it (no FMA contraction),
-// so that both take the same floor where a sample sits on a pixel
-// coordinate, where the location gradient jumps
-__device__ __forceinline__ float src_coord(float loc, int size) {
-  return __fsub_rn(__fmul_rn(loc, (float)size), 0.5f);
-}
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -113,16 +91,9 @@ extern "C" int dgtd_msda_fwd(const void* value, const float* loc, const float* a
   // this library carries its own CUDA runtime: make the tensors' device current
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
   Levels lv;
-  int64_t start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += (int64_t)lv.h[l] * lv.w[l];
-  }
-  if (start != s_len) return (int)cudaErrorInvalidValue;
+  err = make_levels(shapes, n_levels, s_len, &lv);
+  if (err != cudaSuccess) return (int)err;
   const int64_t n_out = (int64_t)n * lq * m * d;
   if (n_out <= 0) return (int)cudaSuccess;
   const int threads = 256;

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``dgtd_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is of the source, so
-an edited source rebuilds), then loaded with ``ctypes``. Nothing is built when
+``dgtd_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is of the source and
+of the shared ``csrc/*.cuh`` headers, so an edited source rebuilds), then
+loaded with ``ctypes``. Nothing is built when
 a module is imported: the CPU path never needs ``nvcc``.
 """
 
@@ -49,8 +50,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    # the hash covers the shared headers too, so an edited header rebuilds
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
