@@ -7,31 +7,38 @@ Phases (any failure exits non-zero):
   1. print the card (``nvidia-smi`` name and power limit); build every CUDA
      kernel of the served and trained paths from ``dgtd_tpu_torch/csrc``
      (one ``nvcc`` per source, all started together);
-  2. hold the diffusion-stencil kernel against its plain PyTorch version
-     (k in {1, 3, 7}; 12x12, 13x20, 64x64; P = 192 planes; fp32 and bf16);
+  2. hold the diffusion-stencil forward kernels against their plain PyTorch
+     version (k in {1, 3, 7}; 12x12 and 13x20, which take the fused kernel,
+     all 4 steps in one launch; 64x64 and 23x23, above the fused limit, which
+     take the per-step kernel; P = 192 planes; fp32 and bf16), each case's
+     launches read from the kernel's own counter;
   3. serve full-width ``cod`` (PVTv2-b2 + ConvNeXt-B, seeded random weights)
      at 384², batch 8, through ``dgtd_tpu_torch.predict.main`` with a saved
-     ``.pth``: once in bf16, once with ``--fp32``. The kernel's launch count
-     is reset just before each run and read just after; masks are checked,
-     bf16 is held to fp32, and the fp32 model on the card to the same model
-     on the CPU on a small input;
-  4. re-check the kernel against the plain version on the exact
+     ``.pth``: once in bf16, once with ``--fp32``. The kernels' launch counts
+     are reset just before each run and read just after (one fused forward a
+     batch); masks are checked, bf16 is held to fp32, and the fp32 model on
+     the card to the same model on the CPU on a small input;
+  4. re-check the fused kernel against the plain version on the exact
      ``MessagePassing`` inputs captured during phase 3;
-  5. time the kernel, its plain version and served batches with CUDA events;
-  6. hold the stencil's backward kernel against the plain backward (the same
-     cases at P = 240, fp32 and bf16) and the autograd Function's 4-step
-     backward against autograd through the plain forward;
+  5. time the fused kernel per call (CUDA events; through the autograd
+     Function and the launch wrapper alone beside it), the per-step kernels
+     on the same tensors, the plain version, and served batches;
+  6. hold the stencil's backward kernels against the plain backward (the
+     same cases at P = 240, fp32 and bf16) and the autograd Function's 4-step
+     backward (one fused launch each way) against autograd through the plain
+     forward;
   7. tiny ``cod``: loss and every parameter gradient, fp32 on the card (TF32
      off) against the CPU, same weights and inputs, drop-path rates 0;
   8. train full-width ``cod`` through ``dgtd_tpu_torch.train.cli.main`` with
      ``configs/cod.yml`` (384², batch 10, bf16 autocast) on 30 synthetic
-     images for 2 epochs (6 steps): finite losses, both kernels' launch
-     counts, two epoch checkpoints, the second served through
-     ``predict.main``; one fp32 first step held to the bf16 one; the backward
-     kernel re-checked on the stencil inputs and upstream gradient captured
-     in a train step;
+     images for 2 epochs (6 steps): finite losses, the launch counts (one
+     fused forward and one fused backward a step), two epoch checkpoints,
+     the second served through ``predict.main``; one fp32 first step held to
+     the bf16 one; the backward kernel re-checked on the stencil inputs and
+     upstream gradient captured in a train step;
   9. time train steps back to back (bf16 and fp32), the CLI loop, peak
-     memory, and the backward kernel against its bound and its plain version;
+     memory, and the fused backward kernel (CUDA events and device time)
+     against its bound, the per-step kernels and its plain version;
  10. hold the three multi-scale deformable attention kernels (forward,
      dValue, dLocation/dWeight) against their plain versions: channels
      {30, 32, 64, 71, 1025, 2048, 3096} on two small levels and the 4-level
@@ -51,16 +58,25 @@ Phases (any failure exits non-zero):
  13. the LayerNorm kernel against its plain version (C in {64, 130, 1024,
      2048}, fp32 and bf16, mean-0 and mean-100 rows), then forward and
      backward at a PVTv2-b2 stage-1 and a ConvNeXt-B stage-1 shape of a
-     served batch, timed beside ``F.layer_norm``.
+     served batch, timed beside ``F.layer_norm``;
+ 14. the per-step stencil kernels' own path: the op forward and backward on
+     a 64x64 plane (the JAX package's Pallas grid), above the fused limit,
+     with their launch counts (one a step each way) read around it, checked
+     against the plain versions and timed; then the device time per call of
+     every stencil kernel timed in phases 5, 9 and 14, from ``torch.profiler``
+     (last, so that its tracing cannot slow the host-bound timings).
 
-Prints a ``kernels`` JSON line (all seven counterparts of the JAX package's
-Pallas kernels), a served-throughput line, a ``trained`` and an ``msda``
-JSON line, each with the card's name and power limit; the last line is
+Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
+Pallas kernels, the plane stencil's forward and backward both as the fused
+and as the per-step kernels), a served-throughput line, a ``trained`` and
+an ``msda`` JSON line, each with the card's name and power limit; the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -73,7 +89,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL, STEPS, P_MAIN = 7, 4, 8 * 24  # served stencil: k=7, 4 steps, B·C planes
-SHAPES = [(k, hw) for k in (1, 3, 7) for hw in ((12, 12), (13, 20), (64, 64))]
+# 12x12 (the recipe's grid) and 13x20 take the fused kernels; 64x64 (the JAX
+# package's Pallas grid) and 23x23 (529 pixels, just above the fused limit)
+# the per-step ones
+SHAPES = [(k, hw) for k in (1, 3, 7) for hw in ((12, 12), (13, 20), (64, 64), (23, 23))]
+LARGE = (64, 64)  # the per-step kernels' own path (phase 14)
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_ATOL = 1e-2  # per-step bf16 rounding of O(1) convex combinations
 MEAN_ATOL = 2e-3  # bf16 vs fp32 mean probability (tests/test_golden_forward.py)
@@ -167,6 +187,40 @@ def cuda_time_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters, match):
+    """Device time per call (ms) of the kernels whose name holds ``match``,
+    summed from ``torch.profiler``'s ``key_averages()`` over ``iters`` calls;
+    None if the profiler recorded no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if match in e.key)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def plane_launches(D):
+    """The plane stencil's launch counters: fused forward, fused backward,
+    per-step forward, per-step backward."""
+    return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.LAUNCHES, D.BWD_LAUNCHES)
+
+
+def reset_plane_launches(D):
+    D.FUSED_LAUNCHES = D.FUSED_BWD_LAUNCHES = D.LAUNCHES = D.BWD_LAUNCHES = 0
+
+
+def expected_launches(D, shape, kernel, dtype, steps, bwd):
+    """The counters' increments for one call of ``steps`` steps on planes
+    of this (H, W): one fused launch, or one per-step launch a step."""
+    n = (1, 0) if D.fused_path(*shape, kernel, dtype) else (0, steps)
+    return (0, n[0], 0, n[1]) if bwd else (n[0], 0, n[1], 0)
+
+
 def stencil_bound(x, w, kernel, steps):
     """Least time (ms) for ``steps`` stencil steps on these inputs: x and w
     read once, the output written once, over HBM; 2 flops per weight per step
@@ -178,11 +232,17 @@ def stencil_bound(x, w, kernel, steps):
 
 
 def check_kernel(D, x, w, kernel, steps, label):
-    """Kernel vs plain on the same inputs; returns the max abs error."""
+    """Kernel vs plain on the same inputs, and the kernel the shape names
+    launched as often as it should; returns the max abs error."""
     import torch
 
+    before = plane_launches(D)
     out = D.diffusion_planes(x, w, kernel, steps)
     torch.cuda.synchronize()
+    added = tuple(a - b for a, b in zip(plane_launches(D), before))
+    want = expected_launches(D, x.shape[1:], kernel, x.dtype, steps, bwd=False)
+    check(added == want, f"{label}: launches (fused fwd, fused bwd, step fwd, step bwd) {added}, expected {want}")
+    label = f"{label} [{'fused' if want[0] else 'per-step'}]"
     if x.dtype == torch.float32:
         ref = D.diffusion_planes_plain(x, w, kernel, steps)
         torch.testing.assert_close(out, ref, **FP32_TOL, msg=lambda m: f"{label}: {m}")
@@ -223,8 +283,13 @@ def check_bwd(D, g, xs, w, kernel, label):
     abs error over dx and dw."""
     import torch
 
+    before = plane_launches(D)
     dx, dw = D.diffusion_planes_bwd(g, xs, w, kernel)
     torch.cuda.synchronize()
+    added = tuple(a - b for a, b in zip(plane_launches(D), before))
+    want = expected_launches(D, g.shape[1:], kernel, g.dtype, len(xs), bwd=True)
+    check(added == want, f"{label}: launches (fused fwd, fused bwd, step fwd, step bwd) {added}, expected {want}")
+    label = f"{label} [{'fused' if want[1] else 'per-step'}]"
     rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, kernel)
     check(dx.dtype == g.dtype and dw.dtype == w.dtype, f"{label}: dtypes {dx.dtype} {dw.dtype}")
     tol = BWD_FP32_TOL if g.dtype == torch.float32 else BWD_BF16_TOL
@@ -403,7 +468,7 @@ def main():
     # ---- 2. kernel vs plain ----
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    say("phase 2: kernel vs plain (P=192, 4 steps)")
+    say("phase 2: forward kernels (fused and per-step) vs plain (P=192, 4 steps)")
     g = torch.Generator(device=dev).manual_seed(0)
     for k, (h, w) in SHAPES:
         x = torch.rand(P_MAIN, h, w, generator=g, device=dev)
@@ -445,14 +510,15 @@ def main():
                         "--depth-dir", os.path.join(tmp, "dep"), "--out-dir", out_dir,
                         "--size", str(SIZE), "--batch", str(BATCH)] + extra
                 run["name"] = name
-                D.LAUNCHES = 0
+                reset_plane_launches(D)
                 summaries[name] = P.main(argv)
-                launches[name] = D.LAUNCHES
+                launches[name] = plane_launches(D)
                 torch.cuda.synchronize()
                 nb = summaries[name]["batches"]
                 say(f"  {name}: {summaries[name]['images']} images in {nb} batches, "
-                    f"loop {summaries[name]['loop_s']:.3f} s, stencil launches {launches[name]}")
-                check(launches[name] == STEPS * nb, (name, launches[name], nb))
+                    f"loop {summaries[name]['loop_s']:.3f} s, stencil launches (fused fwd, fused bwd, "
+                    f"step fwd, step bwd) {launches[name]}")
+                check(launches[name] == (nb, 0, 0, 0), (name, launches[name], nb))
                 outs = sorted(os.listdir(out_dir))
                 check(len(outs) == N_IMAGES and all(f.endswith("_output.png") for f in outs), outs)
                 for f in outs:
@@ -484,7 +550,7 @@ def main():
     check(cpu_err <= CPU_PROB_ATOL, f"card vs CPU {cpu_err:.2e} > {CPU_PROB_ATOL}")
 
     # ---- 4. kernel vs plain on the served path's own tensors ----
-    say("phase 4: kernel vs plain on captured MessagePassing inputs")
+    say("phase 4: fused kernel vs plain on captured MessagePassing inputs")
     served = {}
     for name in ("bf16", "fp32"):
         x, weight = captured[name]
@@ -496,16 +562,31 @@ def main():
           "the bf16 run's stencil ran in bf16 and the fp32 run's in fp32")
 
     # ---- 5. timings ----
-    say("phase 5: timings (CUDA events)")
-    rows = {}
+    say("phase 5: timings (CUDA events around calls back to back)")
+    # (label, row, key, call, kernel name, calls): the profiler reads each
+    # call's device time at the end (phase 14)
+    rows, device_calls = {}, []
     for name in ("bf16", "fp32"):
         xp, wt, err = served[name]
-        ms = cuda_time_ms(lambda: D.diffusion_planes(xp, wt, KERNEL, STEPS), 200)
+        # (the tensors bound now: the calls run again at the end)
+        fused = functools.partial(D.diffusion_planes, xp, wt, KERNEL, STEPS)
+        # the per-step kernels on the same tensors, as the op ran them before
+        # the fused kernel, for a comparison within one call
+        per_step = lambda xp=xp, wt=wt: D._per_step_forward(xp, wt, KERNEL, STEPS, None, torch.empty_like(xp))
+        ms, step_ms = cuda_time_ms(fused, 200), cuda_time_ms(per_step, 200)
+        # the host layers of a call: through the autograd Function (as a call
+        # that records a gradient pays it), and the launch wrapper alone
+        function_ms = cuda_time_ms(lambda: D.DiffusionPlanesFn.apply(xp, wt, KERNEL, STEPS), 200)
+        launch_ms = cuda_time_ms(lambda: D._fused_forward(xp, wt, KERNEL, STEPS, None, torch.empty_like(xp)), 200)
         plain_ms = cuda_time_ms(lambda: D.diffusion_planes_plain(xp, wt, KERNEL, STEPS), 200)
         bound_ms, bound_by = stencil_bound(xp, wt, KERNEL, STEPS)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, err=err)
-        say(f"  stencil {name} ({STEPS} steps, {P_MAIN}x12x12, k={KERNEL}): kernel {ms:.5f} ms, "
-            f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        rows[name] = dict(ms=ms, function_ms=function_ms, launch_ms=launch_ms, per_step_ms=step_ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, err=err)
+        say(f"  stencil {name} ({STEPS} steps, {P_MAIN}x12x12, k={KERNEL}): fused {ms:.5f} ms per call (through the "
+            f"Function {function_ms:.5f}, launch wrapper alone {launch_ms:.5f}); per-step kernels {step_ms:.5f} ms "
+            f"per call; plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        device_calls += [(f"fused forward {name}", rows[name], "device_ms", fused, "stencil_fused_fwd", 200),
+                         (f"per-step forward {name}", rows[name], "per_step_device_ms", per_step, "stencil_step_kernel", 200)]
 
     model.to(dev)
     g_dev = torch.Generator(device=dev).manual_seed(2)
@@ -520,7 +601,7 @@ def main():
         f"(batch {BATCH}, {SIZE}², model.predict back to back) [{card}]")
 
     # ---- 6. backward kernel vs plain backward ----
-    say(f"phase 6: backward kernel vs plain backward (P={P_TRAIN})")
+    say(f"phase 6: backward kernels (fused and per-step) vs plain backward (P={P_TRAIN})")
     for k, (h, w) in SHAPES:
         x = torch.rand(P_TRAIN, h, w, generator=g, device=dev)
         wt = MD.normalize_affinity(torch.rand(P_TRAIN, k * k, h, w, generator=g, device=dev), dim=1)
@@ -535,11 +616,11 @@ def main():
         gout = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev).to(dt)
         xa, wa = x.clone().requires_grad_(), wt.clone().requires_grad_()
         xb, wb = x.clone().requires_grad_(), wt.clone().requires_grad_()
-        before = (D.LAUNCHES, D.BWD_LAUNCHES)
+        before = plane_launches(D)
         D.diffusion_planes(xa, wa, KERNEL, STEPS).backward(gout)
         torch.cuda.synchronize()
-        check((D.LAUNCHES, D.BWD_LAUNCHES) == (before[0] + STEPS, before[1] + STEPS),
-              f"Function {name}: launches {before} -> {(D.LAUNCHES, D.BWD_LAUNCHES)}")
+        check(plane_launches(D) == tuple(b + a for b, a in zip(before, (1, 1, 0, 0))),
+              f"Function {name}: launches {before} -> {plane_launches(D)}")
         D.diffusion_planes_plain(xb, wb, KERNEL, STEPS).backward(gout)
         err = 0.0
         for gname, got, ref in (("dx", xa.grad, xb.grad), ("dw", wa.grad, wb.grad)):
@@ -609,17 +690,18 @@ def main():
         MD.diffusion_planes = spy_planes
         try:
             torch.cuda.reset_peak_memory_stats()
-            D.LAUNCHES = D.BWD_LAUNCHES = 0
+            reset_plane_launches(D)
             trained = TC.main(argv)
-            fwd_launches, bwd_launches = D.LAUNCHES, D.BWD_LAUNCHES
+            train_launches = plane_launches(D)
             cli_peak = torch.cuda.max_memory_allocated()
         finally:
             MD.diffusion_planes = planes_unspied
-        say(f"  {trained['steps']} steps in {trained['loop_s']:.3f} s; stencil launches: forward {fwd_launches}, "
-            f"backward {bwd_launches}; peak memory {cli_peak / 2**30:.3f} GiB")
+        fwd_launches, bwd_launches = train_launches[:2]
+        say(f"  {trained['steps']} steps in {trained['loop_s']:.3f} s; stencil launches (fused fwd, fused bwd, "
+            f"step fwd, step bwd) {train_launches}; peak memory {cli_peak / 2**30:.3f} GiB")
         check(trained["steps"] == TRAIN_STEPS, trained)
-        check(fwd_launches == STEPS * TRAIN_STEPS, f"forward launches {fwd_launches} != {STEPS}x{TRAIN_STEPS}")
-        check(bwd_launches == STEPS * 1 * TRAIN_STEPS, f"backward launches {bwd_launches} != {STEPS}x1x{TRAIN_STEPS}")
+        check(train_launches == (TRAIN_STEPS, TRAIN_STEPS, 0, 0),
+              f"launches {train_launches}: one fused forward and one fused backward a step in {TRAIN_STEPS} steps")
         with open(os.path.join(work, "log.jsonl")) as f:
             records = [json.loads(line) for line in f]
         losses = [r for r in records if "loss" in r]
@@ -634,11 +716,11 @@ def main():
         serve = os.path.join(tmp, "serve")
         write_inputs(serve, TRAIN_BATCH)
         out_dir = os.path.join(serve, "out")
-        D.LAUNCHES = 0
+        reset_plane_launches(D)
         P.main(["--checkpoint", ckpts[-1], "--image-dir", os.path.join(serve, "img"),
                 "--depth-dir", os.path.join(serve, "dep"), "--out-dir", out_dir,
                 "--size", str(SIZE), "--batch", str(TRAIN_BATCH)])
-        check(D.LAUNCHES == STEPS, f"serving the trained checkpoint: {D.LAUNCHES} launches")
+        check(plane_launches(D) == (1, 0, 0, 0), f"serving the trained checkpoint: launches {plane_launches(D)}")
         outs = sorted(os.listdir(out_dir))
         check(len(outs) == TRAIN_BATCH, outs)
         for f in outs:
@@ -670,13 +752,21 @@ def main():
     say("phase 9: train-step and backward-kernel timings (CUDA events)")
     bwd_rows = {}
     for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        tg, txs, tw = gg.to(dt), [t.to(dt) for t in gxs], gw.to(dt)
-        ms = cuda_time_ms(lambda: D.diffusion_planes_bwd(tg, txs, tw, KERNEL), 200)
+        # the step inputs as the Function saves them: one (steps, P, H, W) tensor
+        tg, txs, tw = gg.to(dt), torch.stack(gxs).to(dt), gw.to(dt)
+        fused = functools.partial(D.diffusion_planes_bwd, tg, txs, tw, KERNEL)
+        per_step = functools.partial(D._per_step_backward, tg, txs, tw, KERNEL)  # the design before, same tensors
+        ms, step_ms = cuda_time_ms(fused, 200), cuda_time_ms(per_step, 200)
+        launch_ms = cuda_time_ms(lambda: D._fused_backward(tg, txs, tw, KERNEL), 200)
         plain_ms = cuda_time_ms(lambda: D.diffusion_planes_bwd_plain(tg, txs, tw, KERNEL), 50)
         bound_ms, bound_by = stencil_bwd_bound(tg, txs, tw, KERNEL)
-        bwd_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        say(f"  stencil backward {name} ({STEPS} steps, {P_TRAIN}x12x12, k={KERNEL}): kernel {ms:.5f} ms, "
-            f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        bwd_rows[name] = dict(ms=ms, launch_ms=launch_ms, per_step_ms=step_ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        say(f"  stencil backward {name} ({STEPS} steps, {P_TRAIN}x12x12, k={KERNEL}): fused {ms:.5f} ms per call "
+            f"(launch wrapper alone {launch_ms:.5f}); per-step kernels {step_ms:.5f} ms per call; plain "
+            f"{plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        device_calls += [(f"fused backward {name}", bwd_rows[name], "device_ms", fused, "stencil_fused_bwd", 200),
+                         (f"per-step backward {name}", bwd_rows[name], "per_step_device_ms", per_step, "stencil_bwd_kernel", 200)]
     bwd_rows["fp32"]["err"] = train_err32
     step_ms, peak = {}, {}
     counter = [1]
@@ -847,11 +937,14 @@ def main():
     nhwc_grad_err = {}
     for name, dt, tol in (("fp32", torch.float32, BWD_FP32_TOL), ("bf16", torch.bfloat16, AUTOGRAD_BF16_TOL)):
         xa, wa, xb, wb = (t.to(dt).clone().requires_grad_() for t in (x, nw, x, nw))
-        D.NHWC_LAUNCHES = D.BWD_LAUNCHES = 0
+        D.NHWC_LAUNCHES = 0
+        reset_plane_launches(D)
         D.diffusion_nhwc(xa, wa, KERNEL, STEPS).backward(gout.to(dt))
         torch.cuda.synchronize()
-        nhwc_launches = (D.NHWC_LAUNCHES, D.BWD_LAUNCHES)
-        check(nhwc_launches == (STEPS, STEPS), f"NHWC {name} forward+backward launches {nhwc_launches}")
+        # the backward's 12x12 planes take the fused plane backward: one launch
+        nhwc_launches = (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES)
+        check(nhwc_launches == (STEPS, 1) and plane_launches(D) == (0, 1, 0, 0),
+              f"NHWC {name} forward+backward launches {nhwc_launches}, plane {plane_launches(D)}")
         D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), KERNEL, STEPS).backward(gout.to(dt))
         err = 0.0
         for gname, got, ref in (("dx", xa.grad, xb.grad), ("dw", wa.grad, wb.grad)):
@@ -920,45 +1013,124 @@ def main():
         say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
             f"F.layer_norm {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
 
+    # ---- 14. the per-step kernels' own path: planes above the fused limit ----
+    lh, lw = LARGE
+    say(f"phase 14: the op forward and backward on ({P_MAIN},{lh},{lw}) bf16 planes, above the fused limit")
+    check(not D.fused_path(lh, lw, KERNEL, torch.bfloat16), f"{lh}x{lw} lies within the fused limit")
+    xl = torch.rand(P_MAIN, lh, lw, generator=g, device=dev).bfloat16()
+    wl = MD.normalize_affinity(torch.rand(P_MAIN, KERNEL ** 2, lh, lw, generator=g, device=dev), dim=1).bfloat16()
+    gl = torch.rand(P_MAIN, lh, lw, generator=g, device=dev).bfloat16()
+    xa, wa = xl.clone().requires_grad_(), wl.clone().requires_grad_()
+    reset_plane_launches(D)
+    out = D.diffusion_planes(xa, wa, KERNEL, STEPS)
+    out.backward(gl)
+    torch.cuda.synchronize()
+    large_launches = plane_launches(D)
+    say(f"  launches (fused fwd, fused bwd, step fwd, step bwd) {large_launches}")
+    check(large_launches == (0, 0, STEPS, STEPS), f"large plane: launches {large_launches}")
+    ref = D.diffusion_planes_plain(xl.float(), wl.float(), KERNEL, STEPS)
+    torch.testing.assert_close(out.detach().float(), ref, rtol=0, atol=BF16_ATOL, msg=lambda m: f"large plane forward: {m}")
+    large_err = {"fwd": float((out.detach().float() - ref).abs().max())}
+    # the backward against the plain backward on the step inputs the kernel made
+    _, lxs = D._forward_steps(xl, wl, KERNEL, STEPS, keep=True)
+    rdx, rdw = D.diffusion_planes_bwd_plain(gl, lxs, wl, KERNEL)
+    for gname, got, want in (("dx", xa.grad, rdx), ("dw", wa.grad, rdw)):
+        torch.testing.assert_close(got.float(), want.float(), **BWD_BF16_TOL, msg=lambda m: f"large plane {gname}: {m}")
+    large_err["bwd"] = max(float((xa.grad.float() - rdx.float()).abs().max()), float((wa.grad.float() - rdw.float()).abs().max()))
+    large_rows = {}
+    for name, fn, plain, match, bound in (
+        ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, STEPS),
+         functools.partial(D.diffusion_planes_plain, xl, wl, KERNEL, STEPS),
+         "stencil_step_kernel", stencil_bound(xl, wl, KERNEL, STEPS)),
+        ("bwd", functools.partial(D.diffusion_planes_bwd, gl, lxs, wl, KERNEL),
+         functools.partial(D.diffusion_planes_bwd_plain, gl, lxs, wl, KERNEL),
+         "stencil_bwd_kernel", stencil_bwd_bound(gl, lxs, wl, KERNEL)),
+    ):
+        ms, plain_ms = cuda_time_ms(fn, 50), cuda_time_ms(plain, 5, warmup=1)
+        large_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], err=large_err[name])
+        say(f"  per-step {name} ({STEPS} steps, {P_MAIN}x{lh}x{lw}, k={KERNEL}, bf16): {ms:.5f} ms per call, "
+            f"plain {plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}), max_abs_err {large_err[name]:.3e} [{card}]")
+        device_calls.append((f"per-step {name} {lh}x{lw} bf16", large_rows[name], "device_ms", fn, match, 50))
+
+    # device time per call from the profiler, read last, so that its tracing
+    # cannot touch the per-call and end-to-end timings above, which are
+    # host-bound
+    say("  device time per call (torch.profiler key_averages):")
+    for label, row, key, fn, match, iters in device_calls:
+        row[key] = device_ms(fn, iters, match)
+        say(f"    {label}: {row[key] if row[key] is not None else 'no device time recorded'} ms [{card}]")
+    del xl, wl, gl, xa, wa, out, ref, lxs, rdx, rdw, device_calls
+    torch.cuda.empty_cache()
+
     b = rows["bf16"]
     bb = bwd_rows["bf16"]
+    n_batches = summaries["bf16"]["batches"]
+    large_shape = f"({P_MAIN},{lh},{lw}), w ({P_MAIN},{KERNEL * KERNEL},{lh},{lw}), {STEPS} steps"
     say(json.dumps({"kernels": [{
-        "name": "diffusion_stencil",
+        "name": "diffusion_stencil_fused",
         "route": "cuda",
         "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",
         "replaces": "dgtd_tpu/ops/diffusion_pallas.py:263",
-        "launches": launches["bf16"],
+        "launches": launches["bf16"][0],
         "max_abs_err": b["err"],
         "ms": b["ms"],
         "plain_ms": b["plain_ms"],
         "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"],
         "library_ms": None,
+        "device_ms": b["device_ms"],
+        "function_ms": b["function_ms"],
+        "launch_ms": b["launch_ms"],
+        "per_step_ms": b["per_step_ms"],
+        "per_step_device_ms": b["per_step_device_ms"],
         "dtype": "bfloat16",
         "shape": f"x ({P_MAIN},12,12), w ({P_MAIN},{KERNEL * KERNEL},12,12), {STEPS} steps",
-        "launches_per_batch": launches["bf16"] // summaries["bf16"]["batches"],
+        "launches_per_batch": launches["bf16"][0] / n_batches,
         "launches_train": fwd_launches,
-        "launches_per_step": fwd_launches // TRAIN_STEPS,
+        "launches_per_step": fwd_launches / TRAIN_STEPS,
         "fp32": rows["fp32"],
         "card": card,
     }, {
-        "name": "diffusion_stencil_bwd",
+        "name": "diffusion_stencil_fused_bwd",
         "route": "cuda",
         "source": "dgtd_tpu_torch/csrc/diffusion_stencil_bwd.cu",
         "replaces": "dgtd_tpu/ops/diffusion_pallas.py:162",
         "launches": bwd_launches,
-        "launches_per_step": bwd_launches // TRAIN_STEPS,
+        "launches_per_step": bwd_launches / TRAIN_STEPS,
         "max_abs_err": train_err,
         "ms": bb["ms"],
         "plain_ms": bb["plain_ms"],
         "bound_ms": bb["bound_ms"],
         "bound_by": bb["bound_by"],
         "library_ms": None,
+        "device_ms": bb["device_ms"],
+        "launch_ms": bb["launch_ms"],
+        "per_step_ms": bb["per_step_ms"],
+        "per_step_device_ms": bb["per_step_device_ms"],
         "dtype": "bfloat16",
         "shape": f"g, x ({P_TRAIN},12,12), w, dw ({P_TRAIN},{KERNEL * KERNEL},12,12), {STEPS}-step backward",
         "fp32": bwd_rows["fp32"],
         "card": card,
-    }, {
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"dgtd_tpu_torch/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": n_launch,
+        "max_abs_err": large_rows[part]["err"],
+        "ms": large_rows[part]["ms"],
+        "plain_ms": large_rows[part]["plain_ms"],
+        "bound_ms": large_rows[part]["bound_ms"],
+        "bound_by": large_rows[part]["bound_by"],
+        "library_ms": None,
+        "device_ms": large_rows[part]["device_ms"],
+        "dtype": "bfloat16",
+        "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} {large_shape}",
+        "card": card,
+    } for name, source, replaces, part, n_launch in (
+        ("diffusion_stencil", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd", large_launches[2]),
+        ("diffusion_stencil_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd", large_launches[3]),
+    )] + [{
         "name": "diffusion_stencil_nhwc",
         "route": "cuda",
         "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",

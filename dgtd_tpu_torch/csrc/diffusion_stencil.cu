@@ -1,8 +1,9 @@
-// Depth-diffusion stencil step for Hopper (sm_90a), in plane layout and in
+// Depth-diffusion stencil steps for Hopper (sm_90a), in plane layout and in
 // NHWC with tap-major weights.
 //
 // Replaces dgtd_tpu/ops/diffusion_pallas.py::diffusion_step_pallas_v2
-// (the Pallas kernel _stencil_kernel_v2). One step computes
+// (the Pallas kernel _stencil_kernel_v2) and its chain of one call per step
+// (diffusion_pallas_v2_planes). One step computes
 //
 //   out[p, y, x] = sum_{t < k*k} x[p, y + t/k - r, x + t%k - r] * w[p, t, y, x]
 //
@@ -13,15 +14,36 @@
 // weight planes once (k*k*P*H*W values) and does 2 flops per weight value,
 // far below the ~20 flop/byte ridge of the fp32 CUDA cores. At the served
 // shape (P = 8*24 planes of 12x12, k = 7) a step moves ~2.7 MB in bf16,
-// under a microsecond of DRAM time that the 50 MB L2 mostly absorbs, so the
-// launch itself sets the time.
+// under a microsecond of DRAM time that the 50 MB L2 mostly absorbs, so
+// launches and their host calls set the time.
 //
-// The design is the simple one: one thread per output pixel, one launch per
-// step (the caller ping-pongs two buffers). Consecutive threads take
-// consecutive x of one row, so the reads of w[p, t, y, :] and of x are
-// coalesced; taps that fall outside the plane are skipped (the halo is
-// zero), which also masks ragged and rectangular H x W. No shared memory:
-// the k*k neighbourhood reads of x hit L1.
+// Two kernels compute the plane steps, chosen by shape alone (the wrapper's
+// predicate ops/diffusion.py::fused_path mirrors fused_fits below):
+//
+// stencil_fused_fwd_kernel runs all the steps in one launch. One block per
+// plane, one thread per pixel (at most FUSED_MAX_PIXELS = 512 pixels, the
+// cod recipe's 12x12 grid and smaller), k in {1, 3, 5, 7} as a template
+// argument. The padded plane lives in shared memory as fp32 in two
+// ping-pong buffers whose zero halo is never written; each thread keeps its
+// pixel's k*k weights in registers for all the steps (read from memory
+// once), and a __syncthreads() separates the steps. Each step's result is
+// rounded to x's dtype before it goes back into shared memory, as the plain
+// version and the chained Pallas calls round it. Shared memory: two padded
+// fp32 planes, at most 29 KB for 512 pixels.
+//
+// When autograd needs them, the kernel also writes every step's input into
+// one (steps, P, H, W) tensor: x itself as it is loaded, then each step's
+// result but the last. The backward (diffusion_stencil_bwd.cu) reads them
+// rather than recompute them on chip: they are P*H*W values a step, and the
+// forward already holds each one in a register, so writing them is nearly
+// free and the backward cannot drift from the forward's rounding.
+//
+// stencil_step_kernel, one thread per output pixel and one launch per step
+// (the caller ping-pongs two buffers), takes the planes above that limit.
+// Consecutive threads take consecutive x of one row, so the reads of
+// w[p, t, y, :] and of x are coalesced; taps that fall outside the plane are
+// skipped (the halo is zero), which also masks ragged and rectangular
+// H x W. No shared memory: the k*k neighbourhood reads of x hit L1.
 //
 // The second kernel, stencil_step_nhwc_kernel, replaces
 // dgtd_tpu/ops/diffusion_pallas.py::diffusion_step_pallas (the Pallas kernel
@@ -35,19 +57,84 @@
 // for each tap the reads of x and of w[b, y, x, t*C : (t+1)*C] are
 // coalesced. Bound and launch pattern as above.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "stencil_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+template <typename T, int K>
+__global__ void __launch_bounds__(FUSED_MAX_PIXELS)
+stencil_fused_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ xs,
+                         T* __restrict__ out, int64_t planes, int h, int wd, int steps) {
+  constexpr int R = K / 2;
+  extern __shared__ float smem[];
+  const int pw = wd + 2 * R, pn = (h + 2 * R) * pw, hw = h * wd;
+  float* src = smem;
+  float* dst = smem + pn;
+  for (int i = threadIdx.x; i < 2 * pn; i += blockDim.x) smem[i] = 0.f;
+  __syncthreads();
+
+  const int64_t p = blockIdx.x;
+  const int pix = threadIdx.x;
+  const bool live = pix < hw;
+  const int y = live ? pix / wd : 0;
+  const int xx = live ? pix - y * wd : 0;
+  const int centre = (y + R) * pw + xx + R;
+  float wr[K * K];
+  if (live) {
+    const T xv = x[p * hw + pix];
+    if (xs != nullptr) xs[p * hw + pix] = xv;
+    src[centre] = to_f(xv);
+    const T* wp = w + p * (int64_t)K * K * hw + pix;
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) wr[t] = load_f(wp + (int64_t)t * hw);
+  }
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    if (live) {
+      const float* win = src + y * pw + xx;  // top-left tap of this pixel's window
+      float acc = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) acc = fmaf(win[dy * pw + dx], wr[dy * K + dx], acc);
+      }
+      if (s == steps - 1) {
+        store_f(out + p * hw + pix, acc);
+      } else {
+        if (xs != nullptr) store_f(xs + ((s + 1) * planes + p) * hw + pix, acc);
+        dst[centre] = round_to(acc, x);
+      }
+    }
+    __syncthreads();  // every read of src and write of dst done before the swap
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
 }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+
+template <typename T, int K>
+cudaError_t launch_fused(const void* x, const void* w, void* xs, void* out, int64_t planes, int h,
+                         int wd, int steps, cudaStream_t s) {
+  constexpr int R = K / 2;
+  const int threads = (h * wd + 31) / 32 * 32;
+  const size_t smem = 2 * sizeof(float) * (size_t)(h + 2 * R) * (wd + 2 * R);
+  stencil_fused_fwd_kernel<T, K><<<(unsigned)planes, threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(xs), static_cast<T*>(out),
+      planes, h, wd, steps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fused_k(const void* x, const void* w, void* xs, void* out, int64_t planes, int h,
+                           int wd, int k, int steps, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_fused<T, 1>(x, w, xs, out, planes, h, wd, steps, s);
+    case 3: return launch_fused<T, 3>(x, w, xs, out, planes, h, wd, steps, s);
+    case 5: return launch_fused<T, 5>(x, w, xs, out, planes, h, wd, steps, s);
+    case 7: return launch_fused<T, 7>(x, w, xs, out, planes, h, wd, steps, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -135,6 +222,25 @@ extern "C" int dgtd_diffusion_step(const void* x, const void* w, void* out, long
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Fused entry: all `steps` (>= 1) steps in one launch, for planes within
+// fused_fits (else cudaErrorInvalidValue). x and out (P, H, W), w
+// (P, k*k, H, W); xs, when not null, (steps, P, H, W) receives every step's
+// input. dtype and device as above. Returns cudaGetLastError() after the
+// launch.
+extern "C" int dgtd_diffusion_fused(const void* x, const void* w, void* xs, void* out,
+                                    long long planes, int h, int wd, int k, int steps, int dtype,
+                                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!fused_fits(h, wd, k, dtype == 0 ? 4 : 2) || steps < 1 || planes > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (planes <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_fused_k<float>(x, w, xs, out, planes, h, wd, k, steps, s);
+  return (int)launch_fused_k<__nv_bfloat16>(x, w, xs, out, planes, h, wd, k, steps, s);
 }
 
 // NHWC entry: x and out (B, H, W, C), w (B, H, W, k*k*C) tap-major; dtype and

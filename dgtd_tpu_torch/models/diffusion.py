@@ -4,8 +4,9 @@
 ``MessagePassing`` always runs in plane layout: the 1x1 affinity regressor's
 NCHW output (B, C·k², h, w) is already ``view(B·C, k², h, w)``, channel
 ``o = c·k² + t``, so the stencil (``ops/diffusion.py``) needs no transposes.
-On CUDA every step is a launch of the hand-written forward kernel and, in
-backward, of the backward kernel, at every grid size. The gradient reaches
+On CUDA the stencil runs hand-written kernels at every grid size: at the
+recipe's 12x12 grid all the steps in one launch of the fused forward and,
+in backward, one of the fused backward. The gradient reaches
 the affinity regressor through the fp32 normalization and its cast to x's
 dtype.
 """

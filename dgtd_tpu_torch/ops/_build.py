@@ -110,6 +110,8 @@ def function(name: str, symbol: str, argtypes) -> Callable:
 
 def device_and_stream(t) -> Tuple[int, int]:
     """The CUDA ordinal of ``t`` and the handle of its current stream, as
-    the C functions take them."""
+    the C functions take them. The raw handle, not ``torch.cuda.current_stream``,
+    which builds a Python ``Stream`` object on every call: this runs once per
+    launch, and small launches are bound by their host time."""
     dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    return dev, torch.cuda.current_stream(t.device).cuda_stream
+    return dev, torch._C._cuda_getCurrentRawStream(dev)

@@ -4,17 +4,21 @@ backward) and their plain PyTorch versions.
 
 Plane layout is the counterpart of
 ``dgtd_tpu/ops/diffusion_pallas.py::diffusion_pallas_v2_planes`` and its
-custom VJP. The forward kernel replaces the Pallas
-``diffusion_step_pallas_v2``, the backward kernel both Pallas kernels of
-``diffusion_step_bwd_pallas`` (one fused launch per step). Unlike the JAX
-package, which keeps grids under 64 on fused XLA, the port launches them at
-every grid size on CUDA.
+custom VJP. The forward kernels replace the Pallas
+``diffusion_step_pallas_v2``, the backward kernels both Pallas kernels of
+``diffusion_step_bwd_pallas``. Two kernels each, chosen by the plane's shape
+alone (``fused_path``): a plane of at most 512 pixels at k in {1, 3, 5, 7}
+(the cod recipe's 12x12 grid) runs all its steps in one launch of the fused
+forward and, in backward, one of the fused backward, the plane held in
+shared memory; a larger plane runs one launch of the per-step kernel a step.
+Unlike the JAX package, which keeps grids under 64 on fused XLA, the port
+launches kernels at every grid size on CUDA.
 
 NHWC is the counterpart of ``diffusion_pallas`` (x (B, H, W, C), weights
-(B, H, W, C, k²), tap-major inside): its forward kernel, a second kernel in
+(B, H, W, C, k²), tap-major inside): its forward kernel, a third kernel in
 ``csrc/diffusion_stencil.cu``, replaces the Pallas ``diffusion_step_pallas``;
 its backward moves g, the step inputs and w into plane layout and runs the
-plane backward kernel (the JAX backward is the VJP of the jnp stencil).
+plane backward kernels (the JAX backward is the VJP of the jnp stencil).
 
 CPU tensors take the plain versions; a CUDA tensor gets the kernels or an
 exception, never a plain version.
@@ -23,21 +27,58 @@ exception, never a plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-#: launches of the forward kernel (one per step) and of the backward kernel
-#: (one per step), for run-time proof that a path went through them; callers
-#: reset them to 0 before the run they read
+#: launches of each stencil kernel, for run-time proof of which kernels a
+#: path went through; callers reset them to 0 before the run they read.
+#: The fused forward and backward: one launch for all the steps of a call.
+FUSED_LAUNCHES = 0
+FUSED_BWD_LAUNCHES = 0
+#: the per-step forward and backward (planes above the fused limit): one
+#: launch per step
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-#: launches of the NHWC forward kernel (one per step); its backward counts
-#: in ``BWD_LAUNCHES``
+#: the NHWC forward (one per step); its backward counts in the plane
+#: backward's counters
 NHWC_LAUNCHES = 0
+
+#: the fused kernels' limit, as ``csrc/stencil_common.cuh::fused_fits``
+#: states it: one thread per pixel with k a template argument, so a pixel's
+#: k² weights (forward) or dw sums (backward) are registers; 512 threads
+#: leave a thread 128 registers. Shared memory (the backward's three padded
+#: fp32 planes and its k² weight planes) must fit a block's 227 KB; within
+#: the pixel limit it is at most 144 KB, so the pixel count binds first.
+FUSED_KERNELS = (1, 3, 5, 7)
+FUSED_MAX_PIXELS = 512
+FUSED_SMEM_LIMIT = 232448
+
+
+def fused_path(h: int, w: int, kernel: int, dtype: torch.dtype) -> bool:
+    """Whether an (H, W) plane at this kernel and dtype takes the fused
+    kernels (all steps in one launch) rather than the per-step ones."""
+    r = kernel // 2
+    smem = 3 * 4 * (h + 2 * r) * (w + 2 * r) + kernel * kernel * h * w * dtype.itemsize
+    return kernel in FUSED_KERNELS and 0 < h * w <= FUSED_MAX_PIXELS and smem <= FUSED_SMEM_LIMIT
+
+
+def _fused_fn():
+    return _build.function("diffusion_stencil", "dgtd_diffusion_fused", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ])
+
+
+def _fused_bwd_fn():
+    return _build.function("diffusion_stencil_bwd", "dgtd_diffusion_fused_bwd", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ])
 
 
 def _fwd_fn():
@@ -133,49 +174,110 @@ def _check(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> None:
         raise ValueError("diffusion_planes needs contiguous x and w")
 
 
-def _forward_steps(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, keep: bool) -> List[torch.Tensor]:
-    """Run the steps; returns [x, out_1, ..., out_steps] when ``keep`` (the
-    step inputs are saved for backward), else [x, out_steps]."""
-    global LAUNCHES
+def _forward_steps(
+    x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, keep: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run the steps; returns (output, xs): xs holds every step's input as
+    one (steps, P, H, W) tensor when ``keep`` (saved for backward), else it
+    is None. The output is never x itself (a Function's output must not be
+    its input): 0 steps return a copy."""
     if x.device.type == "cpu" and w.device.type == "cpu":
+        if steps == 0:
+            return x.clone(), x.new_empty((0, *x.shape)) if keep else None
         outs = [x]
         for _ in range(steps):
             outs.append(diffusion_step_plain(outs[-1], w, kernel))
-        return outs if keep else [x, outs[-1]]
+        return outs[-1], torch.stack(outs[:-1]) if keep else None
     _check(x, w, kernel, steps)
+    xs = torch.empty((steps, *x.shape), dtype=x.dtype, device=x.device) if keep else None
     if steps == 0:
-        return [x, x]
+        return x.clone(), xs
+    out = torch.empty_like(x)
+    if fused_path(x.shape[1], x.shape[2], kernel, x.dtype):
+        _fused_forward(x, w, kernel, steps, xs, out)
+    else:
+        _per_step_forward(x, w, kernel, steps, xs, out)
+    return out, xs
+
+
+def _fused_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """All ``steps`` steps in one launch of the fused forward kernel into
+    ``out``, every step's input into ``xs`` unless it is None."""
+    global FUSED_LAUNCHES
+    p, h, wd = x.shape
+    dev, stream = _build.device_and_stream(x)
+    rc = _fused_fn()(x.data_ptr(), w.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+                     p, h, wd, kernel, steps, _build.DTYPE_CODES[x.dtype], dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused diffusion stencil launch failed: cudaError {rc}")
+    FUSED_LAUNCHES += 1
+
+
+def _per_step_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """One launch of the per-step forward kernel a step: the steps' inputs
+    into ``xs`` or, when it is None, into two ping-pong buffers; the last
+    step into ``out``."""
+    global LAUNCHES
     fn = _fwd_fn()
     p, h, wd = x.shape
     code = _build.DTYPE_CODES[x.dtype]
     dev, stream = _build.device_and_stream(x)
-    bufs = None if keep else [torch.empty_like(x) for _ in range(min(steps, 2))]
-    outs = [x]
+    if xs is not None:
+        xs[0].copy_(x)
+    bufs = [torch.empty_like(x) for _ in range(min(steps - 1, 2))] if xs is None else None
+    src = x
     for s in range(steps):
-        dst = torch.empty_like(x) if keep else bufs[s % 2]
-        rc = fn(outs[-1].data_ptr(), w.data_ptr(), dst.data_ptr(), p, h, wd, kernel, code, dev, stream)
+        dst = out if s == steps - 1 else (bufs[s % 2] if xs is None else xs[s + 1])
+        rc = fn(src.data_ptr(), w.data_ptr(), dst.data_ptr(), p, h, wd, kernel, code, dev, stream)
         if rc != 0:
             raise RuntimeError(f"diffusion stencil launch failed: cudaError {rc}")
         LAUNCHES += 1
-        outs.append(dst)
-    return outs if keep else [x, outs[-1]]
+        src = dst
 
 
 def diffusion_planes_bwd(
-    g: torch.Tensor, xs: Sequence[torch.Tensor], w: torch.Tensor, kernel: int
+    g: torch.Tensor, xs: Union[torch.Tensor, Sequence[torch.Tensor]], w: torch.Tensor, kernel: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward of ``len(xs)`` steps whose inputs were ``xs``: (dx, dw). On
-    CUDA one launch of the backward kernel per step, dw summed in fp32 and
-    cast to w's dtype by the last launch; on the CPU the plain version."""
-    global BWD_LAUNCHES
+    """Backward of ``len(xs)`` steps whose inputs were ``xs`` (a sequence of
+    (P, H, W) tensors or one (steps, P, H, W) tensor): (dx, dw). On CUDA one
+    launch of the fused backward for all the steps where ``fused_path`` says
+    so, else one launch of the per-step backward a step; dw is summed in fp32
+    and cast to w's dtype once. On the CPU the plain version."""
     if g.device.type == "cpu" and w.device.type == "cpu":
         return diffusion_planes_bwd_plain(g, xs, w, kernel)
-    _check(g, w, kernel, len(xs))
-    for x in xs:
-        if x.device != g.device or x.dtype != g.dtype or x.shape != g.shape or not x.is_contiguous():
-            raise ValueError("diffusion_planes_bwd needs step inputs like g: one device, dtype and shape, contiguous")
-    if not xs:
+    steps = len(xs)
+    _check(g, w, kernel, steps)
+    if not torch.is_tensor(xs):
+        xs = torch.stack(list(xs)) if steps else g.new_empty((0, *g.shape))
+    if xs.device != g.device or xs.dtype != g.dtype or tuple(xs.shape) != (steps, *g.shape):
+        raise ValueError("diffusion_planes_bwd needs step inputs like g: one device, dtype and shape")
+    if steps == 0:
         return g, torch.zeros_like(w)
+    xs = xs.contiguous()
+    if fused_path(g.shape[1], g.shape[2], kernel, g.dtype):
+        return _fused_backward(g, xs, w, kernel)
+    return _per_step_backward(g, xs, w, kernel)
+
+
+def _fused_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of all ``len(xs)`` steps in one launch of the fused
+    backward kernel; dw summed on chip and written once, in w's dtype."""
+    global FUSED_BWD_LAUNCHES
+    p, h, wd = g.shape
+    dev, stream = _build.device_and_stream(g)
+    dx, dw = torch.empty_like(g), torch.empty_like(w)
+    rc = _fused_bwd_fn()(g.data_ptr(), xs.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                         p, h, wd, kernel, len(xs), _build.DTYPE_CODES[g.dtype], dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused diffusion stencil backward launch failed: cudaError {rc}")
+    FUSED_BWD_LAUNCHES += 1
+    return dx, dw
+
+
+def _per_step_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the per-step backward kernel a step, in reverse; dw
+    summed in fp32 and cast to w's dtype by the last launch."""
+    global BWD_LAUNCHES
     fn = _bwd_fn()
     p, h, wd = g.shape
     code = _build.DTYPE_CODES[g.dtype]
@@ -185,11 +287,10 @@ def diffusion_planes_bwd(
     # buffer that the last step reads once and rounds into the output
     dw_acc = dw_out if w.dtype == torch.float32 else torch.empty(w.shape, dtype=torch.float32, device=w.device)
     dw_in = None
-    for i, x in enumerate(reversed(xs)):
-        last = i == len(xs) - 1
-        dst = dw_out if last else dw_acc
+    for s in range(len(xs) - 1, -1, -1):
+        dst = dw_out if s == 0 else dw_acc
         dx = torch.empty_like(g)
-        rc = fn(g.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        rc = fn(g.data_ptr(), xs[s].data_ptr(), w.data_ptr(), dx.data_ptr(),
                 None if dw_in is None else dw_in.data_ptr(), dst.data_ptr(),
                 p, h, wd, kernel, code, _build.DTYPE_CODES[dst.dtype], dev, stream)
         if rc != 0:
@@ -200,25 +301,25 @@ def diffusion_planes_bwd(
 
 
 class DiffusionPlanesFn(torch.autograd.Function):
-    """``steps`` stencil steps with their backward: forward saves every
-    step's input and w, backward runs the steps in reverse. The custom_fwd/
-    custom_bwd pair makes backward see forward's autocast state."""
+    """``steps`` stencil steps with their backward: forward saves w and every
+    step's input (one (steps, P, H, W) tensor), backward runs the steps in
+    reverse. The custom_fwd/custom_bwd pair makes backward see forward's
+    autocast state."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, w, kernel, steps):
         keep = any(ctx.needs_input_grad[:2])
-        outs = _forward_steps(x, w, kernel, steps, keep)
+        out, xs = _forward_steps(x, w, kernel, steps, keep)
         ctx.kernel = kernel
         if keep:
-            ctx.save_for_backward(w, *outs[:-1])
-        # a Function's output must not be its input unchanged (steps == 0)
-        return outs[-1].clone() if outs[-1] is x else outs[-1]
+            ctx.save_for_backward(w, xs)
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        w, *xs = ctx.saved_tensors
+        w, xs = ctx.saved_tensors
         dx, dw = diffusion_planes_bwd(g.contiguous(), xs, w, ctx.kernel)
         return dx, dw, None, None
 
@@ -228,9 +329,15 @@ def diffusion_planes(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) 
     gradient.
 
     x (P, H, W) and w (P, k², H, W), w already normalized, P = B·C. On CUDA
-    each step is one launch of the forward kernel and, in backward, one of
-    the backward kernel; on the CPU the plain versions run."""
-    return DiffusionPlanesFn.apply(x, w, kernel, steps)
+    a plane within ``fused_path`` takes one launch of the fused forward for
+    all the steps and, in backward, one of the fused backward; a larger
+    plane one launch of the per-step kernels a step. On the CPU the plain
+    versions run. Without a gradient to record (serving) the forward runs
+    without the autograd Function, whose ``apply`` costs more host time than
+    the fused launch itself."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return DiffusionPlanesFn.apply(x, w, kernel, steps)
+    return _forward_steps(x, w, kernel, steps, keep=False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -309,8 +416,9 @@ def _nhwc_to_planes(t: torch.Tensor) -> torch.Tensor:
 
 class DiffusionNHWCFn(torch.autograd.Function):
     """``steps`` NHWC stencil steps on tap-major weights with their
-    backward: the plane backward (kernel on CUDA, plain on the CPU) on g, the
-    step inputs and w moved into plane layout; dw returns tap-major."""
+    backward: the plane backward (its kernels on CUDA, chosen by
+    ``fused_path``; plain on the CPU) on g, the step inputs and w moved into
+    plane layout; dw returns tap-major."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
@@ -338,8 +446,8 @@ class DiffusionNHWCFn(torch.autograd.Function):
 def diffusion_nhwc_tap_major(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
     """``steps`` NHWC stencil steps on tap-major weights (B, H, W, k²·C),
     with their gradient. On CUDA each step is one launch of the NHWC forward
-    kernel and, in backward, one of the plane backward kernel; on the CPU
-    the plain versions run."""
+    kernel; the backward is the plane backward's (one fused launch for a
+    plane within ``fused_path``). On the CPU the plain versions run."""
     return DiffusionNHWCFn.apply(x, w_tm, kernel, steps)
 
 

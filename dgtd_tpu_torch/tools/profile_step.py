@@ -46,7 +46,9 @@ LAYERS = [
 
 def _category(name: str) -> str:
     n = name.lower()
-    for key, cat in (("stencil_step", "diffusion stencil (ours)"), ("stencil_bwd", "diffusion stencil backward (ours)"),
+    for key, cat in (("stencil_fused_fwd", "diffusion stencil (ours)"), ("stencil_step", "diffusion stencil (ours)"),
+                     ("stencil_fused_bwd", "diffusion stencil backward (ours)"),
+                     ("stencil_bwd", "diffusion stencil backward (ours)"),
                      ("multi_tensor", "optimizer (foreach)"), ("dgrad", "conv backward"),
                      ("wgrad", "conv backward"), ("softmax", "softmax"),
                      ("layer_norm", "layer norm"), ("batch_norm", "batch norm"), ("bn_", "batch norm"),

@@ -1,6 +1,7 @@
-"""The port's CUDA stencil and LayerNorm wrappers: dispatch, refusals, and
-(on a card) the plane and NHWC stencil kernels, the stencil's backward kernel
-and the LayerNorm kernel against their plain versions.
+"""The port's CUDA stencil and LayerNorm wrappers: dispatch, refusals, the
+fused-path predicate, and (on a card) the plane stencil's fused and per-step
+kernels forward and backward, the NHWC stencil kernel and the LayerNorm
+kernel against their plain versions.
 
 This file imports neither JAX nor ``dgtd_tpu``, so it also runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest tests/test_torch_kernels.py``
@@ -41,12 +42,79 @@ def _planes(seed, p, h, w, k, device="cpu"):
     return x.to(device), (raw / (raw.sum(1, keepdim=True) + 1e-5)).to(device)
 
 
+def _plane_launches():
+    return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.LAUNCHES, D.BWD_LAUNCHES)
+
+
+def _expected_launches(before, fused, steps, bwd):
+    """The counters after one call of ``steps`` steps (forward, or backward
+    when ``bwd``): one fused launch for all the steps, or one per-step
+    launch a step."""
+    fused_n, step_n = (int(steps > 0), 0) if fused else (0, steps)
+    add = (0, fused_n, 0, step_n) if bwd else (fused_n, 0, step_n, 0)
+    return tuple(b + a for b, a in zip(before, add))
+
+
 def test_cpu_wrapper_takes_plain_and_counts_no_launch():
     x, w = _planes(0, 2, 5, 6, 3)
-    before = D.LAUNCHES
+    before = _plane_launches()
     out = D.diffusion_planes(x, w, 3, 2)
-    assert D.LAUNCHES == before
+    assert _plane_launches() == before
     torch.testing.assert_close(out, D.diffusion_planes_plain(x, w, 3, 2), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,k,fused", [
+    (12, 12, 7, True),  # the cod recipe's grid
+    (13, 20, 7, True),  # the test grid
+    (16, 32, 7, True),  # 512 pixels, the limit
+    (1, 512, 7, True),  # the largest padded planes within the limit
+    (12, 12, 1, True), (12, 12, 3, True), (12, 12, 5, True),
+    (23, 23, 7, False),  # 529 pixels, just above the limit
+    (64, 64, 7, False),  # the JAX package's Pallas grid
+    (1, 513, 1, False),
+    (12, 12, 9, False),  # k not a template argument of the fused kernels
+])
+def test_fused_path_predicate(h, w, k, fused, dtype):
+    assert D.fused_path(h, w, k, dtype) is fused
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_limit_is_the_pixel_count(dtype):
+    """Within the pixel limit the fused backward's shared memory (three
+    padded fp32 planes and the k² weight planes) stays under a block's 227 KB,
+    so every plane of at most 512 pixels at k <= 7 is fused."""
+    for k in D.FUSED_KERNELS:
+        for h in range(1, D.FUSED_MAX_PIXELS + 1):
+            w = D.FUSED_MAX_PIXELS // h  # the widest plane of h rows within the limit
+            assert D.fused_path(h, w, k, dtype)
+            assert not D.fused_path(h, w + 1, k, dtype)
+
+
+def test_cpu_backward_takes_stacked_step_inputs():
+    """The backward takes the step inputs as a list or as the one
+    (steps, P, H, W) tensor the forward saves; on the CPU both give the plain
+    version's result and count no launch."""
+    x, w = _planes(6, 3, 5, 7, 3)
+    g = torch.rand(3, 5, 7, generator=torch.Generator().manual_seed(6))
+    xs = [x, D.diffusion_step_plain(x, w, 3), D.diffusion_step_plain(D.diffusion_step_plain(x, w, 3), w, 3)]
+    before = _plane_launches()
+    dx, dw = D.diffusion_planes_bwd(g, torch.stack(xs), w, 3)
+    assert _plane_launches() == before
+    rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, 3)
+    torch.testing.assert_close(dx, rdx, rtol=0, atol=0)
+    torch.testing.assert_close(dw, rdw, rtol=0, atol=0)
+
+
+def test_cpu_zero_steps_gradient_is_identity():
+    x, w = _planes(7, 2, 4, 5, 3)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    out = D.diffusion_planes(xa, wa, 3, 0)
+    torch.testing.assert_close(out, x, rtol=0, atol=0)
+    g = torch.rand(2, 4, 5, generator=torch.Generator().manual_seed(7))
+    out.backward(g)
+    torch.testing.assert_close(xa.grad, g, rtol=0, atol=0)
+    assert not wa.grad.any()
 
 
 def test_plain_bf16_rounds_every_step():
@@ -87,9 +155,9 @@ def test_cpu_requires_grad_takes_plain_backward():
     g = torch.rand(3, 6, 7, generator=torch.Generator().manual_seed(3))
     xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
-    before = (D.LAUNCHES, D.BWD_LAUNCHES)
+    before = _plane_launches()
     D.diffusion_planes(xa, wa, 3, 3).backward(g)
-    assert (D.LAUNCHES, D.BWD_LAUNCHES) == before
+    assert _plane_launches() == before
     D.diffusion_planes_plain(xb, wb, 3, 3).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
@@ -117,38 +185,49 @@ def test_non_cuda_device_raises():
         D.diffusion_planes(x, w, 3, 2)
 
 
+#: the card cases: the cod recipe's 12x12 grid, the test grid 13x20 (both
+#: fused), the JAX package's Pallas grid 64x64 and a plane just above the
+#: fused limit (both per-step)
+CARD_GRIDS = [(12, 12), (13, 20), (64, 64), (23, 23)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 2, 4])
 @pytest.mark.parametrize("k", [1, 3, 7])
-@pytest.mark.parametrize("hw", [(12, 12), (13, 20), (64, 64)])
-def test_cuda_kernel_matches_plain(cuda, k, hw):
+@pytest.mark.parametrize("hw", CARD_GRIDS)
+def test_cuda_kernel_matches_plain(cuda, k, hw, steps):
     x, w = _planes(k, 192, *hw, k, cuda)
-    before = D.LAUNCHES
-    out = D.diffusion_planes(x, w, k, 4)
-    torch.cuda.synchronize()
-    assert D.LAUNCHES == before + 4
-    torch.testing.assert_close(out, D.diffusion_planes_plain(x, w, k, 4), **FP32_TOL)
-    xb, wb = x.bfloat16(), w.bfloat16()
-    outb = D.diffusion_planes(xb, wb, k, 4)
-    assert outb.dtype == torch.bfloat16
-    torch.testing.assert_close(outb.float(), D.diffusion_planes_plain(xb.float(), wb.float(), k, 4),
-                               rtol=0, atol=BF16_ATOL)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dt), w.to(dt)
+        before = _plane_launches()
+        out = D.diffusion_planes(xd, wd, k, steps)
+        torch.cuda.synchronize()
+        assert _plane_launches() == _expected_launches(before, D.fused_path(*hw, k, dt), steps, bwd=False)
+        assert out.dtype == dt
+        if dt == torch.float32:
+            torch.testing.assert_close(out, D.diffusion_planes_plain(x, w, k, steps), **FP32_TOL)
+        else:
+            torch.testing.assert_close(out.float(), D.diffusion_planes_plain(xd.float(), wd.float(), k, steps),
+                                       rtol=0, atol=BF16_ATOL)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 2, 4])
 @pytest.mark.parametrize("k", [1, 3, 7])
-@pytest.mark.parametrize("hw", [(12, 12), (13, 20), (64, 64)])
-def test_cuda_backward_kernel_matches_plain(cuda, k, hw):
+@pytest.mark.parametrize("hw", CARD_GRIDS)
+def test_cuda_backward_kernel_matches_plain(cuda, k, hw, steps):
     x, w = _planes(k + 10, 240, *hw, k, cuda)
     g = torch.rand(240, *hw, generator=torch.Generator().manual_seed(k)).to(cuda)
     for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
         xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
         xs = [xd]
-        for _ in range(3):
+        for _ in range(steps - 1):
             xs.append(D.diffusion_step_plain(xs[-1], wd, k))
-        before = D.BWD_LAUNCHES
+        xs = xs[:steps]
+        before = _plane_launches()
         dx, dw = D.diffusion_planes_bwd(gd, xs, wd, k)
         torch.cuda.synchronize()
-        assert D.BWD_LAUNCHES == before + 4
+        assert _plane_launches() == _expected_launches(before, D.fused_path(*hw, k, dt), steps, bwd=True)
         assert dx.dtype == dw.dtype == dt
         rdx, rdw = D.diffusion_planes_bwd_plain(gd, xs, wd, k)
         torch.testing.assert_close(dx.float(), rdx.float(), **tol)
@@ -156,16 +235,67 @@ def test_cuda_backward_kernel_matches_plain(cuda, k, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_forward_saves_step_inputs(cuda, dtype):
+    """With autograd on, the fused forward writes every step's input: x, then
+    each step's result in x's dtype, the very values the fused forward of
+    fewer steps returns."""
+    x, w = _planes(3, 192, 12, 12, 7, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    out, xs = D._forward_steps(x, w, 7, 4, keep=True)
+    assert xs.shape == (4, 192, 12, 12) and xs.dtype == dtype
+    assert torch.equal(xs[0], x)
+    for s in range(1, 4):
+        assert torch.equal(xs[s], D.diffusion_planes(x, w, 7, s))
+    assert torch.equal(out, D.diffusion_planes(x, w, 7, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(16, 32), (1, 512), (23, 23), (1, 513)])
+def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, hw, dtype):
+    """At the limit (512 pixels; 1 x 512 has the largest shared memory, 144 KB
+    in fp32) the fused kernels run and agree with the plain versions; above
+    it their C entries refuse the plane, so the predicate and the kernels
+    state one limit."""
+    x, w = _planes(5, 24, *hw, 7, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    g = torch.rand(24, *hw, generator=torch.Generator().manual_seed(5)).to(cuda).to(dtype)
+    xs = torch.empty((4, 24, *hw), dtype=dtype, device=cuda)
+    out = torch.empty_like(x)
+    if not D.fused_path(*hw, 7, dtype):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            D._fused_forward(x, w, 7, 4, xs, out)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            D._fused_backward(g, xs, w, 7)
+        return
+    D._fused_forward(x, w, 7, 4, xs, out)
+    dx, dw = D._fused_backward(g, xs, w, 7)
+    torch.cuda.synchronize()
+    ref = D.diffusion_planes_plain(x.float(), w.float(), 7, 4)
+    rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, 7)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, **FP32_TOL)
+        torch.testing.assert_close(dx, rdx, **FP32_TOL)
+        torch.testing.assert_close(dw, rdw, **FP32_TOL)
+    else:
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=BF16_ATOL)
+        torch.testing.assert_close(dx.float(), rdx.float(), **BWD_BF16_TOL)
+        torch.testing.assert_close(dw.float(), rdw.float(), **BWD_BF16_TOL)
+
+
+@pytest.mark.cuda
 def test_cuda_function_gradients_match_autograd_of_plain(cuda):
-    """On CUDA a tensor that requires grad goes through both kernels."""
+    """On CUDA a tensor that requires grad goes through both fused kernels,
+    one launch each for all 4 steps."""
     x, w = _planes(7, 240, 12, 12, 7, cuda)
     g = torch.rand(240, 12, 12, generator=torch.Generator().manual_seed(8)).to(cuda)
     xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
-    before = (D.LAUNCHES, D.BWD_LAUNCHES)
+    before = _plane_launches()
     D.diffusion_planes(xa, wa, 7, 4).backward(g)
     torch.cuda.synchronize()
-    assert (D.LAUNCHES, D.BWD_LAUNCHES) == (before[0] + 4, before[1] + 4)
+    assert _plane_launches() == tuple(b + a for b, a in zip(before, (1, 1, 0, 0)))
     D.diffusion_planes_plain(xb, wb, 7, 4).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
@@ -209,13 +339,13 @@ def test_nhwc_plain_matches_plane_plain():
 
 def test_nhwc_cpu_takes_plain_and_counts_no_launch():
     x, nw = _nhwc(1, 2, 5, 6, 4, 3)
-    before = (D.NHWC_LAUNCHES, D.BWD_LAUNCHES)
+    before = (D.NHWC_LAUNCHES, *_plane_launches())
     xa, wa = x.clone().requires_grad_(), nw.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), nw.clone().requires_grad_()
     out = D.diffusion_nhwc(xa, wa, 3, 3)
     g = torch.rand(out.shape, generator=torch.Generator().manual_seed(2))
     out.backward(g)
-    assert (D.NHWC_LAUNCHES, D.BWD_LAUNCHES) == before
+    assert (D.NHWC_LAUNCHES, *_plane_launches()) == before
     ref = D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), 3, 3)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     ref.backward(g)
@@ -261,10 +391,11 @@ def test_cuda_nhwc_gradients_go_through_both_kernels(cuda):
     g = torch.rand(8, 12, 12, 24, generator=torch.Generator().manual_seed(6)).to(cuda)
     xa, wa = x.clone().requires_grad_(), nw.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), nw.clone().requires_grad_()
-    before = (D.NHWC_LAUNCHES, D.BWD_LAUNCHES)
+    before = (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.BWD_LAUNCHES)
     D.diffusion_nhwc(xa, wa, 7, 4).backward(g)
     torch.cuda.synchronize()
-    assert (D.NHWC_LAUNCHES, D.BWD_LAUNCHES) == (before[0] + 4, before[1] + 4)
+    # 4 NHWC forward launches; the 12x12 planes take the fused backward
+    assert (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.BWD_LAUNCHES) == (before[0] + 4, before[1] + 1, before[2])
     D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), 7, 4).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
