@@ -9,9 +9,11 @@ Phases (any failure exits non-zero):
      (one ``nvcc`` per source, all started together);
   2. hold the diffusion-stencil forward kernels against their plain PyTorch
      version (k in {1, 3, 7}; 12x12 and 13x20, which take the fused kernel,
-     all 4 steps in one launch; 64x64 and 23x23, above the fused limit, which
-     take the per-step kernel; P = 192 planes; fp32 and bf16), each case's
-     launches read from the kernel's own counter;
+     all 4 steps in one launch; 64x64 and 23x23, above the fused limit,
+     which take the cluster kernel, all 4 steps in one launch of a thread
+     block cluster a plane; 96x96, beyond the cluster's reach, which takes
+     the per-step kernel; P = 192 planes, 48 at 96x96; fp32 and bf16), each
+     case's launches read from the kernel's own counter;
   3. serve full-width ``cod`` (PVTv2-b2 + ConvNeXt-B, seeded random weights)
      at 384², batch 8, through ``dgtd_tpu_torch.predict.main`` with a saved
      ``.pth``: once in bf16, once with ``--fp32``. The kernels' launch counts
@@ -23,12 +25,14 @@ Phases (any failure exits non-zero):
   5. time the fused kernel per call (CUDA events; through the autograd
      Function and the launch wrapper alone beside it), the per-step kernels
      on the same tensors, the plain version, and served batches;
-  6. hold the stencil's backward kernels against the plain backward (the
-     same cases at P = 240, fp32 and bf16) and the autograd Function's 4-step
-     backward (one fused launch each way) against autograd through the plain
-     forward;
+  6. hold the stencil's backward kernels (fused, cluster, per-step) against
+     the plain backward (the same cases at P = 240, 48 at 96x96, fp32 and
+     bf16) and the autograd Function's 4-step backward (one fused launch
+     each way) against autograd through the plain forward;
   7. tiny ``cod``: loss and every parameter gradient, fp32 on the card (TF32
-     off) against the CPU, same weights and inputs, drop-path rates 0;
+     off) against the CPU, same weights and inputs, drop-path rates 0, at
+     grid 8 (fused kernels) and at grid 64 (cluster kernels, one launch each
+     way, read from their counters);
   8. train full-width ``cod`` through ``dgtd_tpu_torch.train.cli.main`` with
      ``configs/cod.yml`` (384², batch 10, bf16 autocast) on 30 synthetic
      images for 2 epochs (6 steps): finite losses, the launch counts (one
@@ -59,18 +63,30 @@ Phases (any failure exits non-zero):
      2048}, fp32 and bf16, mean-0 and mean-100 rows), then forward and
      backward at a PVTv2-b2 stage-1 and a ConvNeXt-B stage-1 shape of a
      served batch, timed beside ``F.layer_norm``;
- 14. the per-step stencil kernels' own path: the op forward and backward on
-     a 64x64 plane (the JAX package's Pallas grid), above the fused limit,
-     with their launch counts (one a step each way) read around it, checked
-     against the plain versions and timed; then the device time per call of
-     every stencil kernel timed in phases 5, 9 and 14, from ``torch.profiler``
-     (last, so that its tracing cannot slow the host-bound timings).
+ 14. planes above the fused limit: the op forward and backward on
+     (192, 64, 64) planes (the paper's grid-64 ablation), one cluster launch
+     each way read from the counters, checked against the plain versions,
+     timed in bf16 and fp32 beside the per-step kernels called directly on
+     the same tensors; the cluster occupancy at 8 blocks and at a
+     non-portable 16; then the per-step kernels' own path, (192, 96, 96)
+     planes beyond the cluster's reach, one launch a step each way;
+ 15. ``cod`` at ``grid=64``: served through ``dgtd_tpu_torch.predict.main``
+     with ``-o grid=64`` (bf16, batch 8; one cluster forward a batch) and
+     trained through ``dgtd_tpu_torch.train.cli.main`` with
+     ``-o model.grid=64`` (3 steps at batch 10, bf16; one cluster forward and
+     one cluster backward a step), the launch counts read around each run;
+     the cluster forward re-checked on the served stencil inputs; fp32 on the
+     card held to the CPU on a small input; served ms per batch and train ms
+     per step at grid 64 and grid 12 in turns;
+ 16. the device time per call of every stencil kernel timed in phases 5, 9
+     and 14, from ``torch.profiler`` (last, so that its tracing cannot slow
+     the host-bound timings).
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
-Pallas kernels, the plane stencil's forward and backward both as the fused
-and as the per-step kernels), a served-throughput line, a ``trained`` and
-an ``msda`` JSON line, each with the card's name and power limit; the last
-line is
+Pallas kernels, the plane stencil's forward and backward as the fused, the
+cluster and the per-step kernels), a served-throughput line, a ``trained``,
+a ``grid64`` and an ``msda`` JSON line, each with the card's name and power
+limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -89,11 +105,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL, STEPS, P_MAIN = 7, 4, 8 * 24  # served stencil: k=7, 4 steps, B·C planes
-# 12x12 (the recipe's grid) and 13x20 take the fused kernels; 64x64 (the JAX
-# package's Pallas grid) and 23x23 (529 pixels, just above the fused limit)
-# the per-step ones
-SHAPES = [(k, hw) for k in (1, 3, 7) for hw in ((12, 12), (13, 20), (64, 64), (23, 23))]
-LARGE = (64, 64)  # the per-step kernels' own path (phase 14)
+# 12x12 (the recipe's grid) and 13x20 take the fused kernels; 64x64 (the
+# paper's grid-64 ablation, where the JAX package turns to Pallas) and 23x23
+# (529 pixels, just above the fused limit) the cluster ones; 96x96 (beyond a
+# cluster of 8 blocks of 512 pixels) the per-step ones
+SHAPES = [(k, hw) for k in (1, 3, 7) for hw in ((12, 12), (13, 20), (64, 64), (23, 23), (96, 96))]
+GRID64 = (64, 64)  # the cluster kernels' main path (phases 14, 15)
+LARGE = (96, 96)  # the per-step kernels' own path (phase 14)
+P_LARGE = 48  # planes of the 96x96 checks in phases 2 and 6, to keep their time
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_ATOL = 1e-2  # per-step bf16 rounding of O(1) convex combinations
 MEAN_ATOL = 2e-3  # bf16 vs fp32 mean probability (tests/test_golden_forward.py)
@@ -204,21 +223,43 @@ def device_ms(fn, iters, match):
     return us / 1e3 / iters if us > 0 else None
 
 
+#: the order of plane_launches' counters
+LAUNCH_NAMES = "fused fwd, fused bwd, cluster fwd, cluster bwd, step fwd, step bwd"
+
+
 def plane_launches(D):
     """The plane stencil's launch counters: fused forward, fused backward,
-    per-step forward, per-step backward."""
-    return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.LAUNCHES, D.BWD_LAUNCHES)
+    cluster forward, cluster backward, per-step forward, per-step backward."""
+    return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.CLUSTER_LAUNCHES, D.CLUSTER_BWD_LAUNCHES,
+            D.LAUNCHES, D.BWD_LAUNCHES)
 
 
 def reset_plane_launches(D):
-    D.FUSED_LAUNCHES = D.FUSED_BWD_LAUNCHES = D.LAUNCHES = D.BWD_LAUNCHES = 0
+    D.FUSED_LAUNCHES = D.FUSED_BWD_LAUNCHES = D.CLUSTER_LAUNCHES = D.CLUSTER_BWD_LAUNCHES = 0
+    D.LAUNCHES = D.BWD_LAUNCHES = 0
+
+
+def launch_tuple(route, n_fwd=0, n_bwd=0):
+    """plane_launches' increments for n_fwd forward and n_bwd backward
+    launches of one route's kernels."""
+    add = [0] * 6
+    slot = {"fused": 0, "cluster": 2, "per_step": 4}[route]
+    add[slot], add[slot + 1] = n_fwd, n_bwd
+    return tuple(add)
 
 
 def expected_launches(D, shape, kernel, dtype, steps, bwd):
     """The counters' increments for one call of ``steps`` steps on planes
-    of this (H, W): one fused launch, or one per-step launch a step."""
-    n = (1, 0) if D.fused_path(*shape, kernel, dtype) else (0, steps)
-    return (0, n[0], 0, n[1]) if bwd else (n[0], 0, n[1], 0)
+    of this (H, W): one fused or cluster launch, or one per-step launch a
+    step."""
+    route = D.stencil_route(*shape, kernel, dtype)
+    n = steps if route == "per_step" else 1
+    return launch_tuple(route, 0, n) if bwd else launch_tuple(route, n, 0)
+
+
+def planes_for(hw, p):
+    """P planes, or P_LARGE for the per-step kernels' large planes."""
+    return P_LARGE if hw == LARGE else p
 
 
 def stencil_bound(x, w, kernel, steps):
@@ -241,8 +282,8 @@ def check_kernel(D, x, w, kernel, steps, label):
     torch.cuda.synchronize()
     added = tuple(a - b for a, b in zip(plane_launches(D), before))
     want = expected_launches(D, x.shape[1:], kernel, x.dtype, steps, bwd=False)
-    check(added == want, f"{label}: launches (fused fwd, fused bwd, step fwd, step bwd) {added}, expected {want}")
-    label = f"{label} [{'fused' if want[0] else 'per-step'}]"
+    check(added == want, f"{label}: launches ({LAUNCH_NAMES}) {added}, expected {want}")
+    label = f"{label} [{D.stencil_route(*x.shape[1:], kernel, x.dtype)}]"
     if x.dtype == torch.float32:
         ref = D.diffusion_planes_plain(x, w, kernel, steps)
         torch.testing.assert_close(out, ref, **FP32_TOL, msg=lambda m: f"{label}: {m}")
@@ -288,8 +329,8 @@ def check_bwd(D, g, xs, w, kernel, label):
     torch.cuda.synchronize()
     added = tuple(a - b for a, b in zip(plane_launches(D), before))
     want = expected_launches(D, g.shape[1:], kernel, g.dtype, len(xs), bwd=True)
-    check(added == want, f"{label}: launches (fused fwd, fused bwd, step fwd, step bwd) {added}, expected {want}")
-    label = f"{label} [{'fused' if want[1] else 'per-step'}]"
+    check(added == want, f"{label}: launches ({LAUNCH_NAMES}) {added}, expected {want}")
+    label = f"{label} [{D.stencil_route(*g.shape[1:], kernel, g.dtype)}]"
     rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, kernel)
     check(dx.dtype == g.dtype and dw.dtype == w.dtype, f"{label}: dtypes {dx.dtype} {dw.dtype}")
     tol = BWD_FP32_TOL if g.dtype == torch.float32 else BWD_BF16_TOL
@@ -468,11 +509,12 @@ def main():
     # ---- 2. kernel vs plain ----
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    say("phase 2: forward kernels (fused and per-step) vs plain (P=192, 4 steps)")
+    say(f"phase 2: forward kernels (fused, cluster, per-step) vs plain (P={P_MAIN}, {P_LARGE} at {LARGE}, 4 steps)")
     g = torch.Generator(device=dev).manual_seed(0)
     for k, (h, w) in SHAPES:
-        x = torch.rand(P_MAIN, h, w, generator=g, device=dev)
-        wt = MD.normalize_affinity(torch.rand(P_MAIN, k * k, h, w, generator=g, device=dev), dim=1)
+        p = planes_for((h, w), P_MAIN)
+        x = torch.rand(p, h, w, generator=g, device=dev)
+        wt = MD.normalize_affinity(torch.rand(p, k * k, h, w, generator=g, device=dev), dim=1)
         check_kernel(D, x, wt, k, STEPS, f"fp32 k={k} {h}x{w}")
         check_kernel(D, x.bfloat16(), wt.bfloat16(), k, STEPS, f"bf16 k={k} {h}x{w}")
 
@@ -516,9 +558,8 @@ def main():
                 torch.cuda.synchronize()
                 nb = summaries[name]["batches"]
                 say(f"  {name}: {summaries[name]['images']} images in {nb} batches, "
-                    f"loop {summaries[name]['loop_s']:.3f} s, stencil launches (fused fwd, fused bwd, "
-                    f"step fwd, step bwd) {launches[name]}")
-                check(launches[name] == (nb, 0, 0, 0), (name, launches[name], nb))
+                    f"loop {summaries[name]['loop_s']:.3f} s, stencil launches ({LAUNCH_NAMES}) {launches[name]}")
+                check(launches[name] == launch_tuple("fused", nb), (name, launches[name], nb))
                 outs = sorted(os.listdir(out_dir))
                 check(len(outs) == N_IMAGES and all(f.endswith("_output.png") for f in outs), outs)
                 for f in outs:
@@ -601,11 +642,12 @@ def main():
         f"(batch {BATCH}, {SIZE}², model.predict back to back) [{card}]")
 
     # ---- 6. backward kernel vs plain backward ----
-    say(f"phase 6: backward kernels (fused and per-step) vs plain backward (P={P_TRAIN})")
+    say(f"phase 6: backward kernels (fused, cluster, per-step) vs plain backward (P={P_TRAIN}, {P_LARGE} at {LARGE})")
     for k, (h, w) in SHAPES:
-        x = torch.rand(P_TRAIN, h, w, generator=g, device=dev)
-        wt = MD.normalize_affinity(torch.rand(P_TRAIN, k * k, h, w, generator=g, device=dev), dim=1)
-        gr = torch.rand(P_TRAIN, h, w, generator=g, device=dev)
+        p = planes_for((h, w), P_TRAIN)
+        x = torch.rand(p, h, w, generator=g, device=dev)
+        wt = MD.normalize_affinity(torch.rand(p, k * k, h, w, generator=g, device=dev), dim=1)
+        gr = torch.rand(p, h, w, generator=g, device=dev)
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             xd, wd, gd = x.to(dt), wt.to(dt), gr.to(dt)
             check_bwd(D, gd, [xd], wd, k, f"{name} k={k} {h}x{w}, 1 step")
@@ -619,7 +661,7 @@ def main():
         before = plane_launches(D)
         D.diffusion_planes(xa, wa, KERNEL, STEPS).backward(gout)
         torch.cuda.synchronize()
-        check(plane_launches(D) == tuple(b + a for b, a in zip(before, (1, 1, 0, 0))),
+        check(plane_launches(D) == tuple(b + a for b, a in zip(before, launch_tuple("fused", 1, 1))),
               f"Function {name}: launches {before} -> {plane_launches(D)}")
         D.diffusion_planes_plain(xb, wb, KERNEL, STEPS).backward(gout)
         err = 0.0
@@ -629,32 +671,37 @@ def main():
         say(f"  Function {name}, {STEPS} steps, vs autograd through the plain forward: max_abs_err={err:.3e}")
 
     # ---- 7. tiny cod: loss and gradients, card vs CPU ----
-    say("phase 7: tiny cod loss and every parameter gradient, fp32 card (TF32 off) vs CPU")
-
-    m_cpu = cod(dtype=torch.float32, seed=0, **TINY)
-    m_dev = copy.deepcopy(m_cpu).to(dev)
-    rng = np.random.RandomState(5)
-    inputs = [torch.from_numpy(a) for a in (
-        rng.randn(2, 64, 64, 3).astype(np.float32), rng.rand(2, 64, 64, 1).astype(np.float32),
-        (rng.rand(2, 64, 64, 1) > 0.5).astype(np.float32))]
-    loss_cpu = m_cpu.loss(*inputs)[0]
-    loss_cpu.backward()
-    loss_dev = m_dev.loss(*[t.to(dev) for t in inputs])[0]
-    loss_dev.backward()
-    loss_cpu, loss_dev = loss_cpu.item(), loss_dev.item()
-    check(abs(loss_dev - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu), f"tiny loss card {loss_dev} vs CPU {loss_cpu}")
-    grads_cpu = dict(m_cpu.named_parameters())
-    scale = max(float(p.grad.abs().max()) for p in grads_cpu.values())
-    worst = (0.0, "")
-    for n, p in m_dev.named_parameters():
-        ref = grads_cpu[n].grad
-        diff = float((p.grad.cpu() - ref).abs().max())
-        limit = TINY_GRAD_RTOL * max(float(ref.abs().max()), 1e-4 * scale)
-        check(diff <= limit, f"gradient of {n}: card vs CPU {diff:.3e} > {limit:.3e}")
-        worst = max(worst, (diff / limit, n))
-    say(f"  loss card {loss_dev:.7f} CPU {loss_cpu:.7f}; {len(grads_cpu)} gradients within "
-        f"{TINY_GRAD_RTOL} of their scale (closest to its limit: {worst[1]} at {worst[0]:.3f} of it)")
-    del m_cpu, m_dev
+    say("phase 7: tiny cod loss and every parameter gradient, fp32 card (TF32 off) vs CPU, grids 8 and 64")
+    for grid in (TINY["grid"], GRID64[0]):
+        m_cpu = cod(dtype=torch.float32, seed=0, **{**TINY, "grid": grid})
+        m_dev = copy.deepcopy(m_cpu).to(dev)
+        rng = np.random.RandomState(5)
+        inputs = [torch.from_numpy(a) for a in (
+            rng.randn(2, 64, 64, 3).astype(np.float32), rng.rand(2, 64, 64, 1).astype(np.float32),
+            (rng.rand(2, 64, 64, 1) > 0.5).astype(np.float32))]
+        loss_cpu = m_cpu.loss(*inputs)[0]
+        loss_cpu.backward()
+        reset_plane_launches(D)
+        loss_dev = m_dev.loss(*[t.to(dev) for t in inputs])[0]
+        loss_dev.backward()
+        torch.cuda.synchronize()
+        route = D.stencil_route(grid, grid, KERNEL, torch.float32)
+        check(plane_launches(D) == launch_tuple(route, 1, 1), f"tiny cod grid {grid}: launches {plane_launches(D)}")
+        loss_cpu, loss_dev = loss_cpu.item(), loss_dev.item()
+        check(abs(loss_dev - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu), f"tiny loss card {loss_dev} vs CPU {loss_cpu}")
+        grads_cpu = dict(m_cpu.named_parameters())
+        scale = max(float(p.grad.abs().max()) for p in grads_cpu.values())
+        worst = (0.0, "")
+        for n, p in m_dev.named_parameters():
+            ref = grads_cpu[n].grad
+            diff = float((p.grad.cpu() - ref).abs().max())
+            limit = TINY_GRAD_RTOL * max(float(ref.abs().max()), 1e-4 * scale)
+            check(diff <= limit, f"grid {grid} gradient of {n}: card vs CPU {diff:.3e} > {limit:.3e}")
+            worst = max(worst, (diff / limit, n))
+        say(f"  grid {grid} ({route} stencil kernels, launches ({LAUNCH_NAMES}) {plane_launches(D)}): loss card "
+            f"{loss_dev:.7f} CPU {loss_cpu:.7f}; {len(grads_cpu)} gradients within {TINY_GRAD_RTOL} of their "
+            f"scale (closest to its limit: {worst[1]} at {worst[0]:.3f} of it)")
+        del m_cpu, m_dev
 
     # ---- 8. full-width training through the train CLI ----
     say(f"phase 8: train full-width cod through dgtd_tpu_torch.train.cli.main: configs/cod.yml, "
@@ -697,10 +744,10 @@ def main():
         finally:
             MD.diffusion_planes = planes_unspied
         fwd_launches, bwd_launches = train_launches[:2]
-        say(f"  {trained['steps']} steps in {trained['loop_s']:.3f} s; stencil launches (fused fwd, fused bwd, "
-            f"step fwd, step bwd) {train_launches}; peak memory {cli_peak / 2**30:.3f} GiB")
+        say(f"  {trained['steps']} steps in {trained['loop_s']:.3f} s; stencil launches ({LAUNCH_NAMES}) "
+            f"{train_launches}; peak memory {cli_peak / 2**30:.3f} GiB")
         check(trained["steps"] == TRAIN_STEPS, trained)
-        check(train_launches == (TRAIN_STEPS, TRAIN_STEPS, 0, 0),
+        check(train_launches == launch_tuple("fused", TRAIN_STEPS, TRAIN_STEPS),
               f"launches {train_launches}: one fused forward and one fused backward a step in {TRAIN_STEPS} steps")
         with open(os.path.join(work, "log.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -720,7 +767,7 @@ def main():
         P.main(["--checkpoint", ckpts[-1], "--image-dir", os.path.join(serve, "img"),
                 "--depth-dir", os.path.join(serve, "dep"), "--out-dir", out_dir,
                 "--size", str(SIZE), "--batch", str(TRAIN_BATCH)])
-        check(plane_launches(D) == (1, 0, 0, 0), f"serving the trained checkpoint: launches {plane_launches(D)}")
+        check(plane_launches(D) == launch_tuple("fused", 1), f"serving the trained checkpoint: launches {plane_launches(D)}")
         outs = sorted(os.listdir(out_dir))
         check(len(outs) == TRAIN_BATCH, outs)
         for f in outs:
@@ -943,7 +990,7 @@ def main():
         torch.cuda.synchronize()
         # the backward's 12x12 planes take the fused plane backward: one launch
         nhwc_launches = (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES)
-        check(nhwc_launches == (STEPS, 1) and plane_launches(D) == (0, 1, 0, 0),
+        check(nhwc_launches == (STEPS, 1) and plane_launches(D) == launch_tuple("fused", 0, 1),
               f"NHWC {name} forward+backward launches {nhwc_launches}, plane {plane_launches(D)}")
         D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), KERNEL, STEPS).backward(gout.to(dt))
         err = 0.0
@@ -1013,30 +1060,88 @@ def main():
         say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
             f"F.layer_norm {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
 
-    # ---- 14. the per-step kernels' own path: planes above the fused limit ----
+    # ---- 14. planes above the fused limit: the cluster kernels, then the per-step kernels ----
+    gh, gw = GRID64
     lh, lw = LARGE
-    say(f"phase 14: the op forward and backward on ({P_MAIN},{lh},{lw}) bf16 planes, above the fused limit")
-    check(not D.fused_path(lh, lw, KERNEL, torch.bfloat16), f"{lh}x{lw} lies within the fused limit")
-    xl = torch.rand(P_MAIN, lh, lw, generator=g, device=dev).bfloat16()
-    wl = MD.normalize_affinity(torch.rand(P_MAIN, KERNEL ** 2, lh, lw, generator=g, device=dev), dim=1).bfloat16()
-    gl = torch.rand(P_MAIN, lh, lw, generator=g, device=dev).bfloat16()
-    xa, wa = xl.clone().requires_grad_(), wl.clone().requires_grad_()
-    reset_plane_launches(D)
-    out = D.diffusion_planes(xa, wa, KERNEL, STEPS)
-    out.backward(gl)
-    torch.cuda.synchronize()
-    large_launches = plane_launches(D)
-    say(f"  launches (fused fwd, fused bwd, step fwd, step bwd) {large_launches}")
-    check(large_launches == (0, 0, STEPS, STEPS), f"large plane: launches {large_launches}")
-    ref = D.diffusion_planes_plain(xl.float(), wl.float(), KERNEL, STEPS)
-    torch.testing.assert_close(out.detach().float(), ref, rtol=0, atol=BF16_ATOL, msg=lambda m: f"large plane forward: {m}")
-    large_err = {"fwd": float((out.detach().float() - ref).abs().max())}
-    # the backward against the plain backward on the step inputs the kernel made
-    _, lxs = D._forward_steps(xl, wl, KERNEL, STEPS, keep=True)
-    rdx, rdw = D.diffusion_planes_bwd_plain(gl, lxs, wl, KERNEL)
-    for gname, got, want in (("dx", xa.grad, rdx), ("dw", wa.grad, rdw)):
-        torch.testing.assert_close(got.float(), want.float(), **BWD_BF16_TOL, msg=lambda m: f"large plane {gname}: {m}")
-    large_err["bwd"] = max(float((xa.grad.float() - rdx.float()).abs().max()), float((wa.grad.float() - rdw.float()).abs().max()))
+    say(f"phase 14: the op forward and backward on ({P_MAIN},{gh},{gw}) planes (cluster kernels) and on "
+        f"({P_MAIN},{lh},{lw}) planes (per-step kernels)")
+    for dt in (torch.bfloat16, torch.float32):
+        check(D.stencil_route(gh, gw, KERNEL, dt) == "cluster" and D.stencil_route(lh, lw, KERNEL, dt) == "per_step",
+              f"routes of {GRID64} and {LARGE} in {dt}")
+
+    def drive_planes(shape, dt, label):
+        """The op forward and backward through the autograd Function on
+        (P_MAIN, *shape) planes, the launch counts read around it; forward
+        and backward held to the plain versions. Returns the tensors
+        (x, w, g, step inputs), the launches and the max abs errors."""
+        xl = torch.rand(P_MAIN, *shape, generator=g, device=dev).to(dt)
+        wl = MD.normalize_affinity(torch.rand(P_MAIN, KERNEL ** 2, *shape, generator=g, device=dev), dim=1).to(dt)
+        gl = torch.rand(P_MAIN, *shape, generator=g, device=dev).to(dt)
+        xa, wa = xl.clone().requires_grad_(), wl.clone().requires_grad_()
+        reset_plane_launches(D)
+        out = D.diffusion_planes(xa, wa, KERNEL, STEPS)
+        out.backward(gl)
+        torch.cuda.synchronize()
+        n = plane_launches(D)
+        route = D.stencil_route(*shape, KERNEL, dt)
+        per_call = STEPS if route == "per_step" else 1
+        check(n == launch_tuple(route, per_call, per_call), f"{label}: launches ({LAUNCH_NAMES}) {n}")
+        fp32 = dt == torch.float32
+        ref = D.diffusion_planes_plain(xl.float(), wl.float(), KERNEL, STEPS)
+        torch.testing.assert_close(out.detach().float(), ref, **(FP32_TOL if fp32 else dict(rtol=0, atol=BF16_ATOL)),
+                                   msg=lambda m: f"{label} forward: {m}")
+        errs = {"fwd": float((out.detach().float() - ref).abs().max())}
+        # the backward against the plain backward on the step inputs the kernel made
+        _, lxs = D._forward_steps(xl, wl, KERNEL, STEPS, keep=True)
+        rdx, rdw = D.diffusion_planes_bwd_plain(gl, lxs, wl, KERNEL)
+        for gname, got, want in (("dx", xa.grad, rdx), ("dw", wa.grad, rdw)):
+            torch.testing.assert_close(got.float(), want.float(), **(BWD_FP32_TOL if fp32 else BWD_BF16_TOL),
+                                       msg=lambda m: f"{label} {gname}: {m}")
+        errs["bwd"] = max(float((xa.grad.float() - rdx.float()).abs().max()),
+                          float((wa.grad.float() - rdw.float()).abs().max()))
+        say(f"  {label} [{route}]: launches ({LAUNCH_NAMES}) {n}; max_abs_err forward {errs['fwd']:.3e}, "
+            f"backward {errs['bwd']:.3e}")
+        return (xl, wl, gl, lxs), n, errs
+
+    # the cluster kernels at the paper's grid-64 planes, bf16 and fp32, timed
+    # beside the per-step kernels called directly on the same tensors
+    cluster_rows = {"fwd": {}, "bwd": {}}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        (xl, wl, gl, lxs), n, errs = drive_planes(GRID64, dt, f"{name} ({P_MAIN},{gh},{gw})")
+        for part, fn, per_step, plain, match, step_match, bound in (
+            ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, STEPS),
+             lambda xl=xl, wl=wl: D._per_step_forward(xl, wl, KERNEL, STEPS, None, torch.empty_like(xl)),
+             functools.partial(D.diffusion_planes_plain, xl, wl, KERNEL, STEPS),
+             "stencil_cluster_fwd", "stencil_step_kernel", stencil_bound(xl, wl, KERNEL, STEPS)),
+            ("bwd", functools.partial(D.diffusion_planes_bwd, gl, lxs, wl, KERNEL),
+             functools.partial(D._per_step_backward, gl, lxs, wl, KERNEL),
+             functools.partial(D.diffusion_planes_bwd_plain, gl, lxs, wl, KERNEL),
+             "stencil_cluster_bwd", "stencil_bwd_kernel", stencil_bwd_bound(gl, lxs, wl, KERNEL)),
+        ):
+            ms, per_step_ms = cuda_time_ms(fn, 100), cuda_time_ms(per_step, 50)
+            plain_ms = cuda_time_ms(plain, 5, warmup=1)
+            row = dict(ms=ms, per_step_ms=per_step_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                       err=errs[part], launches_per_call=n[2] if part == "fwd" else n[3])
+            cluster_rows[part][name] = row
+            say(f"  cluster {part} {name} ({STEPS} steps, {P_MAIN}x{gh}x{gw}, k={KERNEL}): {ms:.5f} ms per call; "
+                f"per-step kernels {per_step_ms:.5f} ms per call; plain {plain_ms:.5f} ms, bound {bound[0]:.6f} ms "
+                f"({bound[1]}) [{card}]")
+            device_calls += [(f"cluster {part} {name}", row, "device_ms", fn, match, 50),
+                             (f"per-step {part} {gh}x{gw} {name}", row, "per_step_device_ms", per_step, step_match, 50)]
+    # how many clusters the card runs at once: the 8 strips of 8 rows of the
+    # grid-64 plane, and a non-portable 16 strips of 4 rows
+    occupancy = {}
+    for part in ("fwd", "bwd"):
+        for blocks, rows_per in ((8, gh // 8), (16, gh // 16)):
+            try:
+                occupancy[f"{part}_{blocks}"] = D.cluster_occupancy(blocks, rows_per, gw, part == "bwd")
+            except RuntimeError as exc:
+                occupancy[f"{part}_{blocks}"] = str(exc)
+    say(f"  max active clusters (k={KERNEL}, bf16, {gh}x{gw} in 8 strips of {gh // 8} rows or 16 of {gh // 16}): "
+        f"{occupancy} [{card}]")
+
+    # the per-step kernels' own path: planes beyond the cluster's reach
+    (xl, wl, gl, lxs), large_launches, large_err = drive_planes(LARGE, torch.bfloat16, f"bf16 ({P_MAIN},{lh},{lw})")
     large_rows = {}
     for name, fn, plain, match, bound in (
         ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, STEPS),
@@ -1051,15 +1156,143 @@ def main():
         say(f"  per-step {name} ({STEPS} steps, {P_MAIN}x{lh}x{lw}, k={KERNEL}, bf16): {ms:.5f} ms per call, "
             f"plain {plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}), max_abs_err {large_err[name]:.3e} [{card}]")
         device_calls.append((f"per-step {name} {lh}x{lw} bf16", large_rows[name], "device_ms", fn, match, 50))
+    del xl, wl, gl, lxs
+    torch.cuda.empty_cache()
 
-    # device time per call from the profiler, read last, so that its tracing
-    # cannot touch the per-call and end-to-end timings above, which are
-    # host-bound
-    say("  device time per call (torch.profiler key_averages):")
+    # ---- 15. cod at grid 64: served and trained through the CLIs ----
+    grid = GRID64[0]
+    say(f"phase 15: cod at grid {grid} (the paper's scale{grid} ablation): served through predict.main -o grid={grid} "
+        f"(bf16, batch {BATCH}), trained through train.cli.main -o model.grid={grid} ({TRAIN_N} images, batch "
+        f"{TRAIN_BATCH}, 1 epoch, bf16)")
+    grab64 = {}
+
+    def capture64(module, inputs, output):
+        if isinstance(module, MD.MessagePassing) and "served" not in grab64:
+            grab64["served"] = (inputs[0].detach().clone(), inputs[1].detach().clone())
+
+    def spy_planes64(x, w, kernel, steps):
+        out = planes_unspied(x, w, kernel, steps)
+        if "x" not in grab64 and out.requires_grad:
+            grab64["x"], grab64["w"] = x.detach().clone(), w.detach().clone()
+            out.register_hook(lambda gr: grab64.setdefault("g", gr.detach().clone()))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid64_") as tmp:
+        model = cod(seed=0)
+        ckpt = os.path.join(tmp, "cod_seed0.pth")
+        torch.save(model.state_dict(), ckpt)
+        write_inputs(tmp)
+        out_dir = os.path.join(tmp, "out")
+        hook = torch.nn.modules.module.register_module_forward_hook(capture64)
+        try:
+            reset_plane_launches(D)
+            served64 = P.main(["--checkpoint", ckpt, "--image-dir", os.path.join(tmp, "img"),
+                               "--depth-dir", os.path.join(tmp, "dep"), "--out-dir", out_dir,
+                               "--size", str(SIZE), "--batch", str(BATCH), "-o", f"grid={grid}"])
+            torch.cuda.synchronize()
+            served64_launches = plane_launches(D)
+        finally:
+            hook.remove()
+        nb = served64["batches"]
+        say(f"  served: {served64['images']} images in {nb} batches, loop {served64['loop_s']:.3f} s, stencil "
+            f"launches ({LAUNCH_NAMES}) {served64_launches}")
+        check(served64_launches == launch_tuple("cluster", nb), f"served grid {grid}: launches {served64_launches}")
+        outs = sorted(os.listdir(out_dir))
+        check(len(outs) == N_IMAGES, outs)
+        for f in outs:
+            with Image.open(os.path.join(out_dir, f)) as im:
+                check(im.size == (SIZE, SIZE) and im.mode == "L", (f, im.size, im.mode))
+        xp, wt = MD.affinity_planes(*grab64["served"], KERNEL)
+        check(tuple(xp.shape) == (P_MAIN, grid, grid) and xp.dtype == torch.bfloat16, (xp.shape, xp.dtype))
+        served64_err = check_kernel(D, xp, wt, KERNEL, STEPS, f"served grid {grid} bf16 stencil inputs")
+
+        # fp32 on the card vs the same weights on the CPU (plain stencil), small input
+        model32 = cod(dtype=torch.float32, seed=0, grid=grid)
+        g_cpu = torch.Generator().manual_seed(3)
+        img = torch.randn(1, 192, 192, 3, generator=g_cpu)
+        depth = torch.rand(1, 192, 192, 1, generator=g_cpu)
+        ref = model32.predict(img, depth)[0]
+        reset_plane_launches(D)
+        got = model32.to(dev).predict(img.to(dev), depth.to(dev))[0].cpu()
+        check(plane_launches(D) == launch_tuple("cluster", 1), f"fp32 grid {grid} predict: launches {plane_launches(D)}")
+        cpu64_err = float((got - ref).abs().max())
+        say(f"  fp32 card vs CPU, 1x192x192 at grid {grid}: max_abs_err {cpu64_err:.3e} (limit {CPU_PROB_ATOL})")
+        check(cpu64_err <= CPU_PROB_ATOL, f"grid {grid} card vs CPU {cpu64_err:.2e} > {CPU_PROB_ATOL}")
+        del model32
+
+        work = os.path.join(tmp, "run")
+        overrides64 = [
+            f"work_dir={work}", "train_cfg.max_epochs=1", "train_cfg.val_interval=0",
+            f"train_dataloader.batch_size={TRAIN_BATCH}",
+            f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {TRAIN_N}, 'size': {SIZE}}}",
+            "default_hooks.logger.interval=1", f"model.grid={grid}",
+        ]
+        MD.diffusion_planes = spy_planes64
+        try:
+            reset_plane_launches(D)
+            trained64 = TC.main([recipe] + [a for o in overrides64 for a in ("-o", o)])
+            torch.cuda.synchronize()
+            train64_launches = plane_launches(D)
+        finally:
+            MD.diffusion_planes = planes_unspied
+        steps64 = TRAIN_N // TRAIN_BATCH
+        say(f"  trained: {trained64['steps']} steps in {trained64['loop_s']:.3f} s; stencil launches ({LAUNCH_NAMES}) "
+            f"{train64_launches}")
+        check(trained64["steps"] == steps64, trained64)
+        check(train64_launches == launch_tuple("cluster", steps64, steps64),
+              f"launches {train64_launches}: one cluster forward and one cluster backward a step in {steps64} steps")
+        with open(os.path.join(work, "log.jsonl")) as f:
+            losses64 = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        check(len(losses64) == steps64 and bool(np.isfinite(losses64).all()), losses64)
+        say("  losses: " + ", ".join(f"{v:.5f}" for v in losses64))
+        gx, gw64, gg = grab64["x"], grab64["w"], grab64["g"]
+        check(tuple(gx.shape) == (P_TRAIN, grid, grid) and gx.dtype == torch.bfloat16, (gx.shape, gx.dtype))
+        train64_err = check_bwd(D, gg, step_inputs(D, gx, gw64, KERNEL, STEPS), gw64, KERNEL,
+                                f"trained grid {grid} bf16, {STEPS} steps")
+
+        # end to end: served ms per batch and train ms per step, grid 12 and
+        # grid 64 in turns (12, 64, 64, 12) on the same weights and batch
+        m64 = cod(seed=None, grid=grid)
+        m64.load_state_dict(model.state_dict())
+        nets = {12: model.to(dev), grid: m64.to(dev)}
+        g_dev = torch.Generator(device=dev).manual_seed(4)
+        img = torch.randn(BATCH, SIZE, SIZE, 3, generator=g_dev, device=dev)
+        depth = torch.rand(BATCH, SIZE, SIZE, 1, generator=g_dev, device=dev)
+        served_turns = {12: [], grid: []}
+        for gs in (12, grid, grid, 12):
+            served_turns[gs].append(cuda_time_ms(lambda: nets[gs].predict(img, depth), 10, warmup=2))
+        del nets, m64, model
+        torch.cuda.empty_cache()
+        runners = {gs: Runner(load_config(recipe, [o for o in overrides64[1:] if not o.startswith("model.grid")]
+                                          + [f"model.grid={gs}"]),
+                              work_dir=os.path.join(tmp, f"steps{gs}"), seed=0, device=dev, dtype=torch.bfloat16)
+                   for gs in (12, grid)}
+        first = next(iter(runners[grid].train_loader))
+        batch = {k: first[k] for k in ("input", "label", "depth")}
+        step_turns, counter = {12: [], grid: []}, [1]
+
+        def grid_step(gs):
+            r = runners[gs]
+            train_step(r.model, r.optimizer, batch, counter[0], r.seed + 1)
+            counter[0] += 1
+
+        for gs in (12, grid, grid, 12):
+            step_turns[gs].append(cuda_time_ms(lambda: grid_step(gs), 5, warmup=2))
+        del runners, batch, first
+        torch.cuda.empty_cache()
+    say(f"  served bf16 ms per batch (batch {BATCH}, {SIZE}², in turns 12, {grid}, {grid}, 12): grid 12 "
+        f"{served_turns[12]}, grid {grid} {served_turns[grid]} [{card}]")
+    say(f"  train bf16 ms per step (batch {TRAIN_BATCH}, {SIZE}², in turns): grid 12 {step_turns[12]}, grid {grid} "
+        f"{step_turns[grid]} [{card}]")
+
+    # ---- 16. device time per call ----
+    # from the profiler, read last, so that its tracing cannot touch the
+    # per-call and end-to-end timings above, which are host-bound
+    say("phase 16: device time per call (torch.profiler key_averages):")
     for label, row, key, fn, match, iters in device_calls:
         row[key] = device_ms(fn, iters, match)
         say(f"    {label}: {row[key] if row[key] is not None else 'no device time recorded'} ms [{card}]")
-    del xl, wl, gl, xa, wa, out, ref, lxs, rdx, rdw, device_calls
+    del device_calls
     torch.cuda.empty_cache()
 
     b = rows["bf16"]
@@ -1117,6 +1350,37 @@ def main():
         "source": f"dgtd_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
         "launches": n_launch,
+        "max_abs_err": max(main_err, cluster_rows[part]["bf16"]["err"]),
+        "ms": cluster_rows[part]["bf16"]["ms"],
+        "plain_ms": cluster_rows[part]["bf16"]["plain_ms"],
+        "bound_ms": cluster_rows[part]["bf16"]["bound_ms"],
+        "bound_by": cluster_rows[part]["bf16"]["bound_by"],
+        "library_ms": None,
+        "device_ms": cluster_rows[part]["bf16"]["device_ms"],
+        "per_step_ms": cluster_rows[part]["bf16"]["per_step_ms"],
+        "per_step_device_ms": cluster_rows[part]["bf16"]["per_step_device_ms"],
+        "launches_per_call": cluster_rows[part]["bf16"]["launches_per_call"],
+        "dtype": "bfloat16",
+        "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} ({P_MAIN},{gh},{gw}), w ({P_MAIN},"
+                 f"{KERNEL * KERNEL},{gh},{gw}), {STEPS} steps",
+        "main_path": main_path,
+        "max_active_clusters": {n: v for n, v in occupancy.items() if n.startswith(part)},
+        "fp32": cluster_rows[part]["fp32"],
+        "card": card,
+    } for name, source, replaces, part, n_launch, main_err, main_path in (
+        ("diffusion_stencil_cluster", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd",
+         served64_launches[2], served64_err,
+         f"{served64_launches[2]} launches in {nb} served batches and {train64_launches[2]} in {steps64} train "
+         f"steps of cod at grid {grid}"),
+        ("diffusion_stencil_cluster_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd",
+         train64_launches[3], train64_err,
+         f"{train64_launches[3]} launches in {steps64} train steps of cod at grid {grid}"),
+    )] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"dgtd_tpu_torch/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": n_launch,
         "max_abs_err": large_rows[part]["err"],
         "ms": large_rows[part]["ms"],
         "plain_ms": large_rows[part]["plain_ms"],
@@ -1128,8 +1392,8 @@ def main():
         "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} {large_shape}",
         "card": card,
     } for name, source, replaces, part, n_launch in (
-        ("diffusion_stencil", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd", large_launches[2]),
-        ("diffusion_stencil_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd", large_launches[3]),
+        ("diffusion_stencil", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd", large_launches[4]),
+        ("diffusion_stencil_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd", large_launches[5]),
     )] + [{
         "name": "diffusion_stencil_nhwc",
         "route": "cuda",
@@ -1191,6 +1455,18 @@ def main():
         "cli_s_per_step": trained["loop_s"] / trained["steps"],
         "cli_peak_memory_bytes": cli_peak,
         "first_step_loss": {"bf16": loss16, "fp32": loss32},
+        "card": card,
+    }}))
+    say(json.dumps({"grid64": {
+        "model": f"cod, full width, seeded random weights, grid {grid} (-o grid={grid} / -o model.grid={grid})",
+        "size": SIZE,
+        "served": {"batch": BATCH, "batches": nb, "launches": served64_launches, "loop_s": served64["loop_s"],
+                   "fp32_card_vs_cpu": cpu64_err},
+        "trained": {"batch": TRAIN_BATCH, "steps": trained64["steps"], "launches": train64_launches,
+                    "losses": losses64, "loop_s": trained64["loop_s"]},
+        "launch_order": LAUNCH_NAMES,
+        "served_ms_per_batch": {"grid12": served_turns[12], f"grid{grid}": served_turns[grid]},
+        "train_ms_per_step": {"grid12": step_turns[12], f"grid{grid}": step_turns[grid]},
         "card": card,
     }}))
     say(json.dumps({"msda": {

@@ -17,8 +17,9 @@
 // under a microsecond of DRAM time that the 50 MB L2 mostly absorbs, so
 // launches and their host calls set the time.
 //
-// Two kernels compute the plane steps, chosen by shape alone (the wrapper's
-// predicate ops/diffusion.py::fused_path mirrors fused_fits below):
+// Three kernels compute the plane steps, chosen by shape and dtype alone
+// (stencil_route in stencil_common.cuh, which ops/diffusion.py::stencil_route
+// mirrors): the fused kernel, the cluster kernel, the per-step kernel.
 //
 // stencil_fused_fwd_kernel runs all the steps in one launch. One block per
 // plane, one thread per pixel (at most FUSED_MAX_PIXELS = 512 pixels, the
@@ -38,14 +39,28 @@
 // forward already holds each one in a register, so writing them is nearly
 // free and the backward cannot drift from the forward's rounding.
 //
+// stencil_cluster_fwd_kernel runs all the steps of a larger plane in one
+// launch: up to 8 strips of at most 512 pixels (the paper's grid-64
+// ablation: 8 strips of 8 rows of 64), one block a strip, the blocks of a
+// plane one thread block cluster. As in the fused kernel, one thread per
+// pixel keeps its k*k weights in registers, read from memory once per call,
+// and the strip lives in shared memory as fp32 ping-pong buffers, here with
+// r halo rows above and below. After each step a thread writes its rounded
+// result into its own buffer and, if its row is among the strip's first or
+// last r, into the halo row of the neighbouring block through distributed
+// shared memory (put_strip); one cluster.sync() a step then separates the
+// steps for the whole plane. Rows beyond the plane's edge stay zero. At
+// (192, 64, 64) bf16, k = 7 the call's bytes are ~80 MB (w read once), not
+// the per-step kernels' 4 x 77 MB of w, which do not fit the 50 MB L2.
+//
 // stencil_step_kernel, one thread per output pixel and one launch per step
-// (the caller ping-pongs two buffers), takes the planes above that limit.
-// Consecutive threads take consecutive x of one row, so the reads of
+// (the caller ping-pongs two buffers), takes the planes above the cluster
+// kernel's reach. Consecutive threads take consecutive x of one row, so the reads of
 // w[p, t, y, :] and of x are coalesced; taps that fall outside the plane are
 // skipped (the halo is zero), which also masks ragged and rectangular
 // H x W. No shared memory: the k*k neighbourhood reads of x hit L1.
 //
-// The second kernel, stencil_step_nhwc_kernel, replaces
+// The fourth kernel, stencil_step_nhwc_kernel, replaces
 // dgtd_tpu/ops/diffusion_pallas.py::diffusion_step_pallas (the Pallas kernel
 // _stencil_kernel): the same step on NHWC x (B, H, W, C) with tap-major
 // weights (B, H, W, k*k*C), whose index is t*C + c (to_tap_major):
@@ -133,6 +148,96 @@ cudaError_t launch_fused_k(const void* x, const void* w, void* xs, void* out, in
     case 3: return launch_fused<T, 3>(x, w, xs, out, planes, h, wd, steps, s);
     case 5: return launch_fused<T, 5>(x, w, xs, out, planes, h, wd, steps, s);
     case 7: return launch_fused<T, 7>(x, w, xs, out, planes, h, wd, steps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(FUSED_MAX_PIXELS)
+stencil_cluster_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ xs,
+                           T* __restrict__ out, int64_t planes, int h, int wd, int steps,
+                           int blocks, int rows) {
+  constexpr int R = K / 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float smem[];
+  const int pw = wd + 2 * R, pn = (rows + 2 * R) * pw, hw = h * wd;
+  const int rank = (int)cluster.block_rank();
+  const int64_t p = blockIdx.x / blocks;
+  const int y0 = rank * rows;
+  const int nrows = min(rows, h - y0);
+  const int pix = threadIdx.x;  // pixel of the strip
+  const bool live = pix < nrows * wd;
+  const int ly = live ? pix / wd : 0;
+  const int xx = live ? pix - ly * wd : 0;
+  const int64_t at = p * hw + (int64_t)y0 * wd + pix;  // the pixel in (P, H, W)
+  float* const up = rank > 0 ? cluster.map_shared_rank(smem, rank - 1) : nullptr;
+  float* const down = rank + 1 < blocks ? cluster.map_shared_rank(smem, rank + 1) : nullptr;
+  for (int i = threadIdx.x; i < 2 * pn; i += blockDim.x) smem[i] = 0.f;
+  cluster.sync();  // every block's buffers zeroed before a neighbour writes its halo
+
+  float wr[K * K];
+  int src = 0, dst = pn;  // the ping-pong buffers' offsets, the same in every block
+  if (live) {
+    const T xv = x[at];
+    if (xs != nullptr) xs[at] = xv;
+    put_strip<R>(smem, up, down, src, rows, nrows, pw, ly, xx, to_f(xv));
+    const T* wp = w + p * (int64_t)K * K * hw + (at - p * hw);
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) wr[t] = load_f(wp + (int64_t)t * hw);
+  }
+  cluster.sync();  // the strips and their halos in place
+
+  for (int s = 0; s < steps; ++s) {
+    float acc = 0.f;
+    if (live) {
+      const float* win = smem + src + ly * pw + xx;  // top-left tap of this pixel's window
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) acc = fmaf(win[dy * pw + dx], wr[dy * K + dx], acc);
+      }
+    }
+    if (s == steps - 1) {
+      if (live) store_f(out + at, acc);
+    } else {
+      if (live) {
+        if (xs != nullptr) store_f(xs + (s + 1) * planes * hw + at, acc);
+        put_strip<R>(smem, up, down, dst, rows, nrows, pw, ly, xx, round_to(acc, x));
+      }
+      // every read of src and every write of dst, here and in the
+      // neighbours, done before the swap; the last step touches no other
+      // block's memory, so this is also the last sync a block needs before
+      // it exits
+      cluster.sync();
+      const int t = src;
+      src = dst;
+      dst = t;
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_cluster(const void* x, const void* w, void* xs, void* out, int64_t planes, int h,
+                           int wd, int steps, cudaStream_t s) {
+  constexpr int R = K / 2;
+  const ClusterSplit sp = cluster_split(h, wd);
+  // two padded fp32 strips of at most 512 pixels: under 29 KB, as in the
+  // fused forward
+  const size_t smem = 2 * sizeof(float) * (size_t)(sp.rows + 2 * R) * (wd + 2 * R);
+  const ClusterLaunch launch((unsigned)(planes * sp.blocks), sp.blocks, strip_threads(sp.rows, wd), smem, s);
+  return launch_error(cudaLaunchKernelEx(
+      &launch.cfg, stencil_cluster_fwd_kernel<T, K>, static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<T*>(xs), static_cast<T*>(out), planes, h, wd, steps, sp.blocks, sp.rows));
+}
+
+template <typename T>
+cudaError_t launch_cluster_k(const void* x, const void* w, void* xs, void* out, int64_t planes,
+                             int h, int wd, int k, int steps, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_cluster<T, 1>(x, w, xs, out, planes, h, wd, steps, s);
+    case 3: return launch_cluster<T, 3>(x, w, xs, out, planes, h, wd, steps, s);
+    case 5: return launch_cluster<T, 5>(x, w, xs, out, planes, h, wd, steps, s);
+    case 7: return launch_cluster<T, 7>(x, w, xs, out, planes, h, wd, steps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -241,6 +346,53 @@ extern "C" int dgtd_diffusion_fused(const void* x, const void* w, void* xs, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_fused_k<float>(x, w, xs, out, planes, h, wd, k, steps, s);
   return (int)launch_fused_k<__nv_bfloat16>(x, w, xs, out, planes, h, wd, k, steps, s);
+}
+
+// Cluster entry: all `steps` (>= 1) steps in one launch, for planes whose
+// stencil_route is ROUTE_CLUSTER (else cudaErrorInvalidValue); arguments as
+// the fused entry's. Returns the launch's error (0 on success).
+extern "C" int dgtd_diffusion_cluster(const void* x, const void* w, void* xs, void* out,
+                                      long long planes, int h, int wd, int k, int steps, int dtype,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (stencil_route(h, wd, k, dtype == 0 ? 4 : 2) != ROUTE_CLUSTER || steps < 1 ||
+      planes > 0x7fffffffLL / CLUSTER_MAX_BLOCKS)
+    return (int)cudaErrorInvalidValue;
+  if (planes <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_cluster_k<float>(x, w, xs, out, planes, h, wd, k, steps, s);
+  return (int)launch_cluster_k<__nv_bfloat16>(x, w, xs, out, planes, h, wd, k, steps, s);
+}
+
+// The route of an (h, wd) plane at kernel k and element size elem_bytes, as
+// the entries above decide it: 0 fused, 1 cluster, 2 per-step; and the
+// cluster split into *blocks and *rows.
+extern "C" int dgtd_stencil_route(int h, int wd, int k, int elem_bytes, int* blocks, int* rows) {
+  const ClusterSplit sp = cluster_split(h, wd);
+  *blocks = sp.blocks;
+  *rows = sp.rows;
+  return stencil_route(h, wd, k, elem_bytes);
+}
+
+// How many clusters of the k = 7 cluster forward (bf16) the card holds at
+// once, each of `blocks` blocks of `rows` x wd pixels, from
+// cudaOccupancyMaxActiveClusters, into *clusters. blocks above the portable
+// 8 are allowed for this query (cudaFuncAttributeNonPortableClusterSizeAllowed).
+// Returns the query's error.
+extern "C" int dgtd_diffusion_cluster_occupancy(int blocks, int rows, int wd, int device, int* clusters) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int R = 3;
+  auto kern = stencil_cluster_fwd_kernel<__nv_bfloat16, 7>;
+  if (blocks > CLUSTER_MAX_BLOCKS) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const ClusterLaunch launch((unsigned)blocks, blocks, strip_threads(rows, wd),
+                             2 * sizeof(float) * (size_t)(rows + 2 * R) * (wd + 2 * R), nullptr);
+  return (int)launch_error(cudaOccupancyMaxActiveClusters(clusters, kern, &launch.cfg));
 }
 
 // NHWC entry: x and out (B, H, W, C), w (B, H, W, k*k*C) tap-major; dtype and

@@ -21,8 +21,9 @@
 // 12x12, k = 7) that is a few MB that the 50 MB L2 holds, so launches and
 // their host calls set the time.
 //
-// Two kernels, chosen by shape alone as the forward's are (fused_fits in
-// stencil_common.cuh, mirrored by ops/diffusion.py::fused_path):
+// Three kernels, chosen by shape and dtype alone as the forward's are
+// (stencil_route in stencil_common.cuh, mirrored by
+// ops/diffusion.py::stencil_route):
 //
 // stencil_fused_bwd_kernel runs all the steps in reverse in one launch. One
 // block per plane, one thread per pixel, k a template argument. In shared
@@ -39,7 +40,26 @@
 // the compiler from fusing it into an FMA), in the order of the plain
 // version's sum, so dw matches it to the last bit wherever g does.
 //
-// stencil_bwd_kernel, one step a launch, takes the planes above that limit:
+// stencil_cluster_bwd_kernel runs all the steps of a larger plane in
+// reverse in one launch, the plane split into strips over a thread block
+// cluster as the cluster forward splits it (one block a strip of at most
+// 512 pixels, up to 8 blocks). In each block's shared memory: g and the step
+// input as padded fp32 strips in ping-pong pairs with r halo rows, and the
+// k*k weight planes of the strip and of its r halo rows, staged once per
+// call: the strip's own from device memory, the halo rows' from the
+// neighbouring blocks through distributed shared memory. Each step writes
+// its rounded dx, and the next step's input (prefetched while it computes),
+// into the next buffers and, for a strip's first or last r rows, into the
+// neighbour's halo rows (put_strip); one cluster.sync() a step. dw stays in
+// k*k fp32 registers a pixel across the steps and is written once, in w's
+// dtype, as in the fused kernel (same product-then-add order). At
+// (192, 64, 64), k = 7, 8 rows a block: 103 KB of shared memory in bf16,
+// 191 KB in fp32, so one block an SM; w is read and dw written once per
+// call, where the per-step kernels read w 4 times and move an fp32 dw sum
+// of 154 MB three times.
+//
+// stencil_bwd_kernel, one step a launch, takes the planes above the cluster
+// kernels' reach:
 // one thread per (plane, pixel), which gathers dx (no atomics) and writes
 // its k*k dw taps. The caller chains the steps in reverse; a step adds dw_in
 // (fp32, null for the first step of the chain) to its own product and
@@ -158,6 +178,150 @@ cudaError_t launch_fused_k(const void* g, const void* xs, const void* w, void* d
   }
 }
 
+template <typename T, int K>
+__global__ void __launch_bounds__(FUSED_MAX_PIXELS)
+stencil_cluster_bwd_kernel(const T* __restrict__ g, const T* __restrict__ xs,
+                           const T* __restrict__ w, T* __restrict__ dx, T* __restrict__ dw,
+                           int64_t planes, int h, int wd, int steps, int blocks, int rows) {
+  constexpr int R = K / 2, KK = K * K;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float smem[];
+  const int pw = wd + 2 * R, pn = (rows + 2 * R) * pw, hw = h * wd;
+  const int wn = (rows + 2 * R) * wd;  // a staged weight plane: the strip and its halo rows
+  const int rank = (int)cluster.block_rank();
+  const int64_t p = blockIdx.x / blocks;
+  const int y0 = rank * rows;
+  const int nrows = min(rows, h - y0);
+  const int nrows_down = min(rows, h - y0 - rows);  // the strip below, if any
+  const int pix = threadIdx.x;
+  const bool live = pix < nrows * wd;
+  const int ly = live ? pix / wd : 0;
+  const int xx = live ? pix - ly * wd : 0;
+  const int64_t at = p * hw + (int64_t)y0 * wd + pix;
+  const int64_t step_stride = planes * hw;
+  // shared memory: g's ping-pong pair at offsets 0 and pn, the step input's
+  // at 2 pn and 3 pn, then the weights (R guard values first)
+  T* const ws = reinterpret_cast<T*>(smem + 4 * pn) + R;
+  const int ws_len = KK * wn + 2 * R;
+  float* const up = rank > 0 ? cluster.map_shared_rank(smem, rank - 1) : nullptr;
+  float* const down = rank + 1 < blocks ? cluster.map_shared_rank(smem, rank + 1) : nullptr;
+  for (int i = threadIdx.x; i < 4 * pn; i += blockDim.x) smem[i] = 0.f;
+  for (int i = threadIdx.x; i < ws_len; i += blockDim.x) store_f(ws + i - R, 0.f);
+  __syncthreads();
+  // each thread stages its own pixel's k*k weights: KK independent
+  // coalesced loads in flight, read from memory once per call
+  if (live) {
+    const T* wp = w + p * KK * hw + (at - p * hw);
+#pragma unroll
+    for (int t = 0; t < KK; ++t) ws[t * wn + (ly + R) * wd + xx] = wp[(int64_t)t * hw];
+  }
+  cluster.sync();  // every block zeroed and its own weights staged
+
+  // the transpose reads the weights of the r rows beyond the strip: copy
+  // them once from the neighbours' shared memory (their first or last r
+  // rows), never again from device memory
+  if constexpr (R > 0) {
+    const T* const ws_up = up != nullptr ? cluster.map_shared_rank(ws, rank - 1) : nullptr;
+    const T* const ws_down = down != nullptr ? cluster.map_shared_rank(ws, rank + 1) : nullptr;
+    for (int i = threadIdx.x; i < KK * R * wd; i += blockDim.x) {
+      const int t = i / (R * wd), j = i - t * (R * wd);
+      const int hr = j / wd, c = j - hr * wd;
+      // above: that strip's rows rows - R + hr (it has `rows`) -> halo row hr
+      if (ws_up != nullptr) ws[t * wn + hr * wd + c] = ws_up[t * wn + (rows + hr) * wd + c];
+      // below: that strip's row hr, if it has one -> row R + nrows + hr
+      if (ws_down != nullptr && hr < nrows_down)
+        ws[t * wn + (R + nrows + hr) * wd + c] = ws_down[t * wn + (R + hr) * wd + c];
+    }
+  }
+  int gcur = 0, gnxt = pn, xcur = 2 * pn, xnxt = 3 * pn;
+  if (live) {
+    put_strip<R>(smem, up, down, gcur, rows, nrows, pw, ly, xx, load_f(g + at));
+    put_strip<R>(smem, up, down, xcur, rows, nrows, pw, ly, xx, load_f(xs + (steps - 1) * step_stride + at));
+  }
+  cluster.sync();  // weights, g and the last step's input in place, halos included
+
+  float acc[KK];
+#pragma unroll
+  for (int t = 0; t < KK; ++t) acc[t] = 0.f;
+  for (int s = steps - 1; s >= 0; --s) {
+    // the next step's input, loaded while this step computes
+    const float xn = live && s > 0 ? load_f(xs + (s - 1) * step_stride + at) : 0.f;
+    float d = 0.f;
+    if (live) {
+      const float* gp = smem + gcur;
+      const float* xp = smem + xcur;
+      const float gq = gp[(ly + R) * pw + xx + R];
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+        for (int ddx = 0; ddx < K; ++ddx) {
+          const int t = dy * K + ddx;
+          acc[t] += __fmul_rn(gq, xp[(ly + dy) * pw + xx + ddx]);
+          // transpose tap: source pixel (ly + R - dy, xx + R - ddx) of the
+          // strip; rows beyond the plane hold zeros in g and w, columns
+          // beyond it are masked (their padded g is zero too, but the
+          // weight read wraps into the next row)
+          const int sx = xx + R - ddx;
+          const float wv = sx >= 0 && sx < wd ? to_f(ws[t * wn + (ly + 2 * R - dy) * wd + sx]) : 0.f;
+          d = fmaf(gp[(ly + 2 * R - dy) * pw + xx + 2 * R - ddx], wv, d);
+        }
+      }
+    }
+    if (s == 0) {
+      if (live) store_f(dx + at, d);
+    } else {
+      if (live) {
+        put_strip<R>(smem, up, down, gnxt, rows, nrows, pw, ly, xx, round_to(d, g));
+        put_strip<R>(smem, up, down, xnxt, rows, nrows, pw, ly, xx, xn);
+      }
+      // every read of the current buffers and write of the next ones, here
+      // and in the neighbours, done before the swap; step 0 touches no other
+      // block's memory, so this is also the last sync a block needs before
+      // it exits
+      cluster.sync();
+      int t = gcur;
+      gcur = gnxt;
+      gnxt = t;
+      t = xcur;
+      xcur = xnxt;
+      xnxt = t;
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int t = 0; t < KK; ++t) store_f(dw + (p * KK + t) * hw + (at - p * hw), acc[t]);
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_cluster(const void* g, const void* xs, const void* w, void* dx, void* dw,
+                           int64_t planes, int h, int wd, int steps, cudaStream_t s) {
+  const ClusterSplit sp = cluster_split(h, wd);
+  const size_t smem = cluster_bwd_smem(sp.rows, wd, K, sizeof(T));
+  if (smem > STATIC_SMEM_LIMIT) {
+    cudaError_t err = cudaFuncSetAttribute(stencil_cluster_bwd_kernel<T, K>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const ClusterLaunch launch((unsigned)(planes * sp.blocks), sp.blocks, strip_threads(sp.rows, wd), smem, s);
+  return launch_error(cudaLaunchKernelEx(
+      &launch.cfg, stencil_cluster_bwd_kernel<T, K>, static_cast<const T*>(g), static_cast<const T*>(xs),
+      static_cast<const T*>(w), static_cast<T*>(dx), static_cast<T*>(dw), planes, h, wd, steps,
+      sp.blocks, sp.rows));
+}
+
+template <typename T>
+cudaError_t launch_cluster_k(const void* g, const void* xs, const void* w, void* dx, void* dw,
+                             int64_t planes, int h, int wd, int k, int steps, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_cluster<T, 1>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 3: return launch_cluster<T, 3>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 5: return launch_cluster<T, 5>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 7: return launch_cluster<T, 7>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, typename TO>
 __global__ void stencil_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
                                    const T* __restrict__ w, T* __restrict__ dx,
@@ -231,6 +395,42 @@ extern "C" int dgtd_diffusion_fused_bwd(const void* g, const void* xs, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_fused_k<float>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
   return (int)launch_fused_k<__nv_bfloat16>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
+}
+
+// Cluster entry: the backward of all `steps` (>= 1) steps in one launch, for
+// planes whose stencil_route is ROUTE_CLUSTER (else cudaErrorInvalidValue);
+// arguments as the fused entry's. Returns the launch's error.
+extern "C" int dgtd_diffusion_cluster_bwd(const void* g, const void* xs, const void* w, void* dx,
+                                          void* dw, long long planes, int h, int wd, int k,
+                                          int steps, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (stencil_route(h, wd, k, dtype == 0 ? 4 : 2) != ROUTE_CLUSTER || steps < 1 ||
+      planes > 0x7fffffffLL / CLUSTER_MAX_BLOCKS)
+    return (int)cudaErrorInvalidValue;
+  if (planes <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_cluster_k<float>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
+  return (int)launch_cluster_k<__nv_bfloat16>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
+}
+
+// How many clusters of the k = 7 cluster backward (bf16) the card holds at
+// once, each of `blocks` blocks of `rows` x wd pixels, from
+// cudaOccupancyMaxActiveClusters, into *clusters; blocks above the portable
+// 8 are allowed for this query. Returns the query's error.
+extern "C" int dgtd_diffusion_cluster_bwd_occupancy(int blocks, int rows, int wd, int device,
+                                                    int* clusters) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto kern = stencil_cluster_bwd_kernel<__nv_bfloat16, 7>;
+  const size_t smem = cluster_bwd_smem(rows, wd, 7, sizeof(__nv_bfloat16));
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && blocks > CLUSTER_MAX_BLOCKS)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const ClusterLaunch launch((unsigned)blocks, blocks, strip_threads(rows, wd), smem, nullptr);
+  return (int)launch_error(cudaOccupancyMaxActiveClusters(clusters, kern, &launch.cfg));
 }
 
 // Per-step entry. dtype: 0 = float32, 1 = bfloat16 (g, x, w, dx); dw_dtype:

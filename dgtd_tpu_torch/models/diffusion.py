@@ -6,7 +6,8 @@ NCHW output (B, C·k², h, w) is already ``view(B·C, k², h, w)``, channel
 ``o = c·k² + t``, so the stencil (``ops/diffusion.py``) needs no transposes.
 On CUDA the stencil runs hand-written kernels at every grid size: at the
 recipe's 12x12 grid all the steps in one launch of the fused forward and,
-in backward, one of the fused backward. The gradient reaches
+in backward, one of the fused backward; at grids 23 to 64 (the paper's grid
+ablation) one launch each way of the cluster kernels. The gradient reaches
 the affinity regressor through the fp32 normalization and its cast to x's
 dtype.
 """

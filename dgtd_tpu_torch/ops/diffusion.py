@@ -6,13 +6,18 @@ Plane layout is the counterpart of
 ``dgtd_tpu/ops/diffusion_pallas.py::diffusion_pallas_v2_planes`` and its
 custom VJP. The forward kernels replace the Pallas
 ``diffusion_step_pallas_v2``, the backward kernels both Pallas kernels of
-``diffusion_step_bwd_pallas``. Two kernels each, chosen by the plane's shape
-alone (``fused_path``): a plane of at most 512 pixels at k in {1, 3, 5, 7}
-(the cod recipe's 12x12 grid) runs all its steps in one launch of the fused
-forward and, in backward, one of the fused backward, the plane held in
-shared memory; a larger plane runs one launch of the per-step kernel a step.
-Unlike the JAX package, which keeps grids under 64 on fused XLA, the port
-launches kernels at every grid size on CUDA.
+``diffusion_step_bwd_pallas``. Three kernels each, chosen by the plane's
+shape and dtype alone (``stencil_route``): a plane of at most 512 pixels at
+k in {1, 3, 5, 7} (the cod recipe's 12x12 grid) runs all its steps in one
+launch of the fused forward and, in backward, one of the fused backward,
+the plane held in one block's shared memory; a larger plane that a thread
+block cluster holds (up to 8 strips of at most 512 pixels, the paper's
+grid-64 ablation among them) runs all its steps in one launch of the
+cluster forward and one of the cluster backward, the strips exchanging
+halo rows through distributed shared memory; a plane beyond that runs one
+launch of the per-step kernel a step. Unlike the JAX package, which keeps
+grids under 64 on fused XLA, the port launches kernels at every grid size
+on CUDA.
 
 NHWC is the counterpart of ``diffusion_pallas`` (x (B, H, W, C), weights
 (B, H, W, C, k²), tap-major inside): its forward kernel, a third kernel in
@@ -39,8 +44,12 @@ from . import _build
 #: The fused forward and backward: one launch for all the steps of a call.
 FUSED_LAUNCHES = 0
 FUSED_BWD_LAUNCHES = 0
-#: the per-step forward and backward (planes above the fused limit): one
-#: launch per step
+#: the cluster forward and backward (planes above the fused limit within a
+#: cluster's reach): one launch for all the steps of a call
+CLUSTER_LAUNCHES = 0
+CLUSTER_BWD_LAUNCHES = 0
+#: the per-step forward and backward (planes beyond the cluster kernels'
+#: reach): one launch per step
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 #: the NHWC forward (one per step); its backward counts in the plane
@@ -58,27 +67,61 @@ FUSED_MAX_PIXELS = 512
 FUSED_SMEM_LIMIT = 232448
 
 
+#: the cluster kernels' limit, as ``csrc/stencil_common.cuh::stencil_route``
+#: states it: the plane in strips of at most FUSED_MAX_PIXELS pixels, one
+#: block a strip, at most 8 blocks (the portable cluster size); a strip of
+#: at least r rows, so that a halo row comes from the adjacent strip only;
+#: the backward's shared memory (four padded fp32 strips and the k² weight
+#: planes of the strip and its halo rows) within a block's 227 KB.
+CLUSTER_MAX_BLOCKS = 8
+
+
 def fused_path(h: int, w: int, kernel: int, dtype: torch.dtype) -> bool:
     """Whether an (H, W) plane at this kernel and dtype takes the fused
-    kernels (all steps in one launch) rather than the per-step ones."""
+    kernels (all steps in one launch, one block a plane)."""
     r = kernel // 2
     smem = 3 * 4 * (h + 2 * r) * (w + 2 * r) + kernel * kernel * h * w * dtype.itemsize
     return kernel in FUSED_KERNELS and 0 < h * w <= FUSED_MAX_PIXELS and smem <= FUSED_SMEM_LIMIT
 
 
-def _fused_fn():
-    return _build.function("diffusion_stencil", "dgtd_diffusion_fused", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ])
+def cluster_split(h: int, w: int) -> Tuple[int, int]:
+    """(blocks, rows): the cluster kernels' split of an (H, W) plane into
+    strips of ``rows`` rows (the last may be shorter), as few blocks as hold
+    it at most FUSED_MAX_PIXELS pixels a strip, the strips as even as that
+    allows; (0, 0) if one row is wider than a block."""
+    most = FUSED_MAX_PIXELS // w if w > 0 else 0
+    if h <= 0 or most == 0:
+        return 0, 0
+    blocks = -(-h // most)
+    return blocks, -(-h // blocks)
 
 
-def _fused_bwd_fn():
-    return _build.function("diffusion_stencil_bwd", "dgtd_diffusion_fused_bwd", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ])
+def stencil_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> str:
+    """Which kernels run an (H, W) plane at this kernel and dtype on CUDA:
+    "fused", "cluster" or "per_step"."""
+    if fused_path(h, w, kernel, dtype):
+        return "fused"
+    blocks, rows = cluster_split(h, w)
+    r = kernel // 2
+    smem = 4 * 4 * (rows + 2 * r) * (w + 2 * r) + (kernel * kernel * (rows + 2 * r) * w + 2 * r) * dtype.itemsize
+    if kernel in FUSED_KERNELS and 0 < blocks <= CLUSTER_MAX_BLOCKS and rows >= r and smem <= FUSED_SMEM_LIMIT:
+        return "cluster"
+    return "per_step"
+
+
+#: the C entries of the all-steps kernels (forward, backward) by route; the
+#: fused and the cluster entries take the same arguments
+_ALL_STEPS = {"fused": ("dgtd_diffusion_fused", "dgtd_diffusion_fused_bwd"),
+              "cluster": ("dgtd_diffusion_cluster", "dgtd_diffusion_cluster_bwd")}
+_ALL_STEPS_FWD_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+_ALL_STEPS_BWD_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
+]
 
 
 def _fwd_fn():
@@ -101,6 +144,38 @@ def _nhwc_fn():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
+
+
+_ROUTES = ("fused", "cluster", "per_step")
+
+
+def native_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> Tuple[str, Tuple[int, int]]:
+    """The route and the cluster split (blocks, rows) of an (H, W) plane as
+    the C entries decide them (``csrc/stencil_common.cuh``), for holding
+    ``stencil_route`` and ``cluster_split`` to them. Builds the library."""
+    fn = _build.function("diffusion_stencil", "dgtd_stencil_route", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ])
+    blocks, rows = ctypes.c_int(), ctypes.c_int()
+    route = fn(h, w, kernel, dtype.itemsize, ctypes.byref(blocks), ctypes.byref(rows))
+    return _ROUTES[route], (blocks.value, rows.value)
+
+
+def cluster_occupancy(blocks: int, rows: int, w: int, backward: bool, device: int = 0) -> int:
+    """How many clusters of ``blocks`` blocks of ``rows`` x ``w`` pixels the
+    k = 7 bf16 cluster forward (or backward) keeps on the card at once
+    (``cudaOccupancyMaxActiveClusters``; sizes above the portable 8 are
+    allowed for the query). Builds the library."""
+    name, symbol = (("diffusion_stencil_bwd", "dgtd_diffusion_cluster_bwd_occupancy") if backward
+                    else ("diffusion_stencil", "dgtd_diffusion_cluster_occupancy"))
+    fn = _build.function(name, symbol, [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)])
+    clusters = ctypes.c_int()
+    rc = fn(blocks, rows, w, device, ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"cluster occupancy query failed: cudaError {rc}")
+    return clusters.value
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -193,24 +268,40 @@ def _forward_steps(
     if steps == 0:
         return x.clone(), xs
     out = torch.empty_like(x)
-    if fused_path(x.shape[1], x.shape[2], kernel, x.dtype):
+    route = stencil_route(x.shape[1], x.shape[2], kernel, x.dtype)
+    if route == "fused":
         _fused_forward(x, w, kernel, steps, xs, out)
+    elif route == "cluster":
+        _cluster_forward(x, w, kernel, steps, xs, out)
     else:
         _per_step_forward(x, w, kernel, steps, xs, out)
     return out, xs
 
 
-def _fused_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
-    """All ``steps`` steps in one launch of the fused forward kernel into
-    ``out``, every step's input into ``xs`` unless it is None."""
-    global FUSED_LAUNCHES
+def _all_steps_forward(route: str, x, w, kernel: int, steps: int, xs: Optional[torch.Tensor],
+                       out: torch.Tensor) -> None:
+    """All ``steps`` steps in one launch of the route's forward kernel
+    ("fused" or "cluster") into ``out``, every step's input into ``xs``
+    unless it is None. A launch that fails raises: nothing falls back."""
     p, h, wd = x.shape
     dev, stream = _build.device_and_stream(x)
-    rc = _fused_fn()(x.data_ptr(), w.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
-                     p, h, wd, kernel, steps, _build.DTYPE_CODES[x.dtype], dev, stream)
+    fn = _build.function("diffusion_stencil", _ALL_STEPS[route][0], _ALL_STEPS_FWD_ARGS)
+    rc = fn(x.data_ptr(), w.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+            p, h, wd, kernel, steps, _build.DTYPE_CODES[x.dtype], dev, stream)
     if rc != 0:
-        raise RuntimeError(f"fused diffusion stencil launch failed: cudaError {rc}")
+        raise RuntimeError(f"{route} diffusion stencil launch failed: cudaError {rc}")
+
+
+def _fused_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    global FUSED_LAUNCHES
+    _all_steps_forward("fused", x, w, kernel, steps, xs, out)
     FUSED_LAUNCHES += 1
+
+
+def _cluster_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    global CLUSTER_LAUNCHES
+    _all_steps_forward("cluster", x, w, kernel, steps, xs, out)
+    CLUSTER_LAUNCHES += 1
 
 
 def _per_step_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
@@ -240,9 +331,10 @@ def diffusion_planes_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of ``len(xs)`` steps whose inputs were ``xs`` (a sequence of
     (P, H, W) tensors or one (steps, P, H, W) tensor): (dx, dw). On CUDA one
-    launch of the fused backward for all the steps where ``fused_path`` says
-    so, else one launch of the per-step backward a step; dw is summed in fp32
-    and cast to w's dtype once. On the CPU the plain version."""
+    launch of the fused or the cluster backward for all the steps, as
+    ``stencil_route`` says, else one launch of the per-step backward a step;
+    dw is summed in fp32 and cast to w's dtype once. On the CPU the plain
+    version."""
     if g.device.type == "cpu" and w.device.type == "cpu":
         return diffusion_planes_bwd_plain(g, xs, w, kernel)
     steps = len(xs)
@@ -254,24 +346,41 @@ def diffusion_planes_bwd(
     if steps == 0:
         return g, torch.zeros_like(w)
     xs = xs.contiguous()
-    if fused_path(g.shape[1], g.shape[2], kernel, g.dtype):
+    route = stencil_route(g.shape[1], g.shape[2], kernel, g.dtype)
+    if route == "fused":
         return _fused_backward(g, xs, w, kernel)
+    if route == "cluster":
+        return _cluster_backward(g, xs, w, kernel)
     return _per_step_backward(g, xs, w, kernel)
 
 
-def _fused_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward of all ``len(xs)`` steps in one launch of the fused
-    backward kernel; dw summed on chip and written once, in w's dtype."""
-    global FUSED_BWD_LAUNCHES
+def _all_steps_backward(route: str, g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of all ``len(xs)`` steps in one launch of the route's
+    backward kernel ("fused" or "cluster"); dw summed on chip and written
+    once, in w's dtype. A launch that fails raises."""
     p, h, wd = g.shape
     dev, stream = _build.device_and_stream(g)
     dx, dw = torch.empty_like(g), torch.empty_like(w)
-    rc = _fused_bwd_fn()(g.data_ptr(), xs.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                         p, h, wd, kernel, len(xs), _build.DTYPE_CODES[g.dtype], dev, stream)
+    fn = _build.function("diffusion_stencil_bwd", _ALL_STEPS[route][1], _ALL_STEPS_BWD_ARGS)
+    rc = fn(g.data_ptr(), xs.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            p, h, wd, kernel, len(xs), _build.DTYPE_CODES[g.dtype], dev, stream)
     if rc != 0:
-        raise RuntimeError(f"fused diffusion stencil backward launch failed: cudaError {rc}")
-    FUSED_BWD_LAUNCHES += 1
+        raise RuntimeError(f"{route} diffusion stencil backward launch failed: cudaError {rc}")
     return dx, dw
+
+
+def _fused_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global FUSED_BWD_LAUNCHES
+    out = _all_steps_backward("fused", g, xs, w, kernel)
+    FUSED_BWD_LAUNCHES += 1
+    return out
+
+
+def _cluster_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global CLUSTER_BWD_LAUNCHES
+    out = _all_steps_backward("cluster", g, xs, w, kernel)
+    CLUSTER_BWD_LAUNCHES += 1
+    return out
 
 
 def _per_step_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -329,9 +438,10 @@ def diffusion_planes(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) 
     gradient.
 
     x (P, H, W) and w (P, k², H, W), w already normalized, P = B·C. On CUDA
-    a plane within ``fused_path`` takes one launch of the fused forward for
-    all the steps and, in backward, one of the fused backward; a larger
-    plane one launch of the per-step kernels a step. On the CPU the plain
+    a plane that ``stencil_route`` sends to the fused or the cluster kernels
+    takes one launch of that forward for all the steps and, in backward, one
+    of that backward; a plane beyond them one launch of the per-step kernels
+    a step. On the CPU the plain
     versions run. Without a gradient to record (serving) the forward runs
     without the autograd Function, whose ``apply`` costs more host time than
     the fused launch itself."""
@@ -417,7 +527,7 @@ def _nhwc_to_planes(t: torch.Tensor) -> torch.Tensor:
 class DiffusionNHWCFn(torch.autograd.Function):
     """``steps`` NHWC stencil steps on tap-major weights with their
     backward: the plane backward (its kernels on CUDA, chosen by
-    ``fused_path``; plain on the CPU) on g, the step inputs and w moved into
+    ``stencil_route``; plain on the CPU) on g, the step inputs and w moved into
     plane layout; dw returns tap-major."""
 
     @staticmethod
@@ -446,8 +556,9 @@ class DiffusionNHWCFn(torch.autograd.Function):
 def diffusion_nhwc_tap_major(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
     """``steps`` NHWC stencil steps on tap-major weights (B, H, W, k²·C),
     with their gradient. On CUDA each step is one launch of the NHWC forward
-    kernel; the backward is the plane backward's (one fused launch for a
-    plane within ``fused_path``). On the CPU the plain versions run."""
+    kernel; the backward is the plane backward's (one fused or cluster
+    launch where ``stencil_route`` says so). On the CPU the plain versions
+    run."""
     return DiffusionNHWCFn.apply(x, w_tm, kernel, steps)
 
 

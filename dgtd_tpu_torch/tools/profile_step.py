@@ -11,7 +11,7 @@ prints:
     stream);
   * device busy share and the top kernels by device time (``torch.profiler``).
 
-    python -m dgtd_tpu_torch.tools.profile_step [--train] [--batch 8|10] [--size 384] [--fp32] [--iters 10]
+    python -m dgtd_tpu_torch.tools.profile_step [--train] [--batch 8|10] [--size 384] [--grid 12|64] [--fp32] [--iters 10]
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ LAYERS = [
 def _category(name: str) -> str:
     n = name.lower()
     for key, cat in (("stencil_fused_fwd", "diffusion stencil (ours)"), ("stencil_step", "diffusion stencil (ours)"),
+                     ("stencil_cluster_fwd", "diffusion stencil (ours)"),
                      ("stencil_fused_bwd", "diffusion stencil backward (ours)"),
+                     ("stencil_cluster_bwd", "diffusion stencil backward (ours)"),
                      ("stencil_bwd", "diffusion stencil backward (ours)"),
                      ("multi_tensor", "optimizer (foreach)"), ("dgrad", "conv backward"),
                      ("wgrad", "conv backward"), ("softmax", "softmax"),
@@ -66,6 +68,7 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true", help="profile train steps instead of served batches")
     ap.add_argument("--batch", type=int, default=None, help="default: 8 served, 10 (the recipe's) in training")
     ap.add_argument("--size", type=int, default=384)
+    ap.add_argument("--grid", type=int, default=12, help="the diffusion grid (the paper's ablation: 4 ... 64)")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
@@ -76,7 +79,7 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}")
-    model = cod(dtype=torch.float32 if args.fp32 else torch.bfloat16, seed=0).to(dev)
+    model = cod(dtype=torch.float32 if args.fp32 else torch.bfloat16, seed=0, grid=args.grid).to(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     img = torch.randn(args.batch, args.size, args.size, 3, generator=g, device=dev)
     depth = torch.rand(args.batch, args.size, args.size, 1, generator=g, device=dev)
@@ -111,7 +114,7 @@ def main(argv=None):
         end.synchronize()
         dev_ms.append(start.elapsed_time(end))
     host_ms, batch_ms = sorted(host)[len(host) // 2], sorted(dev_ms)[len(dev_ms) // 2]
-    print(f"{'train step' if args.train else 'served batch'}, batch {args.batch} at {args.size}², "
+    print(f"{'train step' if args.train else 'served batch'}, batch {args.batch} at {args.size}², grid {args.grid}, "
           f"{'fp32' if args.fp32 else 'bf16'}: {batch_ms:.3f} ms per {what} on the stream (median of {args.iters}), "
           f"host enqueue {host_ms:.3f} ms ({host_ms / batch_ms:.0%} of it)")
 

@@ -4,9 +4,11 @@ On the CPU ``diffusion_planes`` runs its plain versions; the forward is held
 against the Pallas plane kernel in interpret mode and against the jnp
 ``message_passing_step``, the backward against ``jax.vjp`` of the Pallas plane
 entry in interpret mode (which runs the Pallas backward kernels), at the
-tolerances of tests/test_diffusion_pallas.py.
-The CUDA kernel itself is checked by tests/test_torch_kernels.py and by
-chip_smoke.py.
+tolerances of tests/test_diffusion_pallas.py. A tiny ``cod`` at grid 24,
+whose stencil planes take the cluster kernels on CUDA, is held to the JAX
+model (predict, loss and every gradient).
+The CUDA kernels themselves are checked by tests/test_torch_kernels.py and
+by chip_smoke.py.
 """
 
 import numpy as np
@@ -221,3 +223,97 @@ def test_nhwc_step_matches_pallas_step():
     ref = np.asarray(diffusion_step_pallas(jnp.asarray(x), jnp.asarray(wtm), 7, True))
     out = D.diffusion_nhwc_tap_major(torch.from_numpy(x), torch.from_numpy(wtm), 7, 1)
     np.testing.assert_allclose(out.numpy(), ref, **STENCIL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# tiny cod at grid 24: stencil planes above the fused limit (on CUDA the
+# cluster kernels; on the CPU the plain versions, the JAX model fused XLA)
+# ---------------------------------------------------------------------------
+
+GRID24 = dict(variant="tiny", convnext_dims=(8, 16, 32, 64), convnext_depths=(1, 1, 1, 1),
+              channel=8, latent_dim=8, grid=24, refine_iters=2)
+# tests/test_torch_cod.py's and tests/test_torch_train.py's tolerances: the
+# probability to 1e-5; the loss to 1e-5 relative, each gradient to 1e-4 of
+# its largest entry (floor 1e-4 of the largest gradient anywhere)
+PROB_ATOL, LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-5, 1e-4
+
+
+@pytest.fixture(scope="module")
+def cod24():
+    from dgtd_tpu.models import cod as JaxCod
+    from dgtd_tpu_torch.models.cod import cod as PortCod
+
+    jm = JaxCod(dtype=jnp.float32, **GRID24)
+    variables = jm.init(jax.random.PRNGKey(0), (1, 64, 64, 3))
+    flat = {k: np.asarray(v) for k, v in flatten_dict(jax.device_get(variables), sep="/").items()}
+    pm = PortCod(dtype=torch.float32, seed=None, drop_path_rate=0.0, convnext_drop_path_rate=0.0, **GRID24)
+    result = pm.load_state_dict(state_dict_from_flax(flat), strict=False)
+    assert result.unexpected_keys == [] and all(k.endswith("num_batches_tracked") for k in result.missing_keys)
+    return jm, variables, pm
+
+
+def _cod_batch(seed, b=2, size=64):
+    rng = np.random.RandomState(seed)
+    return {"input": rng.randn(b, size, size, 3).astype(np.float32),
+            "depth": rng.rand(b, size, size, 1).astype(np.float32),
+            "label": (rng.rand(b, size, size, 1) > 0.5).astype(np.float32)}
+
+
+def test_tiny_cod_grid24_takes_the_cluster_route(cod24):
+    """The prompt encoder's 24 x 24 planes lie above the fused limit and
+    within the cluster kernels' reach; on the CPU no kernel is counted."""
+    _, _, pm = cod24
+    assert pm.hitnet.backbone.prompt_encoder.grid == 24
+    assert D.stencil_route(24, 24, 7, torch.float32) == D.stencil_route(24, 24, 7, torch.bfloat16) == "cluster"
+    assert D.cluster_split(24, 24) == (2, 12)
+    batch = _cod_batch(1, b=1)
+    before = (D.FUSED_LAUNCHES, D.CLUSTER_LAUNCHES, D.LAUNCHES)
+    pm.predict(torch.from_numpy(batch["input"]), torch.from_numpy(batch["depth"]))
+    assert (D.FUSED_LAUNCHES, D.CLUSTER_LAUNCHES, D.LAUNCHES) == before
+
+
+def test_tiny_cod_grid24_predict_matches_jax(cod24):
+    jm, variables, pm = cod24
+    batch = _cod_batch(0)
+    ref = np.asarray(jax.jit(lambda v, i, d: jm.predict(v, i, d)[0])(variables, batch["input"], batch["depth"]))
+    prob = pm.predict(torch.from_numpy(batch["input"]), torch.from_numpy(batch["depth"]))[0]
+    assert prob.shape == (2, 64, 64, 1)
+    np.testing.assert_allclose(prob.numpy(), ref, rtol=0, atol=PROB_ATOL)
+
+
+def test_tiny_cod_grid24_loss_and_every_gradient_match_jax(cod24):
+    """jax.value_and_grad(model.loss) against the port's loss and backward
+    (the stencil's plain backward here) on the same weights and batch,
+    DropPath off on both sides."""
+    import flax.linen as fnn
+
+    from dgtd_tpu.models.layers import DropPath as JaxDropPath
+
+    jm, variables, pm = cod24
+    batch = _cod_batch(2)
+
+    def no_drop_path(next_fun, args, kwargs, context):
+        if isinstance(context.module, JaxDropPath) and context.method_name == "__call__":
+            return args[0]
+        return next_fun(*args, **kwargs)
+
+    def loss_fn(params):
+        return jm.loss({"params": params, "batch_stats": variables["batch_stats"]}, batch,
+                       rngs={"dropout": jax.random.PRNGKey(1)})
+
+    with fnn.intercept_methods(no_drop_path):
+        (_, (aux, _)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+    pm.zero_grad(set_to_none=True)
+    ploss, paux = pm.loss(*(torch.from_numpy(batch[k]) for k in ("input", "depth", "label")))
+    ploss.backward()
+    for k in ("loss", "loss_seg", "loss_ssim"):
+        np.testing.assert_allclose(float(paux[k].detach()), float(aux[k]), rtol=LOSS_RTOL)
+    ref = state_dict_from_flax({f"params/{k}": np.asarray(v) for k, v in flatten_dict(
+        jax.device_get(grads), sep="/").items()})
+    named = dict(pm.named_parameters())
+    assert set(ref) == set(named)
+    scale = max(float(v.abs().max()) for v in ref.values())
+    for n, p in named.items():
+        limit = GRAD_RTOL * max(float(ref[n].abs().max()), 1e-4 * scale)
+        diff = float((p.grad - ref[n]).abs().max())
+        assert diff <= limit, f"{n}: {diff:.3e} > {limit:.3e}"

@@ -1,5 +1,6 @@
 """The port's CUDA stencil and LayerNorm wrappers: dispatch, refusals, the
-fused-path predicate, and (on a card) the plane stencil's fused and per-step
+route predicate (fused, cluster, per-step) and the cluster kernels' strip
+split, and (on a card) the plane stencil's fused, cluster and per-step
 kernels forward and backward, the NHWC stencil kernel and the LayerNorm
 kernel against their plain versions.
 
@@ -19,7 +20,8 @@ from dgtd_tpu_torch.ops import layernorm as L
 # fp32: the kernel's FMA chain vs unfold·w·sum, a few ulps of O(1) values
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 # bf16: the kernel rounds to bf16 after each of 4 steps; inputs in [0, 1)
-# and convex weights keep each rounding under 2^-9
+# and convex weights keep each rounding under 2^-9, so s steps drift up to
+# s·2^-9 from the plain version in fp32 (bf16_atol)
 BF16_ATOL = 1e-2
 # backward, bf16: kernel and plain both sum in fp32 and round to bf16, so a
 # rounding can flip one ulp (2^-7 relative); chains round dx every step
@@ -35,6 +37,10 @@ def cuda():
     return torch.device("cuda")
 
 
+def bf16_atol(steps):
+    return max(BF16_ATOL, steps * 2 ** -9)
+
+
 def _planes(seed, p, h, w, k, device="cpu"):
     g = torch.Generator().manual_seed(seed)
     x = torch.rand(p, h, w, generator=g)
@@ -43,15 +49,19 @@ def _planes(seed, p, h, w, k, device="cpu"):
 
 
 def _plane_launches():
-    return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.LAUNCHES, D.BWD_LAUNCHES)
+    """fused forward, fused backward, cluster forward, cluster backward,
+    per-step forward, per-step backward"""
+    return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.CLUSTER_LAUNCHES, D.CLUSTER_BWD_LAUNCHES,
+            D.LAUNCHES, D.BWD_LAUNCHES)
 
 
-def _expected_launches(before, fused, steps, bwd):
+def _expected_launches(before, route, steps, bwd):
     """The counters after one call of ``steps`` steps (forward, or backward
-    when ``bwd``): one fused launch for all the steps, or one per-step
-    launch a step."""
-    fused_n, step_n = (int(steps > 0), 0) if fused else (0, steps)
-    add = (0, fused_n, 0, step_n) if bwd else (fused_n, 0, step_n, 0)
+    when ``bwd``) on a plane of this route: one fused or cluster launch for
+    all the steps, or one per-step launch a step."""
+    slot = {"fused": 0, "cluster": 2, "per_step": 4}[route] + int(bwd)
+    add = [0] * 6
+    add[slot] = steps if route == "per_step" else int(steps > 0)
     return tuple(b + a for b, a in zip(before, add))
 
 
@@ -77,6 +87,81 @@ def test_cpu_wrapper_takes_plain_and_counts_no_launch():
 ])
 def test_fused_path_predicate(h, w, k, fused, dtype):
     assert D.fused_path(h, w, k, dtype) is fused
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,k,route", [
+    (12, 12, 7, "fused"),  # the cod recipe's grid
+    (22, 22, 7, "fused"),  # 484 pixels
+    (23, 23, 7, "cluster"),  # 529 pixels: 2 strips of 12 and 11 rows
+    (23, 24, 7, "cluster"),
+    (24, 24, 7, "cluster"),  # the grid-24 cod of tests/test_torch_train.py
+    (64, 64, 7, "cluster"),  # the paper's grid-64 ablation: 8 strips of 8 rows, 4096 pixels
+    (64, 64, 1, "cluster"), (64, 64, 3, "cluster"), (64, 64, 5, "cluster"),
+    (4096, 1, 7, "cluster"),  # 4096 pixels in 8 strips of 512 rows
+    (4097, 1, 7, "per_step"),  # 4097 pixels: a ninth block
+    (17, 241, 7, "per_step"),  # 4097 pixels again
+    (1, 600, 7, "per_step"),  # a row wider than a block
+    (1, 4096, 7, "per_step"),
+    (65, 64, 7, "per_step"),  # 9 strips
+    (90, 90, 7, "per_step"), (96, 96, 7, "per_step"), (128, 128, 7, "per_step"),
+    (64, 64, 9, "per_step"),  # k not a template argument
+    (8, 512, 3, "cluster"),  # strips of one row, r = 1
+    (8, 512, 5, "per_step"),  # a strip shorter than r = 2
+    (16, 200, 5, "cluster"), (16, 200, 7, "per_step"),  # strips of 2 rows
+])
+def test_stencil_route(h, w, k, route, dtype):
+    assert D.stencil_route(h, w, k, dtype) == route
+    assert D.fused_path(h, w, k, dtype) is (route == "fused")
+
+
+def test_stencil_route_counts_shared_memory_by_dtype():
+    """6 x 170 at k = 7 splits into 2 strips of 3 rows; the backward's k²
+    weight planes of a strip and its halo rows take 300 KB in fp32, more
+    than a block's 227 KB, and 150 KB in bf16."""
+    assert D.cluster_split(6, 170) == (2, 3)
+    assert D.stencil_route(6, 170, 7, torch.float32) == "per_step"
+    assert D.stencil_route(6, 170, 7, torch.bfloat16) == "cluster"
+
+
+@pytest.mark.parametrize("h,w,split", [
+    (64, 64, (8, 8)), (23, 23, (2, 12)), (23, 24, (2, 12)), (24, 30, (2, 12)), (33, 17, (2, 17)),
+    (80, 50, (8, 10)), (4096, 1, (8, 512)), (65, 64, (9, 8)), (10, 170, (4, 3)), (12, 12, (1, 12)),
+    (1, 513, (0, 0)), (0, 5, (0, 0)),
+])
+def test_cluster_split(h, w, split):
+    """As few strips as hold at most 512 pixels each, as even as that
+    allows; every strip but the last full, none empty."""
+    assert D.cluster_split(h, w) == split
+    blocks, rows = split
+    if blocks:
+        assert rows * w <= D.FUSED_MAX_PIXELS and 0 < h - (blocks - 1) * rows <= rows
+
+
+def test_cluster_split_never_leaves_an_empty_strip():
+    for w in range(1, 100):
+        for h in range(1, 300):
+            blocks, rows = D.cluster_split(h, w)
+            assert blocks == -(-h // (D.FUSED_MAX_PIXELS // w)) and rows * w <= D.FUSED_MAX_PIXELS
+            assert 0 < h - (blocks - 1) * rows <= rows
+
+
+def test_cpu_above_the_fused_limit_takes_plain_and_counts_no_launch():
+    """A 24 x 24 plane (the cluster route on CUDA) on the CPU: the plain
+    forward and backward, no kernel counted."""
+    x, w = _planes(8, 2, 24, 24, 7)
+    g = torch.rand(2, 24, 24, generator=torch.Generator().manual_seed(8))
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = _plane_launches()
+    out = D.diffusion_planes(xa, wa, 7, 4)
+    out.backward(g)
+    assert _plane_launches() == before
+    ref = D.diffusion_planes_plain(xb, wb, 7, 4)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    ref.backward(g)
+    torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
+    torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,14 +271,15 @@ def test_non_cuda_device_raises():
 
 
 #: the card cases: the cod recipe's 12x12 grid, the test grid 13x20 (both
-#: fused), the JAX package's Pallas grid 64x64 and a plane just above the
-#: fused limit (both per-step)
-CARD_GRIDS = [(12, 12), (13, 20), (64, 64), (23, 23)]
+#: fused); the paper's grid-64 ablation, a plane just above the fused limit,
+#: rectangular and ragged strips, and 8 strips of 512 rows, the cluster
+#: limit (all cluster); a row wider than a block (per-step)
+CARD_GRIDS = [(12, 12), (13, 20), (64, 64), (23, 23), (24, 30), (33, 17), (80, 50), (4096, 1), (1, 4096)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("steps", [0, 1, 2, 4])
-@pytest.mark.parametrize("k", [1, 3, 7])
+@pytest.mark.parametrize("steps", [0, 1, 2, 4, 6])
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
 @pytest.mark.parametrize("hw", CARD_GRIDS)
 def test_cuda_kernel_matches_plain(cuda, k, hw, steps):
     x, w = _planes(k, 192, *hw, k, cuda)
@@ -202,18 +288,18 @@ def test_cuda_kernel_matches_plain(cuda, k, hw, steps):
         before = _plane_launches()
         out = D.diffusion_planes(xd, wd, k, steps)
         torch.cuda.synchronize()
-        assert _plane_launches() == _expected_launches(before, D.fused_path(*hw, k, dt), steps, bwd=False)
+        assert _plane_launches() == _expected_launches(before, D.stencil_route(*hw, k, dt), steps, bwd=False)
         assert out.dtype == dt
         if dt == torch.float32:
             torch.testing.assert_close(out, D.diffusion_planes_plain(x, w, k, steps), **FP32_TOL)
         else:
             torch.testing.assert_close(out.float(), D.diffusion_planes_plain(xd.float(), wd.float(), k, steps),
-                                       rtol=0, atol=BF16_ATOL)
+                                       rtol=0, atol=bf16_atol(steps))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("steps", [0, 1, 2, 4])
-@pytest.mark.parametrize("k", [1, 3, 7])
+@pytest.mark.parametrize("steps", [0, 1, 2, 4, 6])
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
 @pytest.mark.parametrize("hw", CARD_GRIDS)
 def test_cuda_backward_kernel_matches_plain(cuda, k, hw, steps):
     x, w = _planes(k + 10, 240, *hw, k, cuda)
@@ -227,7 +313,7 @@ def test_cuda_backward_kernel_matches_plain(cuda, k, hw, steps):
         before = _plane_launches()
         dx, dw = D.diffusion_planes_bwd(gd, xs, wd, k)
         torch.cuda.synchronize()
-        assert _plane_launches() == _expected_launches(before, D.fused_path(*hw, k, dt), steps, bwd=True)
+        assert _plane_launches() == _expected_launches(before, D.stencil_route(*hw, k, dt), steps, bwd=True)
         assert dx.dtype == dw.dtype == dt
         rdx, rdw = D.diffusion_planes_bwd_plain(gd, xs, wd, k)
         torch.testing.assert_close(dx.float(), rdx.float(), **tol)
@@ -252,28 +338,64 @@ def test_cuda_fused_forward_saves_step_inputs(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hw", [(16, 32), (1, 512), (23, 23), (1, 513)])
-def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, hw, dtype):
-    """At the limit (512 pixels; 1 x 512 has the largest shared memory, 144 KB
-    in fp32) the fused kernels run and agree with the plain versions; above
-    it their C entries refuse the plane, so the predicate and the kernels
-    state one limit."""
-    x, w = _planes(5, 24, *hw, 7, cuda)
+@pytest.mark.parametrize("hw", [(64, 64), (23, 23), (4096, 1)])
+def test_cuda_cluster_forward_saves_step_inputs(cuda, hw, dtype):
+    """The cluster forward writes every step's input as the fused one does,
+    the values its own calls of fewer steps return, each step rounded to x's
+    dtype; one cluster launch a call."""
+    x, w = _planes(4, 48, *hw, 7, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    before = _plane_launches()
+    out, xs = D._forward_steps(x, w, 7, 6, keep=True)
+    torch.cuda.synchronize()
+    assert _plane_launches() == _expected_launches(before, "cluster", 6, bwd=False)
+    assert xs.shape == (6, 48, *hw) and xs.dtype == dtype
+    assert torch.equal(xs[0], x)
+    for s in range(1, 6):
+        assert torch.equal(xs[s], D.diffusion_planes(x, w, 7, s))
+    assert torch.equal(out, D.diffusion_planes(x, w, 7, 6))
+
+
+#: (h, w, k) planes about the fused and the cluster limits: 512 pixels (1 x
+#: 512 has the fused backward's largest shared memory, 144 KB in fp32) and
+#: 513; 4096 pixels in 8 strips, in rows of 64 and of 1; 9 strips; 6 x 170,
+#: whose cluster backward needs 300 KB in fp32 and 150 KB in bf16; strips
+#: of one row at r = 1 and r = 2
+LIMIT_PLANES = [(16, 32, 7), (1, 512, 7), (23, 23, 7), (1, 513, 7), (64, 64, 7), (4096, 1, 7), (65, 64, 7),
+                (6, 170, 7), (8, 512, 3), (8, 512, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plane", LIMIT_PLANES, ids=[f"{h}x{w}k{k}" for h, w, k in LIMIT_PLANES])
+def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, plane, dtype):
+    """Each plane's own route (fused or cluster) runs and agrees with the
+    plain versions; the C entries of the other all-steps kernels refuse it,
+    so the predicate and the kernels state one limit. The per-step kernels
+    take what neither admits."""
+    *hw, k = plane
+    x, w = _planes(5, 24, *hw, k, cuda)
     x, w = x.to(dtype), w.to(dtype)
     g = torch.rand(24, *hw, generator=torch.Generator().manual_seed(5)).to(cuda).to(dtype)
     xs = torch.empty((4, 24, *hw), dtype=dtype, device=cuda)
     out = torch.empty_like(x)
-    if not D.fused_path(*hw, 7, dtype):
+    route = D.stencil_route(*hw, k, dtype)
+    entries = {"fused": (D._fused_forward, D._fused_backward), "cluster": (D._cluster_forward, D._cluster_backward)}
+    for name, (fwd, bwd) in entries.items():
+        if name == route:
+            continue
         with pytest.raises(RuntimeError, match="cudaError"):
-            D._fused_forward(x, w, 7, 4, xs, out)
+            fwd(x, w, k, 4, xs, out)
         with pytest.raises(RuntimeError, match="cudaError"):
-            D._fused_backward(g, xs, w, 7)
+            bwd(g, xs, w, k)
+    if route == "per_step":
         return
-    D._fused_forward(x, w, 7, 4, xs, out)
-    dx, dw = D._fused_backward(g, xs, w, 7)
+    fwd, bwd = entries[route]
+    fwd(x, w, k, 4, xs, out)
+    dx, dw = bwd(g, xs, w, k)
     torch.cuda.synchronize()
-    ref = D.diffusion_planes_plain(x.float(), w.float(), 7, 4)
-    rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, 7)
+    ref = D.diffusion_planes_plain(x.float(), w.float(), k, 4)
+    rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, k)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, **FP32_TOL)
         torch.testing.assert_close(dx, rdx, **FP32_TOL)
@@ -282,6 +404,20 @@ def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, hw, dtype
         torch.testing.assert_close(out.float(), ref, rtol=0, atol=BF16_ATOL)
         torch.testing.assert_close(dx.float(), rdx.float(), **BWD_BF16_TOL)
         torch.testing.assert_close(dw.float(), rdw.float(), **BWD_BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_route_is_the_c_entries_route(cuda):
+    """stencil_route and cluster_split give the route and split that
+    csrc/stencil_common.cuh gives, over every plane of up to 70 rows and 70
+    columns, rows of up to 600 and columns of up to 4200, each k and dtype."""
+    planes = [(h, w) for h in range(1, 71) for w in range(1, 71)]
+    planes += [(1, w) for w in range(500, 601)] + [(h, 1) for h in range(4000, 4201, 7)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 3, 5, 7, 9):
+            for h, w in planes:
+                route, split = D.native_route(h, w, k, dtype)
+                assert (route, split) == (D.stencil_route(h, w, k, dtype), D.cluster_split(h, w)), (h, w, k, dtype)
 
 
 @pytest.mark.cuda
@@ -295,7 +431,25 @@ def test_cuda_function_gradients_match_autograd_of_plain(cuda):
     before = _plane_launches()
     D.diffusion_planes(xa, wa, 7, 4).backward(g)
     torch.cuda.synchronize()
-    assert _plane_launches() == tuple(b + a for b, a in zip(before, (1, 1, 0, 0)))
+    assert _plane_launches() == tuple(b + a for b, a in zip(before, (1, 1, 0, 0, 0, 0)))
+    D.diffusion_planes_plain(xb, wb, 7, 4).backward(g)
+    torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
+    torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,launches", [((64, 64), (0, 0, 1, 1, 0, 0)), ((96, 96), (0, 0, 0, 0, 4, 4))])
+def test_cuda_function_gradients_above_the_fused_limit(cuda, hw, launches):
+    """The paper's grid-64 planes go through both cluster kernels, one
+    launch each for all 4 steps; 96 x 96 through the per-step ones."""
+    x, w = _planes(9, 48, *hw, 7, cuda)
+    g = torch.rand(48, *hw, generator=torch.Generator().manual_seed(9)).to(cuda)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = _plane_launches()
+    D.diffusion_planes(xa, wa, 7, 4).backward(g)
+    torch.cuda.synchronize()
+    assert _plane_launches() == tuple(b + a for b, a in zip(before, launches))
     D.diffusion_planes_plain(xb, wb, 7, 4).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
