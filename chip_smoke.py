@@ -35,11 +35,13 @@ Phases (any failure exits non-zero):
      way, read from their counters);
   8. train full-width ``cod`` through ``dgtd_tpu_torch.train.cli.main`` with
      ``configs/cod.yml`` (384², batch 10, bf16 autocast) on 30 synthetic
-     images for 2 epochs (6 steps): finite losses, the launch counts (one
-     fused forward and one fused backward a step), two epoch checkpoints,
-     the second served through ``predict.main``; one fp32 first step held to
-     the bf16 one; the backward kernel re-checked on the stencil inputs and
-     upstream gradient captured in a train step;
+     images for 2 epochs (6 steps), validating after epoch 2 on 8 synthetic
+     images at batch 1: finite losses, one val record with finite E, F, S
+     and MAE, the launch counts (one fused forward and one fused backward a
+     step; 8 fused forwards and no backward around the val pass alone), two
+     epoch checkpoints, the second served through ``predict.main``; one fp32
+     first step held to the bf16 one; the backward kernel re-checked on the
+     stencil inputs and upstream gradient captured in a train step;
   9. time train steps back to back (bf16 and fp32), the CLI loop, peak
      memory, and the fused backward kernel (CUDA events and device time)
      against its bound, the per-step kernels and its plain version;
@@ -78,15 +80,25 @@ Phases (any failure exits non-zero):
      the cluster forward re-checked on the served stencil inputs; fp32 on the
      card held to the CPU on a small input; served ms per batch and train ms
      per step at grid 64 and grid 12 in turns;
- 16. the device time per call of every stencil kernel timed in phases 5, 9
+ 16. the val pass: full-width ``cod -m val`` through
+     ``dgtd_tpu_torch.test.main`` (``configs/cod.yml``, bf16, ``val_ckpt`` =
+     phase 8's ``epoch_2.pth``) on a SOD_TEST PNG tree of 16 images of mixed
+     sizes at 384², batch 1: the device-stats route against
+     ``device_metrics=false`` (every metric within rtol 1e-4 / atol 1e-6),
+     ``batch_statistics`` on the card against the host algorithms on a
+     captured batch (histograms and counts equal), ``save_visualizations``
+     on 4 images (five PNGs each, named from the files), one fused forward a
+     val batch and nothing else from the stencil, and one 704² image through
+     COD_TEST;
+ 17. the device time per call of every stencil kernel timed in phases 5, 9
      and 14, from ``torch.profiler`` (last, so that its tracing cannot slow
      the host-bound timings).
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
 cluster and the per-step kernels), a served-throughput line, a ``trained``,
-a ``grid64`` and an ``msda`` JSON line, each with the card's name and power
-limit; the last line is
+a ``grid64``, a ``val`` and an ``msda`` JSON line, each with the card's name
+and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -95,6 +107,7 @@ non-zero before printing any result.
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -137,6 +150,15 @@ TINY = dict(variant="tiny", convnext_dims=(8, 16, 32, 64), convnext_depths=(1, 1
 # full-width training run: 30 images, the recipe's batch 10, 2 epochs
 TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 30, 10, 2
 TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
+TRAIN_VAL_N = 8  # val after epoch 2: 8 synthetic images at batch 1
+VAL_METRICS = ("Emeasure", "Fmeasure", "Smeasure", "MAE")
+# the val phase: a SOD_TEST tree of 16 images, sizes cycling through these
+VAL_N = 16
+VAL_SIZES = [(384, 384), (480, 640), (300, 420), (512, 512), (720, 540), (333, 500)]
+# device-stats route vs host route (tests/test_metrics.py:221); the card's
+# S-measure vs the host's float64 (tests/test_metrics.py:194)
+VAL_ROUTE_TOL = dict(rtol=1e-4, atol=1e-6)
+VAL_SM_TOL = dict(rtol=1e-4, atol=1e-5)
 # bf16 autocast vs fp32 first-step loss (same weights, batch, drop-path
 # masks): the served bf16 mean probability moved 5e-5 from fp32, the loss
 # sums ~6 such terms; 1e-2 relative leaves room for the logits' bf16 error
@@ -469,15 +491,202 @@ def write_inputs(root, n=N_IMAGES):
         Image.fromarray(dep).save(os.path.join(root, "dep", f"scene{i:02d}_depth.png"))
 
 
+def write_sod_tree(root, sizes, image_subdir, seed):
+    """A folder dataset on disk: ``image_subdir``/, GT/ and Depth/ PNGs of
+    the given (height, width) sizes, named scene00.png, ...; each a smooth
+    random scene with a disc object (the GT) that the depth map lifts."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    for sub in (image_subdir, "GT", "Depth"):
+        os.makedirs(os.path.join(root, sub))
+    for i, (h, w) in enumerate(sizes):
+        yy, xx = np.mgrid[0:h, 0:w]
+        cy, cx, r = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w, rng.uniform(0.12, 0.3) * min(h, w)
+        mask = ((yy - cy) ** 2 + (xx - cx) ** 2) < r * r
+        coarse = (rng.rand(6, 6, 3) * 255).astype(np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.float32)
+        img = np.clip(img * 0.7 + 60 * mask[..., None] + rng.randn(h, w, 3) * 10, 0, 255).astype(np.uint8)
+        dep = np.clip(70 + 120 * mask + rng.randn(h, w) * 8, 0, 255).astype(np.uint8)
+        name = f"scene{i:02d}.png"
+        Image.fromarray(img).save(os.path.join(root, image_subdir, name))
+        Image.fromarray((mask * 255).astype(np.uint8)).save(os.path.join(root, "GT", name))
+        Image.fromarray(dep).save(os.path.join(root, "Depth", name))
+
+
+def val_phase(D, val_ckpt, card):
+    """Phase 16: full-width ``cod`` through ``dgtd_tpu_torch.test.main``
+    (``configs/cod.yml -m val``, bf16, ``our_init.val_ckpt`` = phase 8's
+    epoch_2.pth) on a SOD_TEST tree of VAL_N PNGs of mixed sizes at 384²,
+    batch 1: (a) the device-stats route, (b) ``device_metrics=false`` on the
+    same checkpoint, every metric of (a) within VAL_ROUTE_TOL of (b); (c)
+    ``batch_statistics`` on a batch captured in (a) against the host
+    ``prepare`` and ``threshold_histograms``: histograms and counts equal,
+    ``sm`` within VAL_SM_TOL; (d) ``save_visualizations`` on 4 images: five
+    PNGs an image named from its file; (e) one fused stencil forward a val
+    batch and nothing else from the stencil, read from the counters around
+    each run; (f) one 704² batch through COD_TEST on the device-stats
+    route; then where a device-route image's time goes: the loader alone,
+    the forward alone, the statistics alone and the host metrics alone.
+    Returns the ``val`` line's fields."""
+    import torch
+
+    from dgtd_tpu_torch import test as T
+    from dgtd_tpu_torch.core.registry import METRICS
+    from dgtd_tpu_torch.metrics import sod_metrics as S
+    from dgtd_tpu_torch.metrics.device import batch_statistics, statistics_to_host
+    from dgtd_tpu_torch.train import loop as TL
+
+    say(f"phase 16: the val pass: full-width cod -m val through dgtd_tpu_torch.test.main (configs/cod.yml, bf16, "
+        f"val_ckpt = phase 8's epoch_2.pth) on a SOD_TEST tree of {VAL_N} PNGs of mixed sizes at {SIZE}², batch 1")
+    t_phase = time.perf_counter()
+    recipe = os.path.join(ROOT, "configs", "cod.yml")
+    stats_unspied, val_unspied, grabbed = TL.batch_statistics, TL.Runner.val, {}
+
+    def spy_stats(prob, label):
+        grabbed.setdefault("batch", (prob.clone(), label.clone()))
+        return stats_unspied(prob, label)
+
+    def spy_val(self, *args, **kwargs):
+        grabbed["runner"] = self
+        return val_unspied(self, *args, **kwargs)
+
+    def run_val(tmp, tag, dataset, extra=()):
+        ovs = [f"work_dir={os.path.join(tmp, tag)}", f"val_dataloader.dataset={dataset}", "val_dataloader.batch_size=1",
+               f"custom_hooks.0.val_ckpt={val_ckpt}", *extra]
+        reset_plane_launches(D)
+        out = T.main([recipe] + [a for o in ovs for a in ("-o", o)])
+        torch.cuda.synchronize()
+        return out, plane_launches(D)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as tmp:
+        tree = os.path.join(tmp, "sod")
+        write_sod_tree(tree, [VAL_SIZES[i % len(VAL_SIZES)] for i in range(VAL_N)], "RGB", seed=7)
+        sod = f"{{'type': 'SOD_TEST', 'data_dir': '{tree}', 'depth_dir': 'Depth', 'split': 'val'}}"
+        TL.batch_statistics, TL.Runner.val = spy_stats, spy_val
+        try:
+            dev, dev_launches = run_val(tmp, "a", sod)
+        finally:
+            TL.batch_statistics, TL.Runner.val = stats_unspied, val_unspied
+        host, host_launches = run_val(tmp, "b", sod, ["device_metrics=false"])
+        for name, launches in (("device stats", dev_launches), ("host", host_launches)):
+            check(launches == launch_tuple("fused", VAL_N),
+                  f"val {name} route: launches ({LAUNCH_NAMES}) {launches}, expected one fused forward a batch")
+        worst = (0.0, "")
+        for k in dev:
+            if k.startswith("COD/"):
+                check(bool(np.isfinite(dev[k])), f"{k} = {dev[k]}")
+                np.testing.assert_allclose(dev[k], host[k], **VAL_ROUTE_TOL, err_msg=f"val {k}: device vs host")
+                worst = max(worst, (abs(dev[k] - host[k]), k))
+        say("  (a) device stats: " + ", ".join(f"{m} {dev[f'COD/{m}']:.6f}" for m in VAL_METRICS)
+            + f"; {dev['val_imgs_per_sec']:.3f} images/s [{card}]")
+        say("  (b) host: " + ", ".join(f"{m} {host[f'COD/{m}']:.6f}" for m in VAL_METRICS)
+            + f"; {host['val_imgs_per_sec']:.3f} images/s [{card}]")
+        say(f"  (a) vs (b): largest |diff| {worst[0]:.3e} ({worst[1]}), within rtol {VAL_ROUTE_TOL['rtol']} / atol "
+            f"{VAL_ROUTE_TOL['atol']}; (e) launches ({LAUNCH_NAMES}) {dev_launches} and {host_launches} in "
+            f"{VAL_N} batches each")
+
+        # (c) the card's statistics against the host algorithms, one batch
+        prob, label = grabbed["batch"]
+        check(prob.is_cuda and tuple(prob.shape) == (1, SIZE, SIZE, 1), (prob.device, prob.shape))
+        stats = statistics_to_host(batch_statistics(prob, label))
+        prob_np, label_np = prob.cpu().numpy()[..., 0], label.cpu().numpy()[..., 0]
+        sm_err = 0.0
+        for i in range(prob_np.shape[0]):
+            pred, gt = S.prepare((prob_np[i] * 255).astype(np.uint8), (label_np[i] * 255).astype(np.uint8))
+            fg, bg = S.threshold_histograms(pred, gt)
+            check(np.array_equal(stats["fg_hist"][i], fg) and np.array_equal(stats["bg_hist"][i], bg),
+                  "card histograms differ from the host's")
+            check(stats["gt_count"][i] == np.count_nonzero(gt) and stats["n_pixels"][i] == gt.size, "card counts")
+            np.testing.assert_allclose(stats["sm"][i], S.smeasure(pred, gt), **VAL_SM_TOL, err_msg="card sm vs host")
+            sm_err = max(sm_err, abs(float(stats["sm"][i]) - S.smeasure(pred, gt)))
+        say(f"  (c) batch_statistics on the card vs the host algorithms on a captured batch: histograms and counts "
+            f"equal, |sm diff| {sm_err:.3e}")
+
+        # where a device-route image's time goes, each part alone (ms an image)
+        runner = grabbed.pop("runner")
+        t0 = time.perf_counter()
+        batches = list(runner.val_loader)
+        torch.cuda.synchronize()
+        parts = {"loader": (time.perf_counter() - t0) * 1e3 / len(batches)}
+        first = batches[0]
+        parts["forward"] = cuda_time_ms(lambda: runner._predict(first["input"], first["depth"]), 20, warmup=3)
+        parts["statistics_and_copy"] = cuda_time_ms(lambda: statistics_to_host(batch_statistics(prob, label)), 20,
+                                                    warmup=3)
+        evaluators = [METRICS.build({"type": m}) for m in VAL_METRICS]
+        t0 = time.perf_counter()
+        for _ in range(5):
+            prob_host, label_host = prob.cpu().numpy(), label.cpu().numpy()
+            for m in evaluators:
+                m.process(prob_host, label_host)
+        parts["host_copy_and_metrics"] = (time.perf_counter() - t0) * 1e3 / 5
+        parts["device_route_total"] = 1e3 / dev["val_imgs_per_sec"]
+        parts["host_route_total"] = 1e3 / host["val_imgs_per_sec"]
+        say("  where a val image's time goes, each part alone (ms an image): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" [{card}]")
+        del runner, batches, first
+
+        # (d) visualizations on 4 images, named from their files
+        vis_tree = os.path.join(tmp, "sod4")
+        write_sod_tree(vis_tree, [VAL_SIZES[i % len(VAL_SIZES)] for i in range(4)], "RGB", seed=8)
+        sod4 = f"{{'type': 'SOD_TEST', 'data_dir': '{vis_tree}', 'depth_dir': 'Depth', 'split': 'val'}}"
+        _, vis_launches = run_val(tmp, "d", sod4, ["save_visualizations=true"])
+        check(vis_launches == launch_tuple("fused", 4), f"visualization run: launches {vis_launches}")
+        vis_dir = os.path.join(tmp, "d", "visualizations")
+        kinds = ("input", "label", "output", "depth", "diffusion")
+        want = sorted(f"scene{i:02d}_{k}.png" for i in range(4) for k in kinds)
+        check(sorted(os.listdir(vis_dir)) == want, sorted(os.listdir(vis_dir)))
+        from PIL import Image
+
+        with Image.open(os.path.join(vis_dir, "scene03_output.png")) as im:
+            check(im.size == (SIZE, SIZE) and im.mode == "L", (im.size, im.mode))
+        say(f"  (d) save_visualizations: {len(want)} PNGs for 4 images, named from the files")
+
+        # (f) one 704² batch through COD_TEST
+        cod_tree = os.path.join(tmp, "camo")
+        write_sod_tree(cod_tree, [(480, 640)], "Image", seed=9)
+        camo = f"{{'type': 'COD_TEST', 'data_dir': '{cod_tree}', 'depth_dir': 'Depth', 'split': 'val'}}"
+        big, big_launches = run_val(tmp, "f", camo)
+        check(big_launches == launch_tuple("fused", 1), f"COD_TEST 704²: launches {big_launches}")
+        check(all(np.isfinite(big[f"COD/{m}"]) for m in VAL_METRICS), big)
+        say("  (f) COD_TEST, one 704² image: " + ", ".join(f"{m} {big[f'COD/{m}']:.6f}" for m in VAL_METRICS)
+            + f"; launches ({LAUNCH_NAMES}) {big_launches}")
+    return {
+        "model": "cod, full width, phase 8's epoch_2.pth (seeded init, 6 steps)",
+        "recipe": "configs/cod.yml -m val through dgtd_tpu_torch.test.main, bf16",
+        "dataset": f"SOD_TEST tree of {VAL_N} PNGs of mixed sizes, resized to {SIZE}²",
+        "images": VAL_N, "batch": 1,
+        "val_imgs_per_sec": {"device_stats": dev["val_imgs_per_sec"], "host": host["val_imgs_per_sec"]},
+        "metrics": {"device_stats": {k: v for k, v in dev.items() if k.startswith("COD/")},
+                    "host": {k: v for k, v in host.items() if k.startswith("COD/")}},
+        "route_max_abs_diff": worst[0],
+        "launches": {"device_stats": dev_launches, "host": host_launches, "visualizations": vis_launches,
+                     "cod_test_704": big_launches},
+        "card_vs_host_sm_max_abs_diff": sm_err,
+        "cod_test_704": {k: v for k, v in big.items() if k.startswith("COD/") or k == "val_imgs_per_sec"},
+        "ms_per_image": parts,
+        "phase_s": time.perf_counter() - t_phase,
+        "_fwd_launches": dev_launches[0], "_batches": VAL_N,
+    }
+
+
 def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    # files that outlive a phase (the trained checkpoint the val phase restores)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keep_") as keep:
+        return run(keep)
+
+
+def run(keep):
     import copy
 
     import torch
     import torch.nn.functional as F
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
-        return 1
     sys.path.insert(0, ROOT)
     from PIL import Image
 
@@ -704,7 +913,7 @@ def main():
         del m_cpu, m_dev
 
     # ---- 8. full-width training through the train CLI ----
-    say(f"phase 8: train full-width cod through dgtd_tpu_torch.train.cli.main: configs/cod.yml, "
+    say(f"phase 8: train full-width cod with validation through dgtd_tpu_torch.train.cli.main: configs/cod.yml, "
         f"{TRAIN_N} images at {SIZE}², batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs, bf16")
     from dgtd_tpu_torch.core.config import load_config
     from dgtd_tpu_torch.train import cli as TC
@@ -725,16 +934,30 @@ def main():
             out.register_hook(lambda gr: grab.setdefault("g", gr.detach().clone()))
         return out
 
+    val_unspied, val_launches, val_seconds = Runner.val, [], []
+
+    def spy_val(self, *args, **kwargs):
+        # the stencil's launches and the seconds of the val pass alone
+        before, t0 = plane_launches(D), time.perf_counter()
+        out = val_unspied(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        val_seconds.append(time.perf_counter() - t0)
+        val_launches.append(tuple(a - b for a, b in zip(plane_launches(D), before)))
+        return out
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         work = os.path.join(tmp, "run")
         overrides = [
-            f"work_dir={work}", f"train_cfg.max_epochs={TRAIN_EPOCHS}", "train_cfg.val_interval=0",
+            f"work_dir={work}", f"train_cfg.max_epochs={TRAIN_EPOCHS}", f"train_cfg.val_interval={TRAIN_EPOCHS}",
             f"train_dataloader.batch_size={TRAIN_BATCH}",
             f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {TRAIN_N}, 'size': {SIZE}}}",
+            f"val_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {TRAIN_VAL_N}, 'size': {SIZE}, 'seed': 1}}",
+            "val_dataloader.batch_size=1",
             "default_hooks.logger.interval=1", "default_hooks.checkpoint.interval=1",
         ]
         argv = [recipe] + [a for o in overrides for a in ("-o", o)]
         MD.diffusion_planes = spy_planes
+        Runner.val = spy_val
         try:
             torch.cuda.reset_peak_memory_stats()
             reset_plane_launches(D)
@@ -743,20 +966,38 @@ def main():
             cli_peak = torch.cuda.max_memory_allocated()
         finally:
             MD.diffusion_planes = planes_unspied
-        fwd_launches, bwd_launches = train_launches[:2]
-        say(f"  {trained['steps']} steps in {trained['loop_s']:.3f} s; stencil launches ({LAUNCH_NAMES}) "
-            f"{train_launches}; peak memory {cli_peak / 2**30:.3f} GiB")
+            Runner.val = val_unspied
+        check(len(val_launches) == 1, f"{len(val_launches)} val passes in {TRAIN_EPOCHS} epochs (val_interval {TRAIN_EPOCHS})")
+        train_val_launches = val_launches[0]
+        fwd_launches = train_launches[0] - train_val_launches[0]
+        bwd_launches = train_launches[1]
+        say(f"  {trained['steps']} steps and one val pass in {trained['loop_s']:.3f} s (the val pass "
+            f"{val_seconds[0]:.3f} s); stencil launches "
+            f"({LAUNCH_NAMES}) {train_launches}, of which the val pass {train_val_launches}; peak memory "
+            f"{cli_peak / 2**30:.3f} GiB")
         check(trained["steps"] == TRAIN_STEPS, trained)
-        check(train_launches == launch_tuple("fused", TRAIN_STEPS, TRAIN_STEPS),
-              f"launches {train_launches}: one fused forward and one fused backward a step in {TRAIN_STEPS} steps")
+        check(train_val_launches == launch_tuple("fused", TRAIN_VAL_N),
+              f"val launches {train_val_launches}: one fused forward a val batch of 1, {TRAIN_VAL_N} batches, no backward")
+        check(train_launches == launch_tuple("fused", TRAIN_STEPS + TRAIN_VAL_N, TRAIN_STEPS),
+              f"launches {train_launches}: one fused forward and one fused backward a step in {TRAIN_STEPS} steps, "
+              f"and {TRAIN_VAL_N} val forwards")
         with open(os.path.join(work, "log.jsonl")) as f:
             records = [json.loads(line) for line in f]
         losses = [r for r in records if "loss" in r]
         check(len(losses) == TRAIN_STEPS, f"{len(losses)} loss records")
         check(all(np.isfinite([r["loss"], r["loss_seg"], r["loss_ssim"]]).all() for r in losses), losses)
         say("  losses: " + ", ".join(f"{r['loss']:.5f}" for r in losses))
+        val_records = [r for r in records if "COD/Smeasure" in r]
+        check(len(val_records) == 1 and val_records[0]["epoch"] == TRAIN_EPOCHS, f"val records {val_records}")
+        train_val = val_records[0]
+        check(all(np.isfinite(train_val[f"COD/{m}{s}"]) for m in VAL_METRICS for s in ("", "_strict")), train_val)
+        say("  val after epoch {}: {}".format(TRAIN_EPOCHS, ", ".join(f"{m} {train_val[f'COD/{m}']:.5f}" for m in VAL_METRICS))
+            + f", {train_val['val_imgs_per_sec']} images/s [{card}]")
         ckpts = [os.path.join(work, f"epoch_{e}.pth") for e in range(1, TRAIN_EPOCHS + 1)]
         check(all(os.path.exists(c) for c in ckpts), ckpts)
+        # the val phase (16) restores this checkpoint
+        val_ckpt = os.path.join(keep, "epoch_2.pth")
+        shutil.copyfile(ckpts[-1], val_ckpt)
         loaded, missed, unused = P.load_checkpoint(cod(seed=None), ckpts[-1])
         check(not missed and not unused, f"epoch-{TRAIN_EPOCHS} checkpoint: missed {missed[:3]} unused {unused[:3]}")
 
@@ -1285,10 +1526,14 @@ def main():
     say(f"  train bf16 ms per step (batch {TRAIN_BATCH}, {SIZE}², in turns): grid 12 {step_turns[12]}, grid {grid} "
         f"{step_turns[grid]} [{card}]")
 
-    # ---- 16. device time per call ----
+    # ---- 16. the val pass ----
+    val_row = val_phase(D, val_ckpt, card)
+    val_fwd_launches, val_batches = val_row.pop("_fwd_launches"), val_row.pop("_batches")
+
+    # ---- 17. device time per call ----
     # from the profiler, read last, so that its tracing cannot touch the
     # per-call and end-to-end timings above, which are host-bound
-    say("phase 16: device time per call (torch.profiler key_averages):")
+    say("phase 17: device time per call (torch.profiler key_averages):")
     for label, row, key, fn, match, iters in device_calls:
         row[key] = device_ms(fn, iters, match)
         say(f"    {label}: {row[key] if row[key] is not None else 'no device time recorded'} ms [{card}]")
@@ -1321,6 +1566,9 @@ def main():
         "launches_per_batch": launches["bf16"][0] / n_batches,
         "launches_train": fwd_launches,
         "launches_per_step": fwd_launches / TRAIN_STEPS,
+        "launches_val_in_training": train_val_launches[0],
+        "launches_val": val_fwd_launches,
+        "launches_per_val_batch": val_fwd_launches / val_batches,
         "fp32": rows["fp32"],
         "card": card,
     }, {
@@ -1452,7 +1700,8 @@ def main():
         "images_per_s": {k: TRAIN_BATCH * 1e3 / v for k, v in step_ms.items()},
         "peak_memory_bytes": peak,
         "cli_steps": trained["steps"],
-        "cli_s_per_step": trained["loop_s"] / trained["steps"],
+        "cli_s_per_step": (trained["loop_s"] - val_seconds[0]) / trained["steps"],
+        "cli_val_s": val_seconds[0],
         "cli_peak_memory_bytes": cli_peak,
         "first_step_loss": {"bf16": loss16, "fp32": loss32},
         "card": card,
@@ -1469,6 +1718,9 @@ def main():
         "train_ms_per_step": {"grid12": step_turns[12], f"grid{grid}": step_turns[grid]},
         "card": card,
     }}))
+    say(json.dumps({"val": {**val_row, "trained_val": {
+        "images": TRAIN_VAL_N, "batch": 1, "launches": train_val_launches,
+        **{k: train_val[k] for k in train_val if k.startswith("COD/") or k == "val_imgs_per_sec"}}, "card": card}}))
     say(json.dumps({"msda": {
         "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
                  f"n_points={ENC_POINTS}), seeded weights",

@@ -36,3 +36,5 @@ class Registry:
 MODELS = Registry("models")
 DATASETS = Registry("datasets")
 HOOKS = Registry("hooks")
+METRICS = Registry("metrics")
+VIS_BACKENDS = Registry("vis_backends")

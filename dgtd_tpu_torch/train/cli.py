@@ -1,11 +1,13 @@
-"""Train from a recipe (counterpart of the root ``train.py``):
+"""Train or validate from a recipe (counterpart of the root ``train.py``):
 
     python -m dgtd_tpu_torch.train configs/cod.yml -o work_dir=./output/run \\
-        [-o key=value ...] [--fp32] [--resume work_dir/epoch_N.pth] [--device cpu]
+        [-o key=value ...] [-m val] [--fp32] [--resume work_dir/epoch_N.pth] [--device cpu]
 
-bf16 autocast with fp32 parameters unless ``--fp32``. Runs on CUDA unless
-``--device`` names another device; a missing card raises. ``-m val`` raises:
-the val pass comes with a later slice.
+bf16 autocast with fp32 parameters unless ``--fp32``. ``-m val`` runs the
+val pass alone (``-o save_visualizations=true`` dumps PNGs; the recipe's
+``our_init.val_ckpt`` names the weights), as ``python -m dgtd_tpu_torch.test``
+does. Runs on CUDA unless ``--device`` names another device; a missing card
+raises.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ..core.config import get_dotted, load_config
 from ..core.device import resolve_device
-from .loop import VAL_SLICE, Runner
+from .loop import Runner
 
 
 def parse_args(argv=None):
@@ -31,16 +33,17 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Run the CLI; returns the Runner's summary plus ``work_dir``."""
+    """Run the CLI. Train mode returns the Runner's summary plus
+    ``work_dir``; val mode returns the metrics."""
     args = parse_args(argv)
-    if args.mode == "val":
-        raise NotImplementedError(f"-m val: {VAL_SLICE}")
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.override)
     work_dir = get_dotted(cfg, "work_dir", "./output/run")
     runner = Runner(cfg, work_dir=work_dir, seed=int(get_dotted(cfg, "seed", 0)), device=device,
-                    dtype=torch.float32 if args.fp32 else torch.bfloat16)
+                    dtype=torch.float32 if args.fp32 else torch.bfloat16, mode=args.mode)
     if args.resume:
         runner.resume(args.resume)
+    if args.mode == "val":
+        return runner.val(save_visualizations=bool(get_dotted(cfg, "save_visualizations", False)))
     summary = runner.train()
     return {**summary, "work_dir": work_dir}

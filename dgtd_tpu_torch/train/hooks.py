@@ -1,5 +1,6 @@
-"""Runner hooks: logging, checkpointing, pretrained-weight init (counterpart
-of ``dgtd_tpu/train/hooks.py``). ``ProfilerHook`` waits for a later slice.
+"""Runner hooks: logging, checkpointing, pretrained-weight init and the val
+checkpoint (counterpart of ``dgtd_tpu/train/hooks.py``). ``ProfilerHook``
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ class Hook:
 
     def after_train(self, runner):
         """Fired once when training ends, also when it ends in an exception."""
+        pass
+
+    def before_val(self, runner):
+        """Fired before a val pass that is not part of training (``-m val``)."""
         pass
 
 
@@ -124,12 +129,13 @@ def _pretrain_state(path: str, port_prefix: str, jax_subtree: str) -> Dict[str, 
 @HOOKS.register
 class our_init(Hook):
     """The ``cod`` init hook: before training, load a pretrained PVTv2 into
-    ``hitnet.backbone`` and a ConvNeXt into the prompt encoder's tower.
+    ``hitnet.backbone`` and a ConvNeXt into the prompt encoder's tower;
+    before a val pass, restore ``val_ckpt`` (``Runner.restore_checkpoint``).
 
     With no paths it does nothing (the recipe names none). A named file that
-    is missing, or that matches no parameter, raises. After a resume it
-    loads nothing: the checkpoint already holds the fine-tuned weights.
-    ``val_ckpt`` belongs to the val pass, which waits for a later slice."""
+    is missing, or that matches no parameter, raises: a val pass on a missing
+    ``val_ckpt`` would score random weights. After a resume it loads no
+    pretrain: the checkpoint already holds the fine-tuned weights."""
 
     priority = 40
     towers = (("backbone_ckpt", "hitnet.backbone", "hitnet/backbone"),
@@ -149,6 +155,13 @@ class our_init(Hook):
             path = getattr(self, attr)
             if path:
                 self._load(runner, path, port_prefix, jax_subtree)
+
+    def before_val(self, runner):
+        if not self.val_ckpt:
+            return
+        if not os.path.exists(self.val_ckpt):
+            raise FileNotFoundError(f"our_init: val_ckpt {self.val_ckpt} does not exist")
+        runner.restore_checkpoint(self.val_ckpt)
 
     def _load(self, runner, path, port_prefix, jax_subtree):
         if not os.path.exists(path):

@@ -1,12 +1,15 @@
-"""Runner: the recipe-driven train loop (counterpart of
+"""Runner: the recipe-driven train and val loops (counterpart of
 ``dgtd_tpu/train/loop.py``).
 
-Builds the model, the train loader, the optimizer and the hooks from a
-reference-schema recipe, runs the epoch loop with per-step lr, interval
-logging to ``work_dir/log.jsonl`` and epoch checkpoints, and resumes exactly,
-also from the middle of an epoch. The val pass (and with it ``-m val``)
-waits for the val slice: a recipe that would validate during training is
-refused before the first step.
+Builds the model, the loaders, the optimizer, the hooks, the evaluators and
+the visualization backends from a reference-schema recipe. ``train()`` runs
+the epoch loop with per-step lr, interval logging to ``work_dir/log.jsonl``,
+epoch checkpoints and validation every ``train_cfg.val_interval`` epochs, and
+resumes exactly, also from the middle of an epoch. ``val()`` runs the val
+pass: one forward a batch, the E/F/S/MAE statistics computed on the model's
+device (``metrics/device.py``) and the full maps only for host-only metrics
+or visualizations. One process: the gather of val metrics across ranks waits
+for data parallelism (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -16,45 +19,75 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-from ..core.registry import DATASETS, HOOKS, MODELS
+from ..core.registry import DATASETS, HOOKS, METRICS, MODELS
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
+from ..data.device_norm import IMAGENET_MEAN, IMAGENET_STD, normalize_image, scale_plane
 from ..data.loader import DataLoader
+from ..metrics import evaluators as _evaluators  # noqa: F401  (registers the metrics)
+from ..metrics.device import batch_statistics, statistics_to_host
 from ..models import cod as _cod  # noqa: F401  (registers the models)
+from ..predict import load_checkpoint
+from ..utils.visualizer import build_visualizer
 from . import hooks as _hooks  # noqa: F401  (registers the hooks)
 from .optim import Optimizer
 from .state import train_step
 
-VAL_SLICE = "the val pass (val loop, E/F/S/MAE metrics, test.py) comes with a later slice of the port"
+#: keys a checkpoint may lack or carry beyond the model's: the reference's
+#: modules that its forward never calls, and BatchNorm's step counters
+DEAD_PREFIXES = ("hitnet.ca.", "hitnet.sa.", "hitnet.backbone.prompt_encoder.adaptor.")
+DEAD_SUFFIXES = ("num_batches_tracked",)
+
+
+def _is_dead(key: str) -> bool:
+    return key.startswith(DEAD_PREFIXES) or key.endswith(DEAD_SUFFIXES)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _host_plane(x) -> np.ndarray:
+    """A label or depth batch on the host as float32 in [0, 1]."""
+    a = _host(x)
+    return a.astype(np.float32) / 255.0 if a.dtype == np.uint8 else a
 
 
 class Runner:
     def __init__(self, cfg: dict, work_dir: str = "./output/run", seed: int = 0,
-                 device: Optional[torch.device] = None, dtype: torch.dtype = torch.bfloat16):
+                 device: Optional[torch.device] = None, dtype: torch.dtype = torch.bfloat16,
+                 mode: str = "train"):
+        if mode not in ("train", "val"):
+            raise ValueError(f"mode must be 'train' or 'val', got {mode!r}")
         self.cfg = cfg
         self.work_dir = work_dir
         self.seed = seed
         self.device = torch.device("cuda") if device is None else torch.device(device)
         tc = cfg.get("train_cfg", {}) or {}
         self.max_epochs = int(tc.get("max_epochs", 1))
-        val_interval = int(tc.get("val_interval", self.max_epochs))
-        has_val = bool((cfg.get("val_dataloader") or {}).get("dataset"))
-        if has_val and 0 < val_interval <= self.max_epochs:
-            raise NotImplementedError(
-                f"train_cfg.val_interval={val_interval} validates within max_epochs={self.max_epochs}, "
-                f"but {VAL_SLICE}; set -o train_cfg.val_interval=0 to train without validation"
-            )
+        self.val_interval = int(tc.get("val_interval", self.max_epochs))
         loader_cfg = cfg.get("train_dataloader") or {}
-        if "dataset" not in loader_cfg:
-            raise ValueError("the recipe has no train_dataloader.dataset")
         self.batch_size = int(loader_cfg.get("batch_size", 1))
-        sampler = loader_cfg.get("sampler", {}) or {}
-        self.train_loader = DataLoader(
-            DATASETS.build(loader_cfg["dataset"]), self.batch_size,
-            shuffle=bool(sampler.get("shuffle", True)), seed=seed, drop_last=True, device=self.device,
-        )
-        self.steps_per_epoch = max(len(self.train_loader), 1)
+        # a val-only run needs no train data
+        self.train_loader = None
+        if mode == "train":
+            if "dataset" not in loader_cfg:
+                raise ValueError("the recipe has no train_dataloader.dataset")
+            sampler = loader_cfg.get("sampler", {}) or {}
+            self.train_loader = DataLoader(
+                DATASETS.build(loader_cfg["dataset"]), self.batch_size,
+                shuffle=bool(sampler.get("shuffle", True)), seed=seed, drop_last=True, device=self.device,
+            )
+        # built now when training will validate, so that a missing val folder
+        # fails before the first step; a recipe with no val data trains
+        # without; otherwise built by the first val()
+        has_val = "dataset" in (cfg.get("val_dataloader") or {})
+        self.val_loader = None
+        if mode == "val" or (has_val and 0 < self.val_interval <= self.max_epochs):
+            self.val_loader = self._build_val_loader()
+        self.steps_per_epoch = max(len(self.train_loader), 1) if self.train_loader else 1
 
         self.model = MODELS.build(dict(cfg["model"]), dtype=dtype, seed=seed).to(self.device)
         self.optimizer = Optimizer(self.model.named_parameters(), cfg.get("optim_wrapper", {}) or {},
@@ -62,6 +95,7 @@ class Runner:
         self.hooks = [HOOKS.build(h) for h in (cfg.get("default_hooks") or {}).values()]
         self.hooks += [HOOKS.build(h) for h in cfg.get("custom_hooks") or []]
         self.hooks.sort(key=lambda h: h.priority)
+        self.metrics = [METRICS.build(m) for m in cfg.get("val_evaluator") or []]
 
         self.epoch = 0
         #: train steps taken, the step count of the lr schedule and of the
@@ -71,12 +105,29 @@ class Runner:
         self._resume_skip = 0
         os.makedirs(work_dir, exist_ok=True)
         self._log_path = os.path.join(work_dir, "log.jsonl")
+        self.vis_backends = build_visualizer(cfg.get("visualizer"), work_dir)
+
+    def _build_val_loader(self) -> DataLoader:
+        loader_cfg = self.cfg.get("val_dataloader") or {}
+        if "dataset" not in loader_cfg:
+            raise ValueError("the recipe has no val_dataloader.dataset")
+        sampler = loader_cfg.get("sampler", {}) or {}
+        # in order, every image: the parity reduction depends on the order,
+        # and a ragged last batch is evaluated
+        return DataLoader(
+            DATASETS.build(loader_cfg["dataset"]), int(loader_cfg.get("batch_size", 1)),
+            shuffle=bool(sampler.get("shuffle", False)), seed=self.seed, drop_last=False, device=self.device,
+        )
 
     def log(self, record: Dict[str, Any]) -> None:
         line = json.dumps(record)
         print(line, flush=True)
         with open(self._log_path, "a") as f:
             f.write(line + "\n")
+        if self.vis_backends and "step" in record:
+            scalars = {k: v for k, v in record.items() if isinstance(v, (int, float))}
+            for b in self.vis_backends:
+                b.add_scalars(scalars, int(record["step"]))
 
     def save_checkpoint(self, name: str) -> str:
         """``work_dir/<name>.pth`` in MMEngine's layout: ``state_dict`` (the
@@ -90,6 +141,24 @@ class Runner:
         self.log({"checkpoint": path})
         return path
 
+    def restore_checkpoint(self, path: str) -> None:
+        """Load model weights and BatchNorm statistics (not the optimizer):
+        a ``.pth`` state_dict (the port's ``epoch_N.pth``, or a reference
+        one) or a JAX flat ``.npz`` (``convert_ckpt full``'s, or the JAX
+        trainer's), as ``predict.load_checkpoint`` reads them. Only the
+        dead-module keys may go unmatched; a checkpoint that loads no
+        parameter raises."""
+        loaded, missed, unused = load_checkpoint(self.model, path)
+        params = {n for n, _ in self.model.named_parameters()}
+        if not params.intersection(loaded):
+            raise ValueError(f"restore_checkpoint: no array of {path} matches a parameter of the model; "
+                             "wrong checkpoint for this model or config?")
+        unmatched = sorted(k for k in missed + unused if not _is_dead(k))
+        if unmatched:
+            raise ValueError(f"restore_checkpoint: {len(unmatched)} keys of {path} and the model do not pair "
+                             f"(first: {unmatched[:5]})")
+        self.log({"restored": path, "loaded": len(loaded)})
+
     def resume(self, path: str) -> None:
         """Restore model, optimizer and step from a checkpoint. A checkpoint
         taken inside an epoch re-enters that epoch and skips the batches it
@@ -101,13 +170,16 @@ class Runner:
         self.host_step = int(ckpt["meta"]["iter"])
         self.epoch = self.host_step // self.steps_per_epoch
         self._resume_skip = self.host_step % self.steps_per_epoch
-        self.train_loader.epoch = self.epoch
+        if self.train_loader is not None:
+            self.train_loader.epoch = self.epoch
         self.resumed = True
         self.log({"resumed_at_epoch": self.epoch, "step": self.host_step, "skip_batches": self._resume_skip})
 
     def train(self) -> Dict[str, Any]:
         """Run the epochs left; returns {"steps", "loop_s"}: the steps this
         call took and the seconds from the first hook to the last."""
+        if self.train_loader is None:
+            raise ValueError("a val-only Runner (mode='val') has no train loader")
         t0, first = time.perf_counter(), self.host_step
         try:
             for h in self.hooks:
@@ -127,9 +199,99 @@ class Runner:
                         h.after_train_iter(self, aux)
                 for h in self.hooks:
                     h.after_train_epoch(self)
+                if self.val_loader is not None and self.val_interval and self.epoch % self.val_interval == 0:
+                    self.val(during_train=True)
         finally:
             for h in self.hooks:
                 h.after_train(self)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return {"steps": self.host_step - first, "loop_s": time.perf_counter() - t0}
+
+    # ---------------------------------------------------------------- val
+
+    def _predict(self, image: torch.Tensor, depth: torch.Tensor):
+        """The eval forward on a batch as the loader gives it: (prob
+        (B,H,W,1) fp32, extras with the texture)."""
+        return self.model.predict(normalize_image(image), scale_plane(depth))
+
+    def val(self, during_train: bool = False, save_visualizations: bool = False) -> Dict[str, float]:
+        """One pass over the val loader; logs {"epoch", "step", the metrics
+        rounded to 5 places, "val_imgs_per_sec"} and returns the metrics
+        unrounded. Hooks' ``before_val`` fires unless ``during_train``.
+
+        Each batch takes one forward. The evaluators that consume per-image
+        statistics get them from ``batch_statistics`` on the model's device,
+        copied to the host once a batch; the others (e.g. WeightedFmeasure)
+        get the probability map on the host from the same forward. With
+        ``device_metrics: false`` in the recipe, or ``save_visualizations``,
+        every metric takes the map on the host."""
+        if not during_train:
+            for h in self.hooks:
+                h.before_val(self)
+        if self.val_loader is None:
+            self.val_loader = self._build_val_loader()
+        for m in self.metrics:
+            m.reset()
+        self._vis_counter = -1
+        vis_dir = os.path.join(self.work_dir, "visualizations")
+        device_ok = bool(self.cfg.get("device_metrics", True)) and not save_visualizations
+        stats_metrics = [m for m in self.metrics if device_ok and getattr(m, "supports_device_stats", False)]
+        host_metrics = [m for m in self.metrics if m not in stats_metrics]
+        n_images = 0
+        t0 = time.perf_counter()
+        for batch in self.val_loader:
+            prob, extras = self._predict(batch["input"], batch["depth"])
+            n_images += prob.shape[0]
+            if stats_metrics:
+                stats = statistics_to_host(batch_statistics(prob, scale_plane(batch["label"])))
+                for m in stats_metrics:
+                    m.process_stats(stats)
+            if host_metrics or save_visualizations:
+                prob_np, label_np = _host(prob), _host_plane(batch["label"])
+                for m in host_metrics:
+                    m.process(prob_np, label_np)
+                if save_visualizations:
+                    self._dump_visualizations(vis_dir, batch, prob_np, extras)
+        results: Dict[str, float] = {}
+        for m in self.metrics:
+            results.update(m.compute())
+        results["val_imgs_per_sec"] = n_images / max(time.perf_counter() - t0, 1e-9)
+        self.log({"epoch": self.epoch, "step": self.host_step, **{k: round(v, 5) for k, v in results.items()}})
+        return results
+
+    def _dump_visualizations(self, vis_dir: str, batch, prob_np: np.ndarray, extras=None) -> None:
+        """``<name>_{input,label,output,depth,diffusion}.png`` per image, from
+        the forward that gave ``prob_np``: the denormalized input, the label,
+        the probability map, the depth and the contrast-enhanced texture (no
+        ``_diffusion.png`` when the model returns no texture). ``name`` is the
+        file's stem when ``raw`` is a path, else a running ``img{n}``."""
+        from PIL import Image
+
+        os.makedirs(vis_dir, exist_ok=True)
+
+        def save(name, arr):  # (H, W) or (H, W, 3) in [0, 1]
+            Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8)).save(os.path.join(vis_dir, name))
+
+        input_np = _host(batch["input"])
+        if input_np.dtype == np.uint8:  # to the normalized form denormalized below
+            input_np = (input_np.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        label_np, depth_np = _host_plane(batch["label"]), _host_plane(batch["depth"])
+        tex = extras.get("texture") if extras else None
+        texture_np = None if tex is None else _host(tex.float())
+        raws = batch.get("raw")
+        for i in range(prob_np.shape[0]):
+            if isinstance(raws, list) and isinstance(raws[i], str):
+                name = os.path.splitext(os.path.basename(raws[i]))[0]
+            else:
+                self._vis_counter += 1
+                name = f"img{self._vis_counter}"
+            save(f"{name}_output.png", prob_np[i, ..., 0])
+            save(f"{name}_label.png", label_np[i, ..., 0])
+            save(f"{name}_input.png", input_np[i] * IMAGENET_STD + IMAGENET_MEAN)
+            save(f"{name}_depth.png", depth_np[i, ..., 0])
+            if texture_np is not None:
+                # contrast-enhanced as the reference does (cod.py:194-204)
+                t = texture_np[i].mean(axis=-1)
+                t = np.clip((t - t.mean()) * 2.0 + t.mean(), 0, 1)
+                save(f"{name}_diffusion.png", t)

@@ -2,7 +2,9 @@
 route predicate (fused, cluster, per-step) and the cluster kernels' strip
 split, and (on a card) the plane stencil's fused, cluster and per-step
 kernels forward and backward, the NHWC stencil kernel and the LayerNorm
-kernel against their plain versions.
+kernel against their plain versions, and the val pass's per-image metric
+statistics (``metrics/device.py::batch_statistics``, plain PyTorch) on the
+card against the CPU.
 
 This file imports neither JAX nor ``dgtd_tpu``, so it also runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest tests/test_torch_kernels.py``
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from dgtd_tpu_torch.metrics.device import batch_statistics, statistics_to_host
 from dgtd_tpu_torch.models.diffusion import affinity_planes
 from dgtd_tpu_torch.ops import diffusion as D
 from dgtd_tpu_torch.ops import layernorm as L
@@ -625,3 +628,27 @@ def test_cuda_layer_norm_refuses_bad_inputs(cuda):
         L.layer_norm(x.t(), s[:8], b[:8])
     with pytest.raises(ValueError, match="CUDA"):
         L.layer_norm(x, s.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 24, 24), (2, 37, 23), (2, 384, 384), (1, 704, 704)])
+def test_cuda_batch_statistics_match_cpu(cuda, shape):
+    """The val statistics on the card equal the CPU's: histograms and counts
+    exactly, MAE and S-measure (float64, summed in another order) to
+    tests/test_metrics.py's S-measure bar."""
+    b, h, w = shape
+    g = torch.Generator().manual_seed(h)
+    prob = torch.rand(b, h, w, 1, generator=g) * 0.6 + 0.2
+    label = torch.zeros(b, h, w, 1)
+    label[:, h // 5 : h // 2, w // 4 : w - 3] = 1.0
+    label[-1, : h // 3] = 0.0
+    cpu = statistics_to_host(batch_statistics(prob, label))
+    with torch.inference_mode():  # as cod.predict hands its output over
+        prob_dev = prob.to(cuda)
+    dev = batch_statistics(prob_dev, label.to(cuda))
+    assert all(v.device.type == "cuda" for v in dev.values())
+    dev = statistics_to_host(dev)
+    for k in ("fg_hist", "bg_hist", "gt_count", "n_pixels"):
+        np.testing.assert_array_equal(dev[k], cpu[k], err_msg=k)
+    np.testing.assert_allclose(dev["mae_sum"], cpu["mae_sum"], rtol=1e-10)
+    np.testing.assert_allclose(dev["sm"], cpu["sm"], rtol=1e-4, atol=1e-5)

@@ -272,13 +272,31 @@ def test_train_cli_journey_and_exact_mid_epoch_resume(tmp_path):
     assert os.listdir(tmp_path / "out") == ["a_output.png"]
 
 
-def test_train_cli_refuses_val_and_needs_a_card(monkeypatch):
+def test_train_cli_refuses_val_and_needs_a_card(monkeypatch, tmp_path):
+    """``-m val`` and a recipe that validates inside max_epochs both reach
+    the Runner (the val pass exists now); without a card the CLI raises."""
     recipe = os.path.join(ROOT, "configs", "cod.yml")
-    with pytest.raises(NotImplementedError, match="val"):
-        cli.main([recipe, "-m", "val", "--device", "cpu"])
-    # the recipe validates at epoch 100 of 100: refused before anything is built
-    with pytest.raises(NotImplementedError, match="val_interval=100"):
-        cli.main([recipe, "--device", "cpu", "-o", "work_dir=/nonexistent/never"])
+    built = []
+
+    class Stub:
+        def __init__(self, cfg, mode, **kw):
+            built.append((mode, cfg["train_cfg"]["val_interval"], cfg["train_cfg"]["max_epochs"]))
+
+        def val(self, save_visualizations=False):
+            return {"COD/MAE": 0.5, "visualizations": save_visualizations}
+
+        def train(self):
+            return {"steps": 0, "loop_s": 0.0}
+
+    with monkeypatch.context() as m:
+        m.setattr(cli, "Runner", Stub)
+        assert cli.main([recipe, "-m", "val", "--device", "cpu", "-o", "save_visualizations=true"]) == {
+            "COD/MAE": 0.5, "visualizations": True}
+        assert cli.main([recipe, "--device", "cpu", "-o", f"work_dir={tmp_path}"])["steps"] == 0
+    assert built == [("val", 100, 100), ("train", 100, 100)]
+    # the real Runner gets as far as the recipe's val folder, which is not here
+    with pytest.raises(FileNotFoundError, match="cod10k_test"):
+        cli.main([recipe, "-m", "val", "--device", "cpu", "-o", f"work_dir={tmp_path}"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([recipe])
