@@ -90,15 +90,34 @@ Phases (any failure exits non-zero):
      on 4 images (five PNGs each, named from the files), one fused forward a
      val batch and nothing else from the stencil, and one 704² image through
      COD_TEST;
- 17. the device time per call of every stencil kernel timed in phases 5, 9
+ 17. model variants: the model family at full width (PVTv2-b2, the
+     ConvNeXt-B tower where there is one), 384², bf16: ``baseline``,
+     ``DQnet``, ``cod -o model.use_prompts=false``, ``cod -o
+     model.diffusion_kernel=11`` (the per-step kernels at the recipe's 12x12
+     grid, 4 + 4 launches a step), ``cod -o model.diffusion_kernel=3 -o
+     model.diffusion_steps=6`` (the fused kernels at k = 3) and ``cod -o
+     model.fft_at_grid=true -o model.use_ssim=false``, each trained 2 steps at
+     batch 10 through the Runner and served 2 batches of 8 through
+     ``dgtd_tpu_torch.predict.main --model``, the stencil launches of each
+     run read from the counters (none for baseline, DQnet and
+     use_prompts=false), with its parameter count, ms per served batch and
+     train step, and peak memory; baseline's frozen prompt modules bit-equal
+     after its steps; the per-step kernels at k = 9 and 11 and the fused
+     kernel at k = 3, 6 steps, against their plain versions on (240, 12, 12)
+     planes, fp32 and bf16, and on the kernel11 run's own tensors;
+     ``remat`` against no remat (same weights, batch and DropPath
+     generator: loss and every gradient, peak memory of both); tiny
+     baseline and DQnet, fp32 on the card against the CPU;
+ 18. the device time per call of every stencil kernel timed in phases 5, 9
      and 14, from ``torch.profiler`` (last, so that its tracing cannot slow
      the host-bound timings).
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
-cluster and the per-step kernels), a served-throughput line, a ``trained``,
-a ``grid64``, a ``val`` and an ``msda`` JSON line, each with the card's name
-and power limit; the last line is
+cluster and the per-step kernels; the per-step kernels' launches are the
+kernel11 variant's), a served-throughput line, a ``trained``, a ``grid64``,
+a ``val``, a ``variants`` and an ``msda`` JSON line, each with the card's
+name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -127,7 +146,9 @@ GRID64 = (64, 64)  # the cluster kernels' main path (phases 14, 15)
 LARGE = (96, 96)  # the per-step kernels' own path (phase 14)
 P_LARGE = 48  # planes of the 96x96 checks in phases 2 and 6, to keep their time
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
-BF16_ATOL = 1e-2  # per-step bf16 rounding of O(1) convex combinations
+# per-step bf16 rounding of O(1) convex combinations: each rounding under
+# 2^-9, so s steps drift up to s·2^-9 (tests/test_torch_kernels.py::bf16_atol)
+BF16_ATOL = 1e-2
 MEAN_ATOL = 2e-3  # bf16 vs fp32 mean probability (tests/test_golden_forward.py)
 CPU_PROB_ATOL = 1e-3  # fp32 card vs fp32 CPU, TF32 off, full-width model
 N_IMAGES, BATCH, SIZE = 20, 8, 384  # 3 batches, the last padded from 4
@@ -163,6 +184,31 @@ VAL_SM_TOL = dict(rtol=1e-4, atol=1e-5)
 # masks): the served bf16 mean probability moved 5e-5 from fp32, the loss
 # sums ~6 such terms; 1e-2 relative leaves room for the logits' bf16 error
 FIRST_LOSS_RTOL = 1e-2
+# the model-variants phase (17): the registered models and ablation axes
+# at full width, each trained VARIANT_STEPS steps at TRAIN_BATCH through the
+# Runner and served VARIANT_SERVE images at BATCH through predict.main
+K11 = 11  # the kernel11 ablation: per-step kernels at the recipe's 12x12 grid
+VARIANTS = [  # (label, model.type, the model's -o overrides)
+    ("baseline", "baseline", {}),
+    ("DQnet", "DQnet", {}),
+    ("pure_hitnet", "cod", {"use_prompts": False}),
+    ("kernel11", "cod", {"diffusion_kernel": K11}),
+    ("kernel3_steps6", "cod", {"diffusion_kernel": 3, "diffusion_steps": 6}),
+    ("fft2", "cod", {"fft_at_grid": True, "use_ssim": False}),
+]
+VARIANT_STEPS, VARIANT_SERVE = 2, 16
+VARIANT_HOOKS = {"cod": "our_init", "baseline": "baseline_init", "DQnet": "PretrainInitHook"}
+# configs/cod.yml's lr keys name the prompt tower; a model without one takes
+# the backbone's multiplier alone (an unmatched key raises, as in dgtd_tpu)
+VARIANT_LR_KEYS = {"DQnet": "{'backbone': {'lr_mult': 0.2}}", "pure_hitnet": "{'hitnet.backbone': {'lr_mult': 0.2}}"}
+# remat vs no remat, bf16 autocast on the card, same weights, batch and
+# masks: the loss within FIRST_LOSS_RTOL; the gradients within this factor
+# of the spread between two runs without remat. That spread is the card's
+# own: atomic reductions in the backward (PyTorch documents the CUDA
+# backward of bilinear interpolation and of index_select as
+# nondeterministic) sum in another order each run, so two runs without
+# remat differ too (the ``variants`` line prints both spreads)
+REMAT_NOISE_FACTOR = 1.5
 # H100 SXM peaks: HBM bytes/s; fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 SOURCES = ["diffusion_stencil", "diffusion_stencil_bwd", "msda_fwd", "msda_bwd", "layernorm"]
@@ -312,7 +358,8 @@ def check_kernel(D, x, w, kernel, steps, label):
     else:
         ref = D.diffusion_planes_plain(x.float(), w.float(), kernel, steps)
         out = out.float()
-        torch.testing.assert_close(out, ref, rtol=0, atol=BF16_ATOL, msg=lambda m: f"{label}: {m}")
+        torch.testing.assert_close(out, ref, rtol=0, atol=max(BF16_ATOL, steps * 2 ** -9),
+                                   msg=lambda m: f"{label}: {m}")
     err = float((out - ref).abs().max())
     say(f"  {label}: max_abs_err={err:.3e}")
     return err
@@ -667,6 +714,318 @@ def val_phase(D, val_ckpt, card):
         "ms_per_image": parts,
         "phase_s": time.perf_counter() - t_phase,
         "_fwd_launches": dev_launches[0], "_batches": VAL_N,
+    }
+
+
+def variant_launches(D, model_type, overrides, n_fwd, n_bwd):
+    """The stencil counters' increments for ``n_fwd`` forwards and ``n_bwd``
+    backwards of a full-width variant at the recipe's grid: none for a model
+    that runs no prompt encoder (baseline, DQnet, use_prompts or
+    inject_prompts off), else the route's launches for its kernel and steps."""
+    import torch
+
+    if model_type != "cod" or not overrides.get("use_prompts", True) or not overrides.get("inject_prompts", True):
+        return (0,) * 6
+    k, steps = overrides.get("diffusion_kernel", KERNEL), overrides.get("diffusion_steps", STEPS)
+    fwd = expected_launches(D, (12, 12), k, torch.bfloat16, steps, bwd=False)
+    bwd = expected_launches(D, (12, 12), k, torch.bfloat16, steps, bwd=True)
+    return tuple(n_fwd * f + n_bwd * b for f, b in zip(fwd, bwd))
+
+
+def variants_phase(D, MD, P, card):
+    """Phase 17: the model family at full width (PVTv2-b2, the ConvNeXt-B
+    tower where there is one), 384², bf16. For each of VARIANTS: train
+    VARIANT_STEPS steps at batch TRAIN_BATCH through the Runner
+    (``configs/cod.yml`` with ``-o model.type=…`` and the model's ``-o``
+    overrides), serve 2 batches of 8 through ``dgtd_tpu_torch.predict.main
+    --model …`` on the trained weights, each run's stencil launches read from
+    the counters around it against what the route says (none for baseline,
+    DQnet and use_prompts=false); the parameter count, ms per served batch
+    and per train step (back to back), the peak memory. Then: baseline's
+    prompt modules bit-equal after its steps; the per-step kernels (k = 9
+    and 11) and the fused kernel (k = 3, 6 steps) against their plain
+    versions on (P_TRAIN, 12, 12) planes and on the kernel11 run's own
+    stencil tensors; ``remat`` against no remat (same weights, batch and
+    DropPath generator; loss and every gradient; peak memory of both); tiny
+    baseline and DQnet in fp32 on the card against the CPU. Returns the
+    ``variants`` line's fields and the per-step kernels' launches and
+    errors for the ``kernels`` line."""
+    import copy
+
+    import torch
+
+    from dgtd_tpu_torch.core.config import load_config
+    from dgtd_tpu_torch.core.registry import MODELS
+    from dgtd_tpu_torch.models.layers import DropPath
+    from dgtd_tpu_torch.train.loop import Runner
+    from dgtd_tpu_torch.train.state import step_generator, train_step
+
+    say(f"phase 17: model variants at full width, {SIZE}², bf16: {', '.join(v[0] for v in VARIANTS)}; each trained "
+        f"{VARIANT_STEPS} steps at batch {TRAIN_BATCH} through the Runner and served {VARIANT_SERVE // BATCH} batches "
+        f"of {BATCH} through predict.main")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    recipe = os.path.join(ROOT, "configs", "cod.yml")
+    rows, grab = {}, {}
+    planes_unspied = MD.diffusion_planes
+
+    def capture(module, inputs, output):
+        if isinstance(module, MD.MessagePassing) and "served" not in grab:
+            grab["served"] = (inputs[0].detach().clone(), inputs[1].detach().clone())
+
+    def spy_planes(x, w, kernel, steps):
+        out = planes_unspied(x, w, kernel, steps)
+        if "x" not in grab and out.requires_grad:
+            grab["x"], grab["w"] = x.detach().clone(), w.detach().clone()
+            out.register_hook(lambda gr: grab.setdefault("g", gr.detach().clone()))
+        return out
+
+    g_dev = torch.Generator(device=dev).manual_seed(6)
+    img = torch.randn(BATCH, SIZE, SIZE, 3, generator=g_dev, device=dev)
+    depth = torch.rand(BATCH, SIZE, SIZE, 1, generator=g_dev, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tmp:
+        write_inputs(tmp, VARIANT_SERVE)
+        for label, model_type, overrides in VARIANTS:
+            model_ovs = [f"model.type={model_type}", f"custom_hooks.0.type={VARIANT_HOOKS[model_type]}"]
+            model_ovs += [f"model.{k}={v}" for k, v in overrides.items()]
+            if label in VARIANT_LR_KEYS:
+                model_ovs.append(f"optim_wrapper.paramwise_cfg.custom_keys={VARIANT_LR_KEYS[label]}")
+            ovs = [f"work_dir={os.path.join(tmp, label)}", "train_cfg.max_epochs=1", "train_cfg.val_interval=0",
+                   f"train_dataloader.batch_size={TRAIN_BATCH}",
+                   f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {VARIANT_STEPS * TRAIN_BATCH}, "
+                   f"'size': {SIZE}}}", "default_hooks.logger.interval=1"] + model_ovs
+            runner = Runner(load_config(recipe, ovs), work_dir=os.path.join(tmp, label), seed=0, device=dev,
+                            dtype=torch.bfloat16)
+            model = runner.model
+            n_params = sum(p.numel() for p in model.parameters())
+            frozen = model.frozen_param_prefixes
+            dead = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith(frozen)}
+            check((label == "baseline") == bool(dead), f"{label}: frozen prefixes {frozen}")
+            spying = label == "kernel11"
+            if spying:
+                MD.diffusion_planes = spy_planes
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_plane_launches(D)
+                trained = runner.train()
+                train_launches = plane_launches(D)
+                train_peak = torch.cuda.max_memory_allocated()
+            finally:
+                MD.diffusion_planes = planes_unspied
+            want = variant_launches(D, model_type, overrides, VARIANT_STEPS, VARIANT_STEPS)
+            check(trained["steps"] == VARIANT_STEPS, f"{label}: {trained}")
+            check(train_launches == want, f"{label} train: launches ({LAUNCH_NAMES}) {train_launches}, expected {want}")
+            with open(os.path.join(tmp, label, "log.jsonl")) as f:
+                records = [r for r in map(json.loads, f) if "loss" in r]
+            has_ssim = model.use_ssim and want != (0,) * 6
+            check(len(records) == VARIANT_STEPS and all(("loss_ssim" in r) == has_ssim for r in records), records)
+            check(all(np.isfinite(r["loss"]) for r in records), records)
+            first = next(iter(runner.train_loader))
+            batch = {k: first[k] for k in ("input", "label", "depth")}
+            counter = [VARIANT_STEPS]
+
+            def one_step():
+                train_step(model, runner.optimizer, batch, counter[0], runner.seed + 1)
+                counter[0] += 1
+
+            step_ms = cuda_time_ms(one_step, 3, warmup=1)
+            served_ms = cuda_time_ms(lambda: model.predict(img, depth), 5, warmup=2)
+            dead_equal = all(torch.equal(p.detach(), dead[n]) for n, p in model.named_parameters() if n in dead)
+            check(dead_equal, f"{label}: a frozen prompt-module parameter moved")
+            ckpt = os.path.join(tmp, f"{label}.pth")
+            torch.save(model.state_dict(), ckpt)
+            del runner, model, batch, first
+            torch.cuda.empty_cache()
+
+            hook = torch.nn.modules.module.register_module_forward_hook(capture) if spying else None
+            try:
+                reset_plane_launches(D)
+                served = P.main(["--checkpoint", ckpt, "--model", model_type, "--image-dir", os.path.join(tmp, "img"),
+                                 "--depth-dir", os.path.join(tmp, "dep"), "--out-dir", os.path.join(tmp, f"out_{label}"),
+                                 "--size", str(SIZE), "--batch", str(BATCH)]
+                                + [a for k, v in overrides.items() for a in ("-o", f"{k}={v}")])
+                torch.cuda.synchronize()
+                served_launches = plane_launches(D)
+            finally:
+                if hook is not None:
+                    hook.remove()
+            want_served = variant_launches(D, model_type, overrides, served["batches"], 0)
+            check(served["batches"] == VARIANT_SERVE // BATCH, served)
+            check(served_launches == want_served,
+                  f"{label} served: launches ({LAUNCH_NAMES}) {served_launches}, expected {want_served}")
+            check(len(os.listdir(os.path.join(tmp, f"out_{label}"))) == VARIANT_SERVE, f"{label}: masks")
+            rows[label] = {"model": model_type, "overrides": overrides, "parameters": n_params,
+                           "served_ms_per_batch": served_ms, "served_cli_loop_s": served["loop_s"],
+                           "train_ms_per_step": step_ms, "train_loop_s": trained["loop_s"],
+                           "peak_memory_bytes_train": train_peak, "losses": [r["loss"] for r in records],
+                           "launches_train": train_launches, "launches_served": served_launches,
+                           "frozen_parameters": len(dead), "frozen_bit_equal": dead_equal if dead else None}
+            say(f"  {label} ({model_type} {overrides}): {n_params} parameters; served {served_ms:.3f} ms per batch of "
+                f"{BATCH}; train {step_ms:.3f} ms per step at batch {TRAIN_BATCH}, peak memory {train_peak / 2**30:.3f} "
+                f"GiB; stencil launches ({LAUNCH_NAMES}) train {train_launches}, served {served_launches}"
+                + (f"; {len(dead)} frozen parameters bit-equal after {VARIANT_STEPS + 4} steps" if dead else "")
+                + f" [{card}]")
+
+    # the per-step kernels (k = 9, 11) and the fused kernel at k = 3, 6 steps,
+    # on random planes of the train stencil's shape and on kernel11's own
+    say(f"  stencil kernels of the variants vs plain on ({P_TRAIN},12,12) planes and on kernel11's captured tensors")
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for k, steps in ((9, STEPS), (11, STEPS), (3, 6)):
+        x = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev)
+        wt = MD.normalize_affinity(torch.rand(P_TRAIN, k * k, 12, 12, generator=g, device=dev), dim=1)
+        gr = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev)
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            xd, wd, gd = x.to(dt), wt.to(dt), gr.to(dt)
+            e_f = check_kernel(D, xd, wd, k, steps, f"{name} k={k} 12x12, {steps} steps")
+            e_b = check_bwd(D, gd, step_inputs(D, xd, wd, k, steps), wd, k, f"{name} k={k} 12x12, {steps} steps")
+            if k != 3:
+                errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"], e_b)
+    k11 = K11
+    xp, wt = MD.affinity_planes(*grab["served"], k11)
+    check(tuple(xp.shape) == (P_MAIN, 12, 12) and xp.dtype == torch.bfloat16, (xp.shape, xp.dtype))
+    errs["fwd"] = max(errs["fwd"], check_kernel(D, xp, wt, k11, STEPS, "kernel11 served bf16 stencil inputs"))
+    gx, gw, gg = grab["x"], grab["w"], grab["g"]
+    check(tuple(gx.shape) == (P_TRAIN, 12, 12) and gx.dtype == torch.bfloat16, (gx.shape, gx.dtype))
+    gxs = torch.stack(step_inputs(D, gx, gw, k11, STEPS))
+    errs["bwd"] = max(errs["bwd"], check_bwd(D, gg, gxs, gw, k11, "kernel11 trained bf16, 4 steps"))
+    # the per-step kernels timed on the kernel11 path's own tensors; their
+    # device time is read in the profiler phase with the others
+    per_step_rows, per_step_calls = {}, []
+    for part, fn, plain, bound, match in (
+        ("fwd", functools.partial(D.diffusion_planes, xp, wt, k11, STEPS),
+         functools.partial(D.diffusion_planes_plain, xp, wt, k11, STEPS), stencil_bound(xp, wt, k11, STEPS),
+         "stencil_step_kernel"),
+        ("bwd", functools.partial(D.diffusion_planes_bwd, gg, gxs, gw, k11),
+         functools.partial(D.diffusion_planes_bwd_plain, gg, gxs, gw, k11), stencil_bwd_bound(gg, gxs, gw, k11),
+         "stencil_bwd_kernel"),
+    ):
+        row = dict(ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(plain, 20, warmup=2), bound_ms=bound[0],
+                   bound_by=bound[1])
+        per_step_rows[part] = row
+        per_step_calls.append((f"per-step {part} k={k11} kernel11 bf16", row, "device_ms", fn, match, 200))
+        say(f"  per-step {part} on kernel11's tensors ({tuple(xp.shape if part == 'fwd' else gg.shape)}, k={k11}, "
+            f"{STEPS} steps, bf16): {row['ms']:.5f} ms per call, plain {row['plain_ms']:.5f} ms, bound "
+            f"{bound[0]:.6f} ms ({bound[1]}) [{card}]")
+
+    # remat: the same weights, batch and DropPath generator with and without;
+    # two runs without give the card's own run-to-run spread in bf16
+    say(f"  remat: cod with and without model.remat=true, batch {TRAIN_BATCH}, {SIZE}², bf16, drop-path on; "
+        "twice without")
+    base = MODELS.get("cod")(seed=0)
+    state = base.state_dict()
+    rng = np.random.RandomState(12)
+    rb = [torch.from_numpy(a).to(dev) for a in (
+        rng.randn(TRAIN_BATCH, SIZE, SIZE, 3).astype(np.float32), rng.rand(TRAIN_BATCH, SIZE, SIZE, 1).astype(np.float32),
+        (rng.rand(TRAIN_BATCH, SIZE, SIZE, 1) > 0.5).astype(np.float32))]
+    remat_rows, grads = {}, {}
+    for tag, remat in (("without", False), ("without_again", False), ("with", True)):
+        if tag == "with":
+            base.cpu()
+            torch.cuda.empty_cache()
+            base = MODELS.get("cod")(seed=None, remat=True)
+            base.load_state_dict(state)
+        base.to(dev)
+        base.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = base.loss(*rb, generator=step_generator(1, 0, dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        remat_rows[tag] = {"loss": float(loss.detach()), "peak_memory_bytes": peak, "activation_peak_bytes": peak - before}
+        grads[tag] = {n: p.grad.detach().float().cpu().clone() for n, p in base.named_parameters()}
+        del loss
+        if tag != "without_again":  # forward and backward back to back, ms
+            remat_rows[tag]["fwd_bwd_ms"] = cuda_time_ms(
+                lambda: base.loss(*rb, generator=step_generator(1, 0, dev))[0].backward(), 3, warmup=1)
+    base.cpu()
+    del base
+    torch.cuda.empty_cache()
+    ref = grads["without"]
+    scale = max(float(v.abs().max()) for v in ref.values())
+    spread = {}
+    for tag in ("without_again", "with"):
+        num = den = 0.0
+        worst = (0.0, "")
+        for n, g in ref.items():
+            d = grads[tag][n] - g
+            num, den = num + float((d * d).sum()), den + float((g * g).sum())
+            worst = max(worst, (float(d.abs().max()) / max(float(g.abs().max()), 1e-4 * scale), n))
+        spread[tag] = {"global_rel_l2": (num / den) ** 0.5, "worst_share_of_scale": worst[0], "worst_param": worst[1]}
+    del grads
+    rel = abs(remat_rows["with"]["loss"] - remat_rows["without"]["loss"]) / abs(remat_rows["without"]["loss"])
+    check(rel <= FIRST_LOSS_RTOL, f"remat loss {remat_rows['with']['loss']} vs {remat_rows['without']['loss']}")
+    for key in ("global_rel_l2", "worst_share_of_scale"):
+        noise = spread["without_again"][key]
+        check(spread["with"][key] <= REMAT_NOISE_FACTOR * noise,
+              f"remat gradients: {key} {spread['with'][key]:.3e} > {REMAT_NOISE_FACTOR} x the run-to-run {noise:.3e}")
+    say(f"  remat: loss {remat_rows['with']['loss']:.6f} vs {remat_rows['without']['loss']:.6f} (relative {rel:.2e}, "
+        f"limit {FIRST_LOSS_RTOL}); gradients vs the run without: global relative L2 "
+        f"{spread['with']['global_rel_l2']:.3e}, worst {spread['with']['worst_share_of_scale']:.3e} of its scale "
+        f"({spread['with']['worst_param']}); two runs without: {spread['without_again']['global_rel_l2']:.3e} and "
+        f"{spread['without_again']['worst_share_of_scale']:.3e} (limit {REMAT_NOISE_FACTOR} x those); peak memory "
+        f"{remat_rows['with']['peak_memory_bytes'] / 2**30:.3f} GiB with remat, "
+        f"{remat_rows['without']['peak_memory_bytes'] / 2**30:.3f} without (above the weights: "
+        f"{remat_rows['with']['activation_peak_bytes'] / 2**30:.3f} and "
+        f"{remat_rows['without']['activation_peak_bytes'] / 2**30:.3f} GiB); forward and backward "
+        f"{remat_rows['with']['fwd_bwd_ms']:.3f} ms with remat, {remat_rows['without']['fwd_bwd_ms']:.3f} without "
+        f"[{card}]")
+
+    # tiny baseline and DQnet, fp32 on the card against the CPU (phase 7's limits)
+    tiny_rows = {}
+    for name, kwargs in (("baseline", TINY), ("DQnet", dict(variant="tiny", channel=8))):
+        m_cpu = MODELS.get(name)(dtype=torch.float32, seed=0, **kwargs)
+        for mod in m_cpu.modules():
+            if isinstance(mod, DropPath):
+                mod.rate = 0.0
+        m_dev = copy.deepcopy(m_cpu).to(dev)
+        rng = np.random.RandomState(5)
+        inputs = [torch.from_numpy(a) for a in (
+            rng.randn(2, 64, 64, 3).astype(np.float32), rng.rand(2, 64, 64, 1).astype(np.float32),
+            (rng.rand(2, 64, 64, 1) > 0.5).astype(np.float32))]
+        loss_cpu = m_cpu.loss(*inputs)[0]
+        loss_cpu.backward()
+        reset_plane_launches(D)
+        loss_dev = m_dev.loss(*[t.to(dev) for t in inputs])[0]
+        loss_dev.backward()
+        torch.cuda.synchronize()
+        check(plane_launches(D) == (0,) * 6, f"tiny {name}: launches {plane_launches(D)}")
+        loss_cpu, loss_dev = loss_cpu.item(), loss_dev.item()
+        check(abs(loss_dev - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu), f"tiny {name} loss {loss_dev} vs {loss_cpu}")
+        ref_grads = dict(m_cpu.named_parameters())
+        scale = max(float(p.grad.abs().max()) for p in ref_grads.values() if p.grad is not None)
+        worst = (0.0, "")
+        for n, p in m_dev.named_parameters():
+            ref = ref_grads[n].grad
+            check((p.grad is None) == (ref is None), f"tiny {name} {n}: gradient on one side only")
+            if ref is None:
+                continue
+            diff = float((p.grad.cpu() - ref).abs().max())
+            limit = TINY_GRAD_RTOL * max(float(ref.abs().max()), 1e-4 * scale)
+            check(diff <= limit, f"tiny {name} gradient of {n}: card vs CPU {diff:.3e} > {limit:.3e}")
+            worst = max(worst, (diff / limit, n))
+        prob_cpu = m_cpu.predict(*inputs[:2])[0]
+        prob_err = float((m_dev.predict(*[t.to(dev) for t in inputs[:2]])[0].cpu() - prob_cpu).abs().max())
+        check(prob_err <= CPU_PROB_ATOL, f"tiny {name} predict card vs CPU {prob_err:.2e}")
+        tiny_rows[name] = {"loss_card": loss_dev, "loss_cpu": loss_cpu, "prob_max_abs_err": prob_err,
+                           "worst_gradient_share_of_limit": worst[0]}
+        say(f"  tiny {name}, fp32 card vs CPU: loss {loss_dev:.7f} vs {loss_cpu:.7f}; every gradient within "
+            f"{TINY_GRAD_RTOL} of its scale (closest: {worst[1]} at {worst[0]:.3f} of it); predict max_abs_err "
+            f"{prob_err:.3e}")
+        del m_cpu, m_dev
+    k11_row = rows["kernel11"]
+    return {
+        "size": SIZE, "serve_batch": BATCH, "train_batch": TRAIN_BATCH, "dtype": "bfloat16",
+        "variants": rows, "remat": {**remat_rows, "loss_rel_diff": rel, "gradient_spread": spread,
+                                    "noise_factor": REMAT_NOISE_FACTOR},
+        "tiny_fp32_card_vs_cpu": tiny_rows, "launch_order": LAUNCH_NAMES,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+        "_per_step": {"fwd": k11_row["launches_train"][4] + k11_row["launches_served"][4],
+                      "bwd": k11_row["launches_train"][5], "err": errs, "rows": per_step_rows,
+                      "calls": per_step_calls},
     }
 
 
@@ -1530,10 +1889,15 @@ def run(keep):
     val_row = val_phase(D, val_ckpt, card)
     val_fwd_launches, val_batches = val_row.pop("_fwd_launches"), val_row.pop("_batches")
 
-    # ---- 17. device time per call ----
+    # ---- 17. the model variants ----
+    variants_row = variants_phase(D, MD, P, card)
+    per_step = variants_row.pop("_per_step")
+    device_calls += per_step.pop("calls")
+
+    # ---- 18. device time per call ----
     # from the profiler, read last, so that its tracing cannot touch the
     # per-call and end-to-end timings above, which are host-bound
-    say("phase 17: device time per call (torch.profiler key_averages):")
+    say("phase 18: device time per call (torch.profiler key_averages):")
     for label, row, key, fn, match, iters in device_calls:
         row[key] = device_ms(fn, iters, match)
         say(f"    {label}: {row[key] if row[key] is not None else 'no device time recorded'} ms [{card}]")
@@ -1628,16 +1992,18 @@ def run(keep):
         "route": "cuda",
         "source": f"dgtd_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
-        "launches": n_launch,
-        "max_abs_err": large_rows[part]["err"],
-        "ms": large_rows[part]["ms"],
-        "plain_ms": large_rows[part]["plain_ms"],
-        "bound_ms": large_rows[part]["bound_ms"],
-        "bound_by": large_rows[part]["bound_by"],
+        "launches": per_step[part],
+        "main_path": (f"{per_step[part]} launches in the kernel11 variant's {VARIANT_STEPS} train steps"
+                      + (f" and {VARIANT_SERVE // BATCH} served batches" if part == "fwd" else "")
+                      + f" (k={K11}, {STEPS} steps, 12x12 planes)"),
+        "max_abs_err": max(large_rows[part]["err"], per_step["err"][part]),
+        **{k: per_step["rows"][part][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
         "library_ms": None,
-        "device_ms": large_rows[part]["device_ms"],
         "dtype": "bfloat16",
-        "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} {large_shape}",
+        "shape": (f"{'x' if part == 'fwd' else 'g, step inputs, dw'} ({P_MAIN if part == 'fwd' else P_TRAIN},12,12), "
+                  f"w (...,{K11 * K11},12,12), {STEPS} steps: the kernel11 variant's own tensors"),
+        "large_planes": {**large_rows[part], "launches": n_launch,
+                         "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} {large_shape}"},
         "card": card,
     } for name, source, replaces, part, n_launch in (
         ("diffusion_stencil", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd", large_launches[4]),
@@ -1721,6 +2087,7 @@ def run(keep):
     say(json.dumps({"val": {**val_row, "trained_val": {
         "images": TRAIN_VAL_N, "batch": 1, "launches": train_val_launches,
         **{k: train_val[k] for k in train_val if k.startswith("COD/") or k == "val_imgs_per_sec"}}, "card": card}}))
+    say(json.dumps({"variants": variants_row}))
     say(json.dumps({"msda": {
         "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
                  f"n_points={ENC_POINTS}), seeded weights",

@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
-``state_dict_from_flax(flat)`` takes the JAX ``cod`` model's variables as a
-flat ``{'params/...', 'batch_stats/...'}`` mapping of numpy arrays (the
-layout ``predict.py`` and ``export_state_dict`` accept; a bare key means
-``params/``) and returns the port's ``state_dict``, whose keys are the
-reference's ``hitnet.*`` schema.
+``state_dict_from_flax(flat)`` takes a JAX model's variables (``cod``,
+``baseline`` or ``DQnet``) as a flat ``{'params/...', 'batch_stats/...'}``
+mapping of numpy arrays (the layout ``predict.py`` and ``export_state_dict``
+accept; a bare key means ``params/``) and returns the port's
+``state_dict``: the reference's ``hitnet.*`` schema for ``cod`` and
+``baseline``, the JAX tree's names for ``DQnet`` (``_dqnet_rules``).
 
 The port keeps its own copy of the key tables of
 ``dgtd_tpu/tools/convert_ckpt.py`` (``map_full_key``), written as
@@ -68,11 +69,9 @@ def _basic_conv(ref: str, fx: str) -> List[Rule]:
     ]
 
 
-def _rules() -> List[Rule]:
-    r: List[Rule] = []
-    # PVTv2 backbone (official PVTv2 keys)
-    bb, fb = "hitnet.backbone", "hitnet/backbone"
-    r += _conv(f"{bb}.patch_embed{{s}}.proj", f"{fb}/patch_embed{{s}}/Conv_0/Conv_0")
+def _pvt(bb: str, fb: str) -> List[Rule]:
+    """A PVTv2 at port prefix ``bb`` and JAX path ``fb`` (official PVTv2 keys)."""
+    r = _conv(f"{bb}.patch_embed{{s}}.proj", f"{fb}/patch_embed{{s}}/Conv_0/Conv_0")
     r += _ln(f"{bb}.patch_embed{{s}}.norm", f"{fb}/patch_embed{{s}}/LayerNorm_0/LayerNorm_0")
     r += _ln(f"{bb}.norm{{s}}", f"{fb}/norm{{s}}/LayerNorm_0")
     blk, fblk = f"{bb}.block{{s}}.{{i}}", f"{fb}/block{{s}}_{{i}}"
@@ -86,6 +85,37 @@ def _rules() -> List[Rule]:
     r += _lin(f"{blk}.mlp.fc1", f"{fblk}/MixFFN_0/Dense_0/Dense_0")
     r += _conv(f"{blk}.mlp.dwconv.dwconv", f"{fblk}/MixFFN_0/Conv_0/Conv_0")
     r += _lin(f"{blk}.mlp.fc2", f"{fblk}/MixFFN_0/Dense_1/Dense_0")
+    return r
+
+
+def _decoder(ref: str, fx: str) -> List[Rule]:
+    """HitNet's decoder with its modules under port prefix ``ref`` and JAX
+    path ``fx`` ("" for the top level)."""
+    ref, fx = (f"{ref}." if ref else ""), (f"{fx}/" if fx else "")
+    r: List[Rule] = []
+    for mine, jax_name in (("Translayer2_0", "translayer2_0"), ("Translayer2_1", "translayer2_1"),
+                           ("Translayer3_1", "translayer3_1"), ("Translayer4_1", "translayer4_1"),
+                           ("conv4", "conv4"), ("compress_out", "compress_out"),
+                           ("compress_out2", "compress_out2")):
+        r += _basic_conv(f"{ref}{mine}", f"{fx}{jax_name}")
+    cab, fcab = f"{ref}decoder_level{{l}}.{{i}}", f"{fx}decoder_level{{l}}/cab{{i}}"
+    r += _conv(f"{cab}.body.0", f"{fcab}/Conv_0/Conv_0", bias=False)
+    r += [(f"{cab}.body.1.weight", f"{fcab}/PReLU_0/alpha", "params", _ident)]
+    r += _conv(f"{cab}.body.2", f"{fcab}/Conv_1/Conv_0", bias=False)
+    r += _conv(f"{cab}.CA.conv_du.0", f"{fcab}/CALayer_0/Conv_0/Conv_0", bias=False)
+    r += _conv(f"{cab}.CA.conv_du.2", f"{fcab}/CALayer_0/Conv_1/Conv_0", bias=False)
+    for i, name in enumerate(("fc.0", "fc.2", "fc_wight.0", "fc_wight.2")):
+        r += _lin(f"{ref}SAM.{name}", f"{fx}sam/Dense_{i}/Dense_0", bias=False)
+    r += _conv(f"{ref}out_SAM", f"{fx}out_SAM/Conv_0")
+    r += _conv(f"{ref}out_CFM", f"{fx}out_CFM/Conv_0")
+    return r
+
+
+def _cod_rules() -> List[Rule]:
+    """``cod`` and ``baseline`` (one tree; only baseline's k = 3 weight
+    regressor differs in shape)."""
+    bb = "hitnet.backbone"
+    r = _pvt(bb, "hitnet/backbone")
     # prompt encoder; its ConvNeXt tower follows the official ConvNeXt keys
     pe, fpe = f"{bb}.prompt_encoder", "hitnet/prompt_encoder"
     cx, fcx = f"{pe}.encoder2", f"{fpe}/encoder2"
@@ -108,23 +138,21 @@ def _rules() -> List[Rule]:
     for c in range(3):
         r += _conv(f"{bb}.prompt_decoder.{{s}}.decoder.{{i}}.decoder.{2 * c}",
                    f"hitnet/prompt_decoder{{s}}/decoder{{i}}/Conv_{c}/Conv_0")
-    # HitNet decoder
-    for ref, mine in (("Translayer2_0", "translayer2_0"), ("Translayer2_1", "translayer2_1"),
-                      ("Translayer3_1", "translayer3_1"), ("Translayer4_1", "translayer4_1"),
-                      ("conv4", "conv4"), ("compress_out", "compress_out"),
-                      ("compress_out2", "compress_out2")):
-        r += _basic_conv(f"hitnet.{ref}", f"hitnet/{mine}")
-    cab, fcab = "hitnet.decoder_level{l}.{i}", "hitnet/decoder_level{l}/cab{i}"
-    r += _conv(f"{cab}.body.0", f"{fcab}/Conv_0/Conv_0", bias=False)
-    r += [(f"{cab}.body.1.weight", f"{fcab}/PReLU_0/alpha", "params", _ident)]
-    r += _conv(f"{cab}.body.2", f"{fcab}/Conv_1/Conv_0", bias=False)
-    r += _conv(f"{cab}.CA.conv_du.0", f"{fcab}/CALayer_0/Conv_0/Conv_0", bias=False)
-    r += _conv(f"{cab}.CA.conv_du.2", f"{fcab}/CALayer_0/Conv_1/Conv_0", bias=False)
-    for i, ref in enumerate(("fc.0", "fc.2", "fc_wight.0", "fc_wight.2")):
-        r += _lin(f"hitnet.SAM.{ref}", f"hitnet/sam/Dense_{i}/Dense_0", bias=False)
-    r += _conv("hitnet.out_SAM", "hitnet/out_SAM/Conv_0")
-    r += _conv("hitnet.out_CFM", "hitnet/out_CFM/Conv_0")
-    return r
+    return r + _decoder("hitnet", "hitnet")
+
+
+def _dqnet_rules() -> List[Rule]:
+    """``DQnet``: the JAX tree's top-level ``backbone`` and
+    ``depth_generator{s}``, the decoder under HitNet's names. There is no
+    table of the reference's DQnet keys: its DQnet crashes when run (the
+    stale ``prompt`` of its ``Depth_prompt``), so no checkpoint of it is
+    known, and the JAX package's converter has no DQnet rules either."""
+    dg, fdg = "depth_generator{s}", "depth_generator{s}"
+    r = _pvt("backbone", "backbone")
+    r += _lin(f"{dg}.depth_adapter", f"{fdg}/depth_adapter/Dense_0")
+    r += _lin(f"{dg}.lightweight_mlp_{{i}}", f"{fdg}/lightweight_mlp_{{i}}/Dense_0")
+    r += _lin(f"{dg}.shared_mlp", f"{fdg}/shared_mlp/Dense_0")
+    return r + _decoder("", "")
 
 
 def _pattern(template: str) -> re.Pattern:
@@ -135,7 +163,9 @@ def _pattern(template: str) -> re.Pattern:
     return re.compile("".join(out) + "$")
 
 
-_RULES = _rules()
+#: one table for every model: the JAX paths of ``cod`` (under ``hitnet/``)
+#: and of ``DQnet`` (top level) never collide
+_RULES = _cod_rules() + _dqnet_rules()
 _FLAX_SIDE = [(_pattern(fx), ref, coll, tf) for ref, fx, coll, tf in _RULES]
 
 

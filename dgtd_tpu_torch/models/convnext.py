@@ -15,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.image import resize_bilinear
-from .layers import DropPath, LayerNorm, LayerNorm2d, conv2d, linear
+from .layers import DropPath, LayerNorm, LayerNorm2d, checkpointed, conv2d, linear
 
 #: channels of the FPN-fused embedding (what the prompt decoders consume)
 EMBED_DIM = 24
@@ -44,11 +44,14 @@ class Block(nn.Module):
 class ConvNeXtFPNEncoder(nn.Module):
     """4-stage ConvNeXt on an RGB-sized input + stride-4 FPN fusion to
     ``EMBED_DIM`` channels. The blocks' stochastic-depth rates are
-    ``linspace(0, drop_path_rate, Σdepths)`` in order."""
+    ``linspace(0, drop_path_rate, Σdepths)`` in order. ``remat`` recomputes
+    each block's activations in backward (``layers.checkpointed``), in a
+    train-mode forward that records gradients."""
 
     def __init__(self, dims: Sequence[int] = (128, 256, 512, 1024), depths: Sequence[int] = (3, 3, 27, 3),
-                 drop_path_rate: float = 0.4):
+                 drop_path_rate: float = 0.4, remat: bool = False):
         super().__init__()
+        self.remat = remat
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         starts = np.cumsum([0, *depths])
         self.downsample_layers = nn.ModuleList(
@@ -66,9 +69,12 @@ class ConvNeXtFPNEncoder(nn.Module):
         self.fusion_conv = conv2d(EMBED_DIM * len(dims), EMBED_DIM, 1, init="pvt")
 
     def forward(self, x):
+        remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for down, stage in zip(self.downsample_layers, self.stages):
-            x = stage(down(x))
+            x = down(x)
+            for blk in stage:
+                x = checkpointed(blk, x) if remat else blk(x)
             outs.append(x)
         target = outs[0].shape[-2:]
         lateral = [resize_bilinear(conv(o), target, exact=False) for conv, o in zip(self.convs, outs)]

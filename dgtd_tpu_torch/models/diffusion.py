@@ -69,27 +69,37 @@ class ShapePropWeightRegressor(nn.Module):
 
 
 class PromptEncoder(nn.Module):
-    """texture -> affinities -> depth diffusion -> ConvNeXt embedding, in the
-    ``cod`` order: FFT at full resolution, nearest-downsample to the grid.
+    """texture -> affinities -> depth diffusion -> ConvNeXt embedding.
 
-    Returns ``(texture, embedding)``: the full-resolution high-pass texture
-    and the (B, EMBED_DIM, H/4, W/4) prompt embedding."""
+    ``fft_at_grid`` picks the order of the texture: False (``cod``) takes the
+    FFT high-pass at full resolution and nearest-downsamples it to the grid;
+    True (``baseline``) resizes the image bilinearly to the grid and takes
+    the FFT there, so the texture itself is grid-sized.
 
-    def __init__(self, latent_dim=24, grid=12, freq_rate=0.3, kernel=7, steps=4,
+    Returns ``(texture, embedding)``: the high-pass texture and the
+    (B, EMBED_DIM, H/4, W/4) prompt embedding."""
+
+    def __init__(self, latent_dim=24, grid=12, freq_rate=0.3, kernel=7, steps=4, fft_at_grid=False,
                  convnext_dims: Sequence[int] = (128, 256, 512, 1024),
-                 convnext_depths: Sequence[int] = (3, 3, 27, 3), convnext_drop_path_rate: float = 0.4):
+                 convnext_depths: Sequence[int] = (3, 3, 27, 3), convnext_drop_path_rate: float = 0.4,
+                 remat: bool = False):
         super().__init__()
         self.grid = grid
         self.freq_rate = freq_rate
+        self.fft_at_grid = fft_at_grid
         self.propagation_weight_regressor = ShapePropWeightRegressor(3, latent_dim * kernel * kernel)
         self.encoder1 = conv2d(1, latent_dim, 1, init="pvt")
         self.message_passing = MessagePassing(latent_dim, kernel, steps)
-        self.encoder2 = ConvNeXtFPNEncoder(convnext_dims, convnext_depths, convnext_drop_path_rate)
+        self.encoder2 = ConvNeXtFPNEncoder(convnext_dims, convnext_depths, convnext_drop_path_rate, remat)
 
     def forward(self, image, depth):
         g = self.grid
-        texture = fft_high_pass(image, self.freq_rate)
-        tex_grid = resize_nearest(texture, (g, g))
+        if self.fft_at_grid:
+            texture = fft_high_pass(resize_bilinear(image, (g, g)), self.freq_rate)
+            tex_grid = texture
+        else:
+            texture = fft_high_pass(image, self.freq_rate)
+            tex_grid = resize_nearest(texture, (g, g))
         # a 1x1 conv and a bilinear resize commute, so the depth is resized
         # to the grid before encoder1 (as the JAX package does)
         depth_grid = resize_bilinear(depth, (g, g))

@@ -3,11 +3,12 @@
 
 All refinement iterations share the decoder modules. Keys follow the
 reference's ``Hitnet`` (``Translayer2_0``, ``decoder_level1``, ``SAM``, ...).
+``DQnet`` (``models/dqnet.py``) runs the same decoder over its own backbone.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -18,26 +19,15 @@ from .layers import BasicConv2d, CABStack, SAMFusion, conv2d
 from .pvt import PVT_V2_CONFIGS, PVTv2
 
 
-class HitNet(nn.Module):
-    """forward(image, depth) NCHW -> (texture, [refine_iters stage logits],
-    second logits), all at the input resolution. Train or eval follows the
-    module's mode (BatchNorm statistics, DropPath); ``drop_path_rate`` (PVT)
-    and ``convnext_drop_path_rate`` are the recipe's 0.1 and 0.4."""
+class HitNetDecoder(nn.Module):
+    """The decoder over the four PVT stage maps: CIM, translayers, the
+    ``refine_iters`` refinement iterations and the SAM fusion. A subclass
+    builds its backbone, then calls :meth:`build_decoder`, and decodes with
+    :meth:`decode`; the decoder's keys sit beside the backbone's."""
 
-    def __init__(self, channel=32, variant="b2", latent_dim=24, grid=12, freq_rate=0.3,
-                 diffusion_kernel=7, diffusion_steps=4,
-                 convnext_dims=(128, 256, 512, 1024), convnext_depths=(3, 3, 27, 3),
-                 refine_iters=4, drop_path_rate=0.1, convnext_drop_path_rate=0.4):
-        super().__init__()
-        dims, _, _, depths, _ = PVT_V2_CONFIGS[variant]
+    def build_decoder(self, dims: Sequence[int], channel: int, refine_iters: int) -> None:
         ch = channel
         self.refine_iters = refine_iters
-        prompt_encoder = PromptEncoder(latent_dim, grid, freq_rate, diffusion_kernel, diffusion_steps,
-                                       convnext_dims, convnext_depths, convnext_drop_path_rate)
-        prompt_decoder = nn.ModuleList(PromptDecoder(dims[s], depths[s], latent_dim) for s in range(4))
-        self.backbone = PVTv2(variant, prompt_encoder=prompt_encoder, prompt_decoder=prompt_decoder,
-                              drop_path_rate=drop_path_rate)
-
         self.decoder_level1 = CABStack(dims[0])
         self.Translayer2_0 = BasicConv2d(dims[0], ch, 1)
         self.Translayer2_1 = BasicConv2d(dims[1], ch, 1)
@@ -53,12 +43,9 @@ class HitNet(nn.Module):
         self.SAM = SAMFusion(ch)
         self.out_SAM = conv2d(ch, 1, 1)
 
-    def forward(self, image, depth):
-        bb = self.backbone
-        texture, embedding = bb.prompt_encoder(image, depth)
-        prompts = [dec(embedding) for dec in bb.prompt_decoder]
-        x1, x2, x3, x4 = bb(image, prompts)
-
+    def decode(self, image, x1, x2, x3, x4) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """Stage maps (strides 4/8/16/32) -> ([refine_iters stage logits],
+        second logits), at the image's resolution."""
         cim = self.decoder_level1(x1)
         x2_t = self.Translayer2_1(x2)
         x3_t = self.Translayer3_1(x3)
@@ -85,4 +72,47 @@ class HitNet(nn.Module):
         t2 = self.Translayer2_0(cim)
         t2 = resize_bilinear(t2, s8, align_corners=True, exact=False)
         pred2 = resize_bilinear(self.out_SAM(self.SAM(cfm, t2)), full)
+        return stage_preds, pred2
+
+
+class HitNet(HitNetDecoder):
+    """forward(image, depth) NCHW -> (texture, [refine_iters stage logits],
+    second logits), all at the input resolution. Train or eval follows the
+    module's mode (BatchNorm statistics, DropPath); ``drop_path_rate`` (PVT)
+    and ``convnext_drop_path_rate`` are the recipe's 0.1 and 0.4.
+
+    The ablation axes of ``docs/ABLATIONS.md``: ``use_prompts=False`` builds
+    no prompt modules (plain HitNet, texture None); ``inject_prompts=False``
+    builds them, so that their keys exist (``baseline``'s checkpoints hold
+    them), and runs none of them: texture None, no stencil, and their
+    parameters get no gradient. ``fft_at_grid`` and the diffusion settings
+    go to the prompt encoder, ``remat`` to the PVT and ConvNeXt blocks."""
+
+    def __init__(self, channel=32, variant="b2", latent_dim=24, grid=12, freq_rate=0.3,
+                 diffusion_kernel=7, diffusion_steps=4, fft_at_grid=False,
+                 convnext_dims=(128, 256, 512, 1024), convnext_depths=(3, 3, 27, 3), remat=False,
+                 refine_iters=4, use_prompts=True, inject_prompts=True,
+                 drop_path_rate=0.1, convnext_drop_path_rate=0.4):
+        super().__init__()
+        dims, _, _, depths, _ = PVT_V2_CONFIGS[variant]
+        self.use_prompts = use_prompts
+        self.inject_prompts = inject_prompts
+        self.fft_at_grid = fft_at_grid
+        prompt_encoder = prompt_decoder = None
+        if use_prompts:
+            prompt_encoder = PromptEncoder(latent_dim, grid, freq_rate, diffusion_kernel, diffusion_steps,
+                                           fft_at_grid, convnext_dims, convnext_depths, convnext_drop_path_rate,
+                                           remat)
+            prompt_decoder = nn.ModuleList(PromptDecoder(dims[s], depths[s], latent_dim) for s in range(4))
+        self.backbone = PVTv2(variant, prompt_encoder=prompt_encoder, prompt_decoder=prompt_decoder,
+                              drop_path_rate=drop_path_rate, remat=remat)
+        self.build_decoder(dims, channel, refine_iters)
+
+    def forward(self, image, depth):
+        bb = self.backbone
+        texture = prompts = None
+        if self.use_prompts and self.inject_prompts:
+            texture, embedding = bb.prompt_encoder(image, depth)
+            prompts = [dec(embedding) for dec in bb.prompt_decoder]
+        stage_preds, pred2 = self.decode(image, *bb(image, prompts))
         return texture, stage_preds, pred2

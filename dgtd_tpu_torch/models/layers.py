@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def conv2d(cin, cout, kernel, stride=1, padding=0, groups=1, bias=True, init="torch"):
@@ -127,6 +128,55 @@ def set_drop_path_generator(module: nn.Module, generator) -> None:
             m.generator = generator
 
 
+def checkpointed(block: nn.Module, *args):
+    """``block(*args)`` with activation checkpointing (``torch.utils.checkpoint``,
+    non-reentrant): the block's activations are dropped after the forward and
+    recomputed in backward (the JAX package's ``nn.remat``).
+
+    The recompute must compute what the forward did. The checkpoint restores
+    autocast and the global RNGs, but DropPath draws from explicit
+    generators, and ``cod.loss`` clears them and puts the module back in
+    eval mode before the backward. So the recompute runs with every
+    submodule's mode, every DropPath's generator and each generator's state
+    as they were at the forward, and puts back what it found afterwards.
+    A BatchNorm would update its running statistics twice: a block that
+    holds one raises."""
+    modules = list(block.modules())
+    if any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in modules):
+        raise ValueError(f"checkpointed: {type(block).__name__} holds a BatchNorm, "
+                         "whose statistics the recompute would update again")
+    drops = [m for m in modules if isinstance(m, DropPath)]
+    saved = ([m.training for m in modules], [m.generator for m in drops],
+             {id(g): (g, g.get_state()) for m in drops if (g := m.generator) is not None})
+    calls = [0]
+
+    def swap(state):
+        """Put ``state`` (modes, generators, generator states) in place;
+        returns what was there."""
+        modes, gens, gen_states = state
+        was = ([m.training for m in modules], [m.generator for m in drops],
+               {k: (g, g.get_state()) for k, (g, _) in gen_states.items()})
+        for m, t in zip(modules, modes):
+            m.training = t
+        for m, g in zip(drops, gens):
+            m.generator = g
+        for g, st in gen_states.values():
+            g.set_state(st)
+        return was
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(*a)
+        was = swap(saved)
+        try:
+            return block(*a)
+        finally:
+            swap(was)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
 class BasicConv2d(nn.Module):
     """conv (no bias) -> BatchNorm (eps 1e-5). The reference defines a ReLU
     but never applies it; neither does this.
@@ -161,11 +211,11 @@ class BasicConv2d(nn.Module):
 class CALayer(nn.Module):
     """MPRNet channel attention: global mean -> 1x1 -> ReLU -> 1x1 -> sigmoid."""
 
-    def __init__(self, c, reduction):
+    def __init__(self, c, reduction, bias=False):
         super().__init__()
         mid = max(1, c // reduction)
         self.conv_du = nn.Sequential(
-            conv2d(c, mid, 1, bias=False), nn.ReLU(), conv2d(mid, c, 1, bias=False), nn.Sigmoid()
+            conv2d(c, mid, 1, bias=bias), nn.ReLU(), conv2d(mid, c, 1, bias=bias), nn.Sigmoid()
         )
 
     def forward(self, x):
@@ -173,27 +223,27 @@ class CALayer(nn.Module):
 
 
 class CAB(nn.Module):
-    """3x3 conv -> PReLU -> 3x3 conv -> CALayer (reduction 4), plus the
-    residual; no biases (the HitNet decoder's setting)."""
+    """k x k conv -> PReLU -> k x k conv -> CALayer, plus the residual; the
+    defaults (3x3, reduction 4, no biases) are the HitNet decoder's."""
 
-    def __init__(self, c):
+    def __init__(self, c, kernel=3, reduction=4, bias=False):
         super().__init__()
         self.body = nn.Sequential(
-            conv2d(c, c, 3, padding=1, bias=False),
+            conv2d(c, c, kernel, padding=kernel // 2, bias=bias),
             PReLU(),
-            conv2d(c, c, 3, padding=1, bias=False),
+            conv2d(c, c, kernel, padding=kernel // 2, bias=bias),
         )
-        self.CA = CALayer(c, reduction=4)
+        self.CA = CALayer(c, reduction, bias)
 
     def forward(self, x):
         return self.CA(self.body(x)) + x
 
 
 class CABStack(nn.Sequential):
-    """Two chained CABs (keys ``<name>.<i>.body...``)."""
+    """``n`` chained CABs (keys ``<name>.<i>.body...``)."""
 
-    def __init__(self, c):
-        super().__init__(CAB(c), CAB(c))
+    def __init__(self, c, n=2, kernel=3, reduction=4, bias=False):
+        super().__init__(*[CAB(c, kernel, reduction, bias) for _ in range(n)])
 
 
 class SAMFusion(nn.Module):

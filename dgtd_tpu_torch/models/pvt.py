@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.image import resize_bilinear
-from .layers import DropPath, LayerNorm, conv2d, linear
+from .layers import DropPath, LayerNorm, checkpointed, conv2d, linear
 
 PVT_V2_CONFIGS = {
     # name: (embed_dims, num_heads, mlp_ratios, depths, sr_ratios)
@@ -125,12 +125,16 @@ class PVTv2(nn.Module):
 
     ``drop_path_rate`` is the last block's stochastic-depth rate; the blocks
     get ``linspace(0, rate, Σdepths)`` in order (the dropout rates are all 0).
+    ``remat`` recomputes each block's activations in backward instead of
+    keeping them (``layers.checkpointed``), in a train-mode forward that
+    records gradients.
 
     Returns the 4 stage maps (NCHW, strides 4/8/16/32)."""
 
     def __init__(self, variant="b2", prompt_encoder: Optional[nn.Module] = None,
-                 prompt_decoder: Optional[nn.Module] = None, drop_path_rate: float = 0.1):
+                 prompt_decoder: Optional[nn.Module] = None, drop_path_rate: float = 0.1, remat: bool = False):
         super().__init__()
+        self.remat = remat
         dims, heads, ratios, depths, srs = PVT_V2_CONFIGS[variant]
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         cur = 0
@@ -148,6 +152,7 @@ class PVTv2(nn.Module):
             self.prompt_decoder = prompt_decoder
 
     def forward(self, x, prompts: Optional[List[List[torch.Tensor]]] = None):
+        remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for s in range(4):
             x, h, w = getattr(self, f"patch_embed{s + 1}")(x)
@@ -155,7 +160,7 @@ class PVTv2(nn.Module):
                 if prompts is not None:
                     p = resize_bilinear(prompts[s][i], (h, w), exact=False)
                     x = x + p.flatten(2).transpose(1, 2).to(x.dtype)
-                x = blk(x, h, w)
+                x = checkpointed(blk, x, h, w) if remat else blk(x, h, w)
             x = getattr(self, f"norm{s + 1}")(x)
             x = _to_map(x, h, w)
             outs.append(x)

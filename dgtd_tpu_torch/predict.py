@@ -3,13 +3,16 @@
 
     python -m dgtd_tpu_torch.predict --checkpoint weights.pth \\
         --image-dir data/Imgs --depth-dir data/depth --out-dir masks \\
-        [--size 384] [--batch 8] [--fp32] [-o variant=b0] [--device cpu]
+        [--model cod|baseline|DQnet] [--size 384] [--batch 8] [--fp32] \\
+        [-o variant=b0] [-o diffusion_kernel=11] [--device cpu]
 
 ``--checkpoint`` takes a port ``state_dict`` (``.pth``; a reference
 ``epoch_N.pth`` loads too) or a JAX flat ``.npz``, carried across by
 ``convert.state_dict_from_flax``. Depth maps pair with images by sorted order;
-without ``--depth-dir`` a zero depth plane is used. Runs on CUDA unless
-``--device`` names another device; a missing card raises.
+without ``--depth-dir`` a zero depth plane is used. ``-o`` sets the model's
+arguments (an ablation axis of ``docs/ABLATIONS.md``, a smaller variant).
+Runs on CUDA unless ``--device`` names another device; a missing card
+raises.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from . import models as _models  # noqa: F401  (registers the models)
 from .core.config import parse_overrides
 from .core.device import resolve_device
 from .core.registry import MODELS
@@ -70,7 +74,7 @@ def parse_args(argv=None):
     ap.add_argument("--image-dir", required=True)
     ap.add_argument("--depth-dir", default=None)
     ap.add_argument("--out-dir", required=True)
-    ap.add_argument("--model", default="cod")
+    ap.add_argument("--model", default="cod", help="a registered model: cod, baseline or DQnet")
     ap.add_argument("--size", type=int, default=384)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--fp32", action="store_true")

@@ -1,4 +1,5 @@
-"""Runner hooks: logging, checkpointing, pretrained-weight init and the val
+"""Runner hooks: logging, checkpointing, the models' pretrained-weight init
+(``our_init``, ``baseline_init``, ``PretrainInitHook``) and the val
 checkpoint (counterpart of ``dgtd_tpu/train/hooks.py``). ``ProfilerHook``
 waits for a later slice.
 """
@@ -126,16 +127,17 @@ def _pretrain_state(path: str, port_prefix: str, jax_subtree: str) -> Dict[str, 
     return state
 
 
-@HOOKS.register
-class our_init(Hook):
-    """The ``cod`` init hook: before training, load a pretrained PVTv2 into
-    ``hitnet.backbone`` and a ConvNeXt into the prompt encoder's tower;
-    before a val pass, restore ``val_ckpt`` (``Runner.restore_checkpoint``).
+class _PretrainInit(Hook):
+    """The reference's init hooks: before training, load each pretrained
+    tower named in ``towers`` (the hook's argument, the port's module, the
+    JAX package's subtree); before a val pass, restore ``val_ckpt``
+    (``Runner.restore_checkpoint``).
 
-    With no paths it does nothing (the recipe names none). A named file that
+    With no paths it does nothing (the recipes name none). A named file that
     is missing, or that matches no parameter, raises: a val pass on a missing
-    ``val_ckpt`` would score random weights. After a resume it loads no
-    pretrain: the checkpoint already holds the fine-tuned weights."""
+    ``val_ckpt`` would score random weights. So does a tower the model does
+    not have (a ``cod``-shaped hook on ``DQnet``). After a resume it loads
+    no pretrain: the checkpoint already holds the fine-tuned weights."""
 
     priority = 40
     towers = (("backbone_ckpt", "hitnet.backbone", "hitnet/backbone"),
@@ -148,8 +150,9 @@ class our_init(Hook):
         self.val_ckpt = val_ckpt
 
     def before_train(self, runner):
+        name = type(self).__name__
         if runner.resumed:
-            runner.log({"hook": "our_init", "skip_pretrains": "resumed"})
+            runner.log({"hook": name, "skip_pretrains": "resumed"})
             return
         for attr, port_prefix, jax_subtree in self.towers:
             path = getattr(self, attr)
@@ -160,20 +163,50 @@ class our_init(Hook):
         if not self.val_ckpt:
             return
         if not os.path.exists(self.val_ckpt):
-            raise FileNotFoundError(f"our_init: val_ckpt {self.val_ckpt} does not exist")
+            raise FileNotFoundError(f"{type(self).__name__}: val_ckpt {self.val_ckpt} does not exist")
         runner.restore_checkpoint(self.val_ckpt)
 
     def _load(self, runner, path, port_prefix, jax_subtree):
+        name = type(self).__name__
         if not os.path.exists(path):
-            raise FileNotFoundError(f"our_init: {path} does not exist")
-        module = runner.model.get_submodule(port_prefix)
+            raise FileNotFoundError(f"{name}: {path} does not exist")
+        try:
+            module = runner.model.get_submodule(port_prefix)
+        except AttributeError:
+            raise ValueError(f"{name}: the model ({type(runner.model).__name__}) has no module '{port_prefix}' "
+                             "— wrong init hook for this model? (DQnet takes PretrainInitHook)") from None
         state = _pretrain_state(path, port_prefix, jax_subtree)
         own = module.state_dict()
         matched = {k: v for k, v in state.items() if k in own and tuple(v.shape) == tuple(own[k].shape)}
         if not matched:
             raise ValueError(
-                f"our_init: 0 of {len(state)} arrays from {path} match a parameter of {port_prefix}"
+                f"{name}: 0 of {len(state)} arrays from {path} match a parameter of {port_prefix}"
                 " — wrong checkpoint for this tower?"
             )
         module.load_state_dict(matched, strict=False)
-        runner.log({"hook": "our_init", "loaded": len(matched), "from": path, "into": port_prefix})
+        runner.log({"hook": name, "loaded": len(matched), "from": path, "into": port_prefix})
+
+
+@HOOKS.register
+class our_init(_PretrainInit):
+    """The ``cod`` init hook: a pretrained PVTv2 into ``hitnet.backbone``, a
+    ConvNeXt into the prompt encoder's tower."""
+
+
+@HOOKS.register
+class baseline_init(_PretrainInit):
+    """The ``baseline`` init hook: the same towers as ``our_init``."""
+
+
+@HOOKS.register
+class PretrainInitHook(_PretrainInit):
+    """The ``DQnet`` init hook: a pretrained PVTv2 into the top-level
+    ``backbone``. DQnet has no ConvNeXt tower, so ``convnext_ckpt`` raises."""
+
+    towers = (("backbone_ckpt", "backbone", "backbone"),)
+
+    def __init__(self, backbone_ckpt: Optional[str] = None, convnext_ckpt: Optional[str] = None,
+                 val_ckpt: Optional[str] = None):
+        if convnext_ckpt:
+            raise ValueError("PretrainInitHook: DQnet has no ConvNeXt tower to load convnext_ckpt into")
+        super().__init__(backbone_ckpt, None, val_ckpt)

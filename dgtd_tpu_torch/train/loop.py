@@ -28,7 +28,7 @@ from ..data.device_norm import IMAGENET_MEAN, IMAGENET_STD, normalize_image, sca
 from ..data.loader import DataLoader
 from ..metrics import evaluators as _evaluators  # noqa: F401  (registers the metrics)
 from ..metrics.device import batch_statistics, statistics_to_host
-from ..models import cod as _cod  # noqa: F401  (registers the models)
+from .. import models as _models  # noqa: F401  (registers the models)
 from ..predict import load_checkpoint
 from ..utils.visualizer import build_visualizer
 from . import hooks as _hooks  # noqa: F401  (registers the hooks)
@@ -91,7 +91,8 @@ class Runner:
 
         self.model = MODELS.build(dict(cfg["model"]), dtype=dtype, seed=seed).to(self.device)
         self.optimizer = Optimizer(self.model.named_parameters(), cfg.get("optim_wrapper", {}) or {},
-                                   self.max_epochs, self.steps_per_epoch)
+                                   self.max_epochs, self.steps_per_epoch,
+                                   frozen_prefixes=self.model.frozen_param_prefixes)
         self.hooks = [HOOKS.build(h) for h in (cfg.get("default_hooks") or {}).values()]
         self.hooks += [HOOKS.build(h) for h in cfg.get("custom_hooks") or []]
         self.hooks.sort(key=lambda h: h.priority)

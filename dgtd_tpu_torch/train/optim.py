@@ -6,14 +6,14 @@ The port's parameter names are the reference's dotted names
 ``paramwise_cfg.custom_keys`` match them as they stand: the longest key that
 is a dotted prefix of a name sets its multiplier, and a key that matches no
 parameter raises. Weight decay applies to every parameter, as ``optax.adamw``
-with no mask does. The lr of each group is set before every step from the
-step count, so a resumed run needs no scheduler state.
+with no mask does, except the frozen ones. The lr of each group is set before
+every step from the step count, so a resumed run needs no scheduler state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -43,10 +43,18 @@ def _custom_keys(optim_cfg: dict) -> Dict[str, float]:
 class Optimizer:
     """``torch.optim.AdamW`` over one param group per lr multiplier, built
     from a reference-schema ``optim_wrapper`` block. :meth:`step` sets every
-    group's lr for the step, clips, steps and clears the gradients."""
+    group's lr for the step, clips, steps and clears the gradients.
+
+    ``frozen_prefixes`` (a model's ``frozen_param_prefixes``) name the
+    parameters the forward never uses: they stay out of the param groups and
+    the clipping, so they take no update and no weight decay and stay
+    bit-identical, as under the reference's DDP with
+    ``find_unused_parameters=True``. ``custom_keys`` may still name them. A
+    frozen parameter that receives a gradient raises at the step: its
+    module ran."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], optim_cfg: dict,
-                 max_epochs: int, steps_per_epoch: int):
+                 max_epochs: int, steps_per_epoch: int, frozen_prefixes: Sequence[str] = ()):
         opt = optim_cfg.get("optimizer", {})
         if opt.get("type", "AdamW") != "AdamW":
             raise ValueError(f"only AdamW recipes are supported, got {opt.get('type')!r}")
@@ -58,6 +66,9 @@ class Optimizer:
         unmatched = [k for k in keys if not any(n == k or n.startswith(k + ".") for n, _ in named)]
         if unmatched:
             raise ValueError(f"paramwise_cfg.custom_keys entries match no parameter: {unmatched}")
+        frozen = tuple(frozen_prefixes)
+        self.frozen = [(n, p) for n, p in named if n.startswith(frozen)]
+        named = [(n, p) for n, p in named if not n.startswith(frozen)]
         groups: Dict[float, list] = {}
         for n, p in named:
             groups.setdefault(lr_mult(n, keys), []).append(p)
@@ -82,6 +93,10 @@ class Optimizer:
 
     def step(self, step: int) -> None:
         """Apply the gradients of train step ``step`` (0-based)."""
+        ran = [n for n, p in self.frozen if p.grad is not None]
+        if ran:
+            raise RuntimeError(f"{len(ran)} frozen parameters received a gradient (first: {ran[:3]}): "
+                               "the forward ran a module it should skip")
         if self.clip_value is not None:
             torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
         if self.max_norm is not None:

@@ -33,6 +33,14 @@ def resize_bilinear(
     return y.to(x.dtype)
 
 
+def resize_scale(x: torch.Tensor, scale: float, align_corners: bool = False) -> torch.Tensor:
+    """``F.interpolate(scale_factor=scale)``'s output size, floor(size·scale),
+    with the source indices of a resize to that size (as the JAX package
+    does)."""
+    h, w = x.shape[-2:]
+    return resize_bilinear(x, (int(np.floor(h * scale)), int(np.floor(w * scale))), align_corners)
+
+
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Legacy ``nearest``: src index = floor(dst * in / out)."""
     h, w = x.shape[-2:]
@@ -61,6 +69,15 @@ def avg_pool(x: torch.Tensor, kernel: int, stride: int = 1, padding: int = 0) ->
     dtype."""
     y = F.avg_pool2d(x.float(), kernel, stride, padding, count_include_pad=True)
     return y.to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """Max pool over the two spatial dims, padded with the dtype's minimum
+    (any dtype, integers too)."""
+    lo = torch.finfo(x.dtype).min if x.is_floating_point() else torch.iinfo(x.dtype).min
+    if padding:
+        x = F.pad(x, (padding, padding, padding, padding), value=lo)
+    return x.unfold(-2, kernel, stride).unfold(-2, kernel, stride).amax(dim=(-2, -1))
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

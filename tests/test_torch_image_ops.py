@@ -130,3 +130,25 @@ def test_normalize_batch_matches_jax():
     for k in ("input", "depth", "label"):
         assert got[k].dtype == torch.float32
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("hw,scale", [((24, 20), 0.5), ((25, 19), 0.5), ((12, 10), 2.0), ((13, 7), 0.37)])
+@pytest.mark.parametrize("align", [False, True])
+def test_resize_scale_matches_jax(hw, scale, align):
+    x = np.random.RandomState(7).randn(2, *hw, 3).astype(np.float32)
+    ref = np.asarray(J.resize_scale(jnp.asarray(x), scale, align))
+    out = nhwc(T.resize_scale(nchw(x), scale, align))
+    assert out.shape == ref.shape == (2, int(np.floor(hw[0] * scale)), int(np.floor(hw[1] * scale)), 3)
+    np.testing.assert_allclose(out, ref, **BILINEAR_TOL)
+
+
+@pytest.mark.parametrize("kernel,stride,pad", [(3, 2, 1), (2, 2, 0), (3, 1, 1), (5, 3, 2)])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_max_pool_matches_jax(kernel, stride, pad, dtype):
+    """Padding with the dtype's minimum, so a window of negatives keeps its
+    own maximum; integers too."""
+    x = (np.random.RandomState(8).randn(2, 11, 9, 3) * 100 - 50).astype(dtype)
+    ref = np.asarray(J.max_pool(jnp.asarray(x), kernel, stride, pad))
+    out = nhwc(T.max_pool(nchw(x), kernel, stride, pad))
+    assert out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)

@@ -109,6 +109,8 @@ def test_fused_path_predicate(h, w, k, fused, dtype):
     (65, 64, 7, "per_step"),  # 9 strips
     (90, 90, 7, "per_step"), (96, 96, 7, "per_step"), (128, 128, 7, "per_step"),
     (64, 64, 9, "per_step"),  # k not a template argument
+    (12, 12, 9, "per_step"), (12, 12, 11, "per_step"),  # the kernel9 and kernel11 ablations at the recipe's grid
+    (12, 12, 3, "fused"),  # baseline's k = 3 (cod -o model.diffusion_kernel=3)
     (8, 512, 3, "cluster"),  # strips of one row, r = 1
     (8, 512, 5, "per_step"),  # a strip shorter than r = 2
     (16, 200, 5, "cluster"), (16, 200, 7, "per_step"),  # strips of 2 rows
@@ -456,6 +458,48 @@ def test_cuda_function_gradients_above_the_fused_limit(cuda, hw, launches):
     D.diffusion_planes_plain(xb, wb, 7, 4).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
+
+
+# the ablations' planes at the recipe's grid and train batch (10 x 24
+# latent channels): kernel9 and kernel11 take the per-step kernels (r = 5:
+# the halo is most of a 12x12 plane), k = 3 at 6 steps the fused ones
+VARIANT_PLANES = [(9, 4, "per_step"), (11, 4, "per_step"), (3, 6, "fused")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,steps,route", VARIANT_PLANES, ids=[f"k{k}s{s}" for k, s, _ in VARIANT_PLANES])
+def test_cuda_model_variant_planes_match_plain(cuda, k, steps, route):
+    """Forward and backward through the autograd Function on (240, 12, 12)
+    planes, fp32 and bf16, against the plain versions; per call 1 + 1
+    launches on the fused route, steps + steps on the per-step one."""
+    x, w = _planes(20 + k, 240, 12, 12, k, cuda)
+    g = torch.rand(240, 12, 12, generator=torch.Generator().manual_seed(k)).to(cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        assert D.stencil_route(12, 12, k, dt) == route
+        xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
+        xa, wa = xd.clone().requires_grad_(), wd.clone().requires_grad_()
+        before = _plane_launches()
+        out = D.diffusion_planes(xa, wa, k, steps)
+        out.backward(gd)
+        torch.cuda.synchronize()
+        per_call = steps if route == "per_step" else 1
+        slot = {"fused": 0, "per_step": 4}[route]
+        add = [0] * 6
+        add[slot] = add[slot + 1] = per_call
+        assert _plane_launches() == tuple(b + a for b, a in zip(before, add))
+        ref = D.diffusion_planes_plain(xd.float(), wd.float(), k, steps)
+        xs = [xd]
+        for _ in range(steps - 1):
+            xs.append(D.diffusion_step_plain(xs[-1], wd, k))
+        rdx, rdw = D.diffusion_planes_bwd_plain(gd, xs, wd, k)
+        if dt == torch.float32:
+            torch.testing.assert_close(out.detach(), ref, **FP32_TOL)
+            tol = FP32_TOL
+        else:
+            torch.testing.assert_close(out.detach().float(), ref, rtol=0, atol=bf16_atol(steps))
+            tol = BWD_BF16_TOL
+        torch.testing.assert_close(xa.grad.float(), rdx.float(), **tol)
+        torch.testing.assert_close(wa.grad.float(), rdw.float(), **tol)
 
 
 @pytest.mark.cuda

@@ -17,9 +17,11 @@ import jax
 import jax.numpy as jnp
 from flax.traverse_util import flatten_dict
 
+from dgtd_tpu.core.registry import MODELS as JAX_MODELS
 from dgtd_tpu.models import cod as JaxCod
 from dgtd_tpu.tools.convert_ckpt import map_full_key
 from dgtd_tpu_torch.convert import map_flax_key
+from dgtd_tpu_torch.core.registry import MODELS
 from dgtd_tpu_torch.models.cod import cod as PortCod
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,6 +70,31 @@ def test_full_width_parameter_count(full_width):
     n_jax = sum(int(np.prod(s)) for k, s in jax_leaves.items() if k.startswith("params/"))
     assert n_port == n_jax
     assert round(n_port / 1e6, 1) == 114.4
+
+
+@pytest.mark.parametrize("name", ["baseline", "DQnet"])
+def test_full_width_baseline_and_dqnet_keys_are_the_mapped_jax_tree(name):
+    """``baseline`` on cod's table (its k = 3 weight regressor the one shape
+    that differs from cod's), ``DQnet`` on the DQnet rules: every JAX leaf
+    maps to a port key of the same shape, and every port key is reached."""
+    m = JAX_MODELS.get(name)(dtype=jnp.float32)
+    shapes = jax.eval_shape(
+        lambda r: m.net.init({"params": r}, jnp.zeros((1, 384, 384, 3)), jnp.zeros((1, 384, 384, 1)), train=False),
+        jax.random.PRNGKey(0),
+    )
+    with torch.device("meta"):
+        port = MODELS.get(name)(seed=None)
+    port_shapes = {k: tuple(v.shape) for k, v in port.state_dict().items() if not k.endswith("num_batches_tracked")}
+    mapped = {}
+    for key, v in flatten_dict(shapes, sep="/").items():
+        coll, path = key.split("/", 1)
+        hit = map_flax_key(path, coll)
+        assert hit is not None, key
+        mapped[hit[0]] = hit[1](np.broadcast_to(np.float32(0), v.shape)).shape
+    assert mapped == port_shapes
+    if name == "baseline":
+        assert port_shapes["hitnet.backbone.prompt_encoder.propagation_weight_regressor.reg.weight"] == (24 * 9, 3, 1, 1)
+        assert sum(p.numel() for p in port.parameters()) == 114413215 - 24 * 40 * 4
 
 
 def _imports(path):
