@@ -12,7 +12,12 @@ Phases (any failure exits non-zero):
      all 4 steps in one launch; 64x64 and 23x23, above the fused limit,
      which take the cluster kernel, all 4 steps in one launch of a thread
      block cluster a plane; 96x96, beyond the cluster's reach, which takes
-     the per-step kernel; P = 192 planes, 48 at 96x96; fp32 and bf16), each
+     the tiled kernel, all 4 steps in one launch over tiles of the plane
+     with a recomputed halo; P = 192 planes, 48 at 96x96; fp32 and bf16),
+     then the tiled kernel's own planes (TILED_CHECKS: (192,96,96),
+     serving_check's (24,512,512) in bf16, the kernel9 and kernel11
+     ablations' (192,12,12) and (240,12,12), a 1-row plane wider than a
+     tile, planes that are not multiples of their tiles, 6 steps), each
      case's launches read from the kernel's own counter;
   3. serve full-width ``cod`` (PVTv2-b2 + ConvNeXt-B, seeded random weights)
      at 384², batch 8, through ``dgtd_tpu_torch.predict.main`` with a saved
@@ -25,14 +30,15 @@ Phases (any failure exits non-zero):
   5. time the fused kernel per call (CUDA events; through the autograd
      Function and the launch wrapper alone beside it), the per-step kernels
      on the same tensors, the plain version, and served batches;
-  6. hold the stencil's backward kernels (fused, cluster, per-step) against
+  6. hold the stencil's backward kernels (fused, cluster, tiled) against
      the plain backward (the same cases at P = 240, 48 at 96x96, fp32 and
-     bf16) and the autograd Function's 4-step backward (one fused launch
-     each way) against autograd through the plain forward;
+     bf16; the tiled kernel's planes at 1 step and at their step count) and
+     the autograd Function's 4-step backward (one fused launch each way)
+     against autograd through the plain forward;
   7. tiny ``cod``: loss and every parameter gradient, fp32 on the card (TF32
      off) against the CPU, same weights and inputs, drop-path rates 0, at
-     grid 8 (fused kernels) and at grid 64 (cluster kernels, one launch each
-     way, read from their counters);
+     grid 8 (fused kernels), grid 64 (cluster kernels) and grid 96 (tiled
+     kernels), one launch each way, read from their counters;
   8. train full-width ``cod`` through ``dgtd_tpu_torch.train.cli.main`` with
      ``configs/cod.yml`` (384², batch 10, bf16 autocast) on 30 synthetic
      images for 2 epochs (6 steps), validating after epoch 2 on 8 synthetic
@@ -70,8 +76,11 @@ Phases (any failure exits non-zero):
      each way read from the counters, checked against the plain versions,
      timed in bf16 and fp32 beside the per-step kernels called directly on
      the same tensors; the cluster occupancy at 8 blocks and at a
-     non-portable 16; then the per-step kernels' own path, (192, 96, 96)
-     planes beyond the cluster's reach, one launch a step each way;
+     non-portable 16; then the tiled kernels on (192, 96, 96) planes beyond
+     the cluster's reach (bf16 and fp32) and on serving_check's
+     (24, 512, 512) (bf16), one launch each way, checked and timed the same
+     way beside the per-step kernels on the same tensors, in bf16 at 4 steps
+     and at 1 (one tiled launch beside one per-step launch each way);
  15. ``cod`` at ``grid=64``: served through ``dgtd_tpu_torch.predict.main``
      with ``-o grid=64`` (bf16, batch 8; one cluster forward a batch) and
      trained through ``dgtd_tpu_torch.train.cli.main`` with
@@ -79,7 +88,10 @@ Phases (any failure exits non-zero):
      one cluster backward a step), the launch counts read around each run;
      the cluster forward re-checked on the served stencil inputs; fp32 on the
      card held to the CPU on a small input; served ms per batch and train ms
-     per step at grid 64 and grid 12 in turns;
+     per step at grid 64 and grid 12 in turns; then ``cod`` at ``grid=96``
+     the same way (one tiled forward a served batch, one tiled forward and
+     one tiled backward a train step), the tiled kernels re-checked on the
+     served and trained stencil tensors;
  16. the val pass: full-width ``cod -m val`` through
      ``dgtd_tpu_torch.test.main`` (``configs/cod.yml``, bf16, ``val_ckpt`` =
      phase 8's ``epoch_2.pth``) on a SOD_TEST PNG tree of 16 images of mixed
@@ -93,8 +105,10 @@ Phases (any failure exits non-zero):
  17. model variants: the model family at full width (PVTv2-b2, the
      ConvNeXt-B tower where there is one), 384², bf16: ``baseline``,
      ``DQnet``, ``cod -o model.use_prompts=false``, ``cod -o
-     model.diffusion_kernel=11`` (the per-step kernels at the recipe's 12x12
-     grid, 4 + 4 launches a step), ``cod -o model.diffusion_kernel=3 -o
+     model.diffusion_kernel=11`` (the tiled kernels at the recipe's 12x12
+     grid, one tile a plane, 1 + 1 launches a step), ``cod -o
+     model.diffusion_kernel=13`` (beyond the tiled kernels' templates: the
+     per-step kernels, 4 + 4 launches a step), ``cod -o model.diffusion_kernel=3 -o
      model.diffusion_steps=6`` (the fused kernels at k = 3) and ``cod -o
      model.fft_at_grid=true -o model.use_ssim=false``, each trained 2 steps at
      batch 10 through the Runner and served 2 batches of 8 through
@@ -102,20 +116,23 @@ Phases (any failure exits non-zero):
      run read from the counters (none for baseline, DQnet and
      use_prompts=false), with its parameter count, ms per served batch and
      train step, and peak memory; baseline's frozen prompt modules bit-equal
-     after its steps; the per-step kernels at k = 9 and 11 and the fused
-     kernel at k = 3, 6 steps, against their plain versions on (240, 12, 12)
-     planes, fp32 and bf16, and on the kernel11 run's own tensors;
+     after its steps; the tiled kernels at k = 9 and 11, the fused kernel at
+     k = 3, 6 steps and the per-step kernels at k = 13 against their plain
+     versions on (240, 12, 12) planes, fp32 and bf16; the tiled kernels on
+     the kernel11 run's own tensors, timed beside the per-step kernels, and
+     the per-step kernels on the kernel13 run's own tensors, timed;
      ``remat`` against no remat (same weights, batch and DropPath
      generator: loss and every gradient, peak memory of both); tiny
      baseline and DQnet, fp32 on the card against the CPU;
- 18. the device time per call of every stencil kernel timed in phases 5, 9
-     and 14, from ``torch.profiler`` (last, so that its tracing cannot slow
+ 18. the device time per call of every stencil kernel timed in phases 5, 9,
+     14 and 17, from ``torch.profiler`` (last, so that its tracing cannot slow
      the host-bound timings).
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
-cluster and the per-step kernels; the per-step kernels' launches are the
-kernel11 variant's), a served-throughput line, a ``trained``, a ``grid64``,
+cluster, the tiled and the per-step kernels; the tiled kernels' launches
+are those of cod at grid 96 and of the kernel11 variant, the per-step
+kernels' those of the kernel13 variant), a served-throughput line, a ``trained``, a ``grid64``,
 a ``val``, a ``variants`` and an ``msda`` JSON line, each with the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -137,14 +154,30 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL, STEPS, P_MAIN = 7, 4, 8 * 24  # served stencil: k=7, 4 steps, B·C planes
+P_TRAIN = 10 * 24  # train stencil: batch 10 x 24 latent channels
 # 12x12 (the recipe's grid) and 13x20 take the fused kernels; 64x64 (the
 # paper's grid-64 ablation, where the JAX package turns to Pallas) and 23x23
 # (529 pixels, just above the fused limit) the cluster ones; 96x96 (beyond a
-# cluster of 8 blocks of 512 pixels) the per-step ones
+# cluster of 8 blocks of 512 pixels) the tiled ones
 SHAPES = [(k, hw) for k in (1, 3, 7) for hw in ((12, 12), (13, 20), (64, 64), (23, 23), (96, 96))]
 GRID64 = (64, 64)  # the cluster kernels' main path (phases 14, 15)
-LARGE = (96, 96)  # the per-step kernels' own path (phase 14)
+LARGE = (96, 96)  # the tiled kernels' main path (phases 14, 15)
 P_LARGE = 48  # planes of the 96x96 checks in phases 2 and 6, to keep their time
+# dgtd_tpu/tools/serving_check.py's diffusion block: C = 24 planes of a 512²
+# grid, k = 7, 4 steps (w 617 MB in bf16)
+SERVING_P, SERVING_GRID = 24, (512, 512)
+# the tiled kernels' checks in phases 2 and 6: (P, (H, W), k, steps, bf16
+# only); P None takes the phase's own P (192 forward, 240 backward).
+# Beyond a cluster's reach, serving_check's plane, the kernel9 and kernel11
+# ablations' planes, a 1-row plane whose row is wider than a tile, planes
+# that are not multiples of their tiles, and 6 steps
+TILED_CHECKS = [
+    (None, LARGE, 7, STEPS, False), (SERVING_P, SERVING_GRID, 7, STEPS, True),
+    (P_MAIN, (12, 12), 9, STEPS, False), (P_MAIN, (12, 12), 11, STEPS, False),
+    (P_TRAIN, (12, 12), 9, STEPS, False), (P_TRAIN, (12, 12), 11, STEPS, False),
+    (None, (1, 4096), 7, STEPS, False), (None, (100, 75), 7, STEPS, False), (None, (17, 241), 5, STEPS, False),
+    (None, LARGE, 7, 6, False), (None, (4097, 1), 11, 6, False),
+]
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 # per-step bf16 rounding of O(1) convex combinations: each rounding under
 # 2^-9, so s steps drift up to s·2^-9 (tests/test_torch_kernels.py::bf16_atol)
@@ -152,7 +185,6 @@ BF16_ATOL = 1e-2
 MEAN_ATOL = 2e-3  # bf16 vs fp32 mean probability (tests/test_golden_forward.py)
 CPU_PROB_ATOL = 1e-3  # fp32 card vs fp32 CPU, TF32 off, full-width model
 N_IMAGES, BATCH, SIZE = 20, 8, 384  # 3 batches, the last padded from 4
-P_TRAIN = 10 * 24  # train stencil: batch 10 x 24 latent channels
 # backward, fp32: dx is a 49-term sum in another order than F.fold's, dw an
 # exact product (one step) or a 4-term sum
 BWD_FP32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -187,12 +219,14 @@ FIRST_LOSS_RTOL = 1e-2
 # the model-variants phase (17): the registered models and ablation axes
 # at full width, each trained VARIANT_STEPS steps at TRAIN_BATCH through the
 # Runner and served VARIANT_SERVE images at BATCH through predict.main
-K11 = 11  # the kernel11 ablation: per-step kernels at the recipe's 12x12 grid
+K11 = 11  # the kernel11 ablation: the tiled kernels at the recipe's 12x12 grid, one tile a plane
+K13 = 13  # beyond the tiled kernels' templates: the per-step kernels' own path
 VARIANTS = [  # (label, model.type, the model's -o overrides)
     ("baseline", "baseline", {}),
     ("DQnet", "DQnet", {}),
     ("pure_hitnet", "cod", {"use_prompts": False}),
     ("kernel11", "cod", {"diffusion_kernel": K11}),
+    ("kernel13", "cod", {"diffusion_kernel": K13}),
     ("kernel3_steps6", "cod", {"diffusion_kernel": 3, "diffusion_steps": 6}),
     ("fft2", "cod", {"fft_at_grid": True, "use_ssim": False}),
 ]
@@ -292,41 +326,43 @@ def device_ms(fn, iters, match):
 
 
 #: the order of plane_launches' counters
-LAUNCH_NAMES = "fused fwd, fused bwd, cluster fwd, cluster bwd, step fwd, step bwd"
+LAUNCH_NAMES = "fused fwd, fused bwd, cluster fwd, cluster bwd, step fwd, step bwd, tiled fwd, tiled bwd"
+NO_LAUNCHES = (0,) * 8
 
 
 def plane_launches(D):
     """The plane stencil's launch counters: fused forward, fused backward,
-    cluster forward, cluster backward, per-step forward, per-step backward."""
+    cluster forward, cluster backward, per-step forward, per-step backward,
+    tiled forward, tiled backward."""
     return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.CLUSTER_LAUNCHES, D.CLUSTER_BWD_LAUNCHES,
-            D.LAUNCHES, D.BWD_LAUNCHES)
+            D.LAUNCHES, D.BWD_LAUNCHES, D.TILED_LAUNCHES, D.TILED_BWD_LAUNCHES)
 
 
 def reset_plane_launches(D):
     D.FUSED_LAUNCHES = D.FUSED_BWD_LAUNCHES = D.CLUSTER_LAUNCHES = D.CLUSTER_BWD_LAUNCHES = 0
-    D.LAUNCHES = D.BWD_LAUNCHES = 0
+    D.LAUNCHES = D.BWD_LAUNCHES = D.TILED_LAUNCHES = D.TILED_BWD_LAUNCHES = 0
 
 
 def launch_tuple(route, n_fwd=0, n_bwd=0):
     """plane_launches' increments for n_fwd forward and n_bwd backward
     launches of one route's kernels."""
-    add = [0] * 6
-    slot = {"fused": 0, "cluster": 2, "per_step": 4}[route]
+    add = [0] * 8
+    slot = {"fused": 0, "cluster": 2, "per_step": 4, "tiled": 6}[route]
     add[slot], add[slot + 1] = n_fwd, n_bwd
     return tuple(add)
 
 
 def expected_launches(D, shape, kernel, dtype, steps, bwd):
     """The counters' increments for one call of ``steps`` steps on planes
-    of this (H, W): one fused or cluster launch, or one per-step launch a
-    step."""
-    route = D.stencil_route(*shape, kernel, dtype)
+    of this (H, W): one fused, cluster or tiled launch, or one per-step
+    launch a step."""
+    route = D.plane_route(*shape, kernel, dtype, steps)
     n = steps if route == "per_step" else 1
     return launch_tuple(route, 0, n) if bwd else launch_tuple(route, n, 0)
 
 
 def planes_for(hw, p):
-    """P planes, or P_LARGE for the per-step kernels' large planes."""
+    """P planes, or P_LARGE for the 96x96 planes."""
     return P_LARGE if hw == LARGE else p
 
 
@@ -351,7 +387,7 @@ def check_kernel(D, x, w, kernel, steps, label):
     added = tuple(a - b for a, b in zip(plane_launches(D), before))
     want = expected_launches(D, x.shape[1:], kernel, x.dtype, steps, bwd=False)
     check(added == want, f"{label}: launches ({LAUNCH_NAMES}) {added}, expected {want}")
-    label = f"{label} [{D.stencil_route(*x.shape[1:], kernel, x.dtype)}]"
+    label = f"{label} [{D.plane_route(*x.shape[1:], kernel, x.dtype, steps)}]"
     if x.dtype == torch.float32:
         ref = D.diffusion_planes_plain(x, w, kernel, steps)
         torch.testing.assert_close(out, ref, **FP32_TOL, msg=lambda m: f"{label}: {m}")
@@ -399,7 +435,7 @@ def check_bwd(D, g, xs, w, kernel, label):
     added = tuple(a - b for a, b in zip(plane_launches(D), before))
     want = expected_launches(D, g.shape[1:], kernel, g.dtype, len(xs), bwd=True)
     check(added == want, f"{label}: launches ({LAUNCH_NAMES}) {added}, expected {want}")
-    label = f"{label} [{D.stencil_route(*g.shape[1:], kernel, g.dtype)}]"
+    label = f"{label} [{D.plane_route(*g.shape[1:], kernel, g.dtype, len(xs))}]"
     rdx, rdw = D.diffusion_planes_bwd_plain(g, xs, w, kernel)
     check(dx.dtype == g.dtype and dw.dtype == w.dtype, f"{label}: dtypes {dx.dtype} {dw.dtype}")
     tol = BWD_FP32_TOL if g.dtype == torch.float32 else BWD_BF16_TOL
@@ -725,7 +761,7 @@ def variant_launches(D, model_type, overrides, n_fwd, n_bwd):
     import torch
 
     if model_type != "cod" or not overrides.get("use_prompts", True) or not overrides.get("inject_prompts", True):
-        return (0,) * 6
+        return NO_LAUNCHES
     k, steps = overrides.get("diffusion_kernel", KERNEL), overrides.get("diffusion_steps", STEPS)
     fwd = expected_launches(D, (12, 12), k, torch.bfloat16, steps, bwd=False)
     bwd = expected_launches(D, (12, 12), k, torch.bfloat16, steps, bwd=True)
@@ -742,14 +778,14 @@ def variants_phase(D, MD, P, card):
     the counters around it against what the route says (none for baseline,
     DQnet and use_prompts=false); the parameter count, ms per served batch
     and per train step (back to back), the peak memory. Then: baseline's
-    prompt modules bit-equal after its steps; the per-step kernels (k = 9
-    and 11) and the fused kernel (k = 3, 6 steps) against their plain
-    versions on (P_TRAIN, 12, 12) planes and on the kernel11 run's own
-    stencil tensors; ``remat`` against no remat (same weights, batch and
+    prompt modules bit-equal after its steps; the tiled kernels (k = 9 and
+    11), the fused kernel (k = 3, 6 steps) and the per-step kernels (k = 13)
+    against their plain versions on (P_TRAIN, 12, 12) planes, and on the
+    kernel11 and kernel13 runs' own stencil tensors, timed; ``remat`` against no remat (same weights, batch and
     DropPath generator; loss and every gradient; peak memory of both); tiny
     baseline and DQnet in fp32 on the card against the CPU. Returns the
-    ``variants`` line's fields and the per-step kernels' launches and
-    errors for the ``kernels`` line."""
+    ``variants`` line's fields and the tiled and per-step kernels' launches,
+    errors and times for the ``kernels`` line."""
     import copy
 
     import torch
@@ -766,15 +802,20 @@ def variants_phase(D, MD, P, card):
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     recipe = os.path.join(ROOT, "configs", "cod.yml")
-    rows, grab = {}, {}
+    # the stencil tensors of the kernel11 and kernel13 runs, by label: the
+    # first served MessagePassing inputs, the first trained x, w and g
+    rows, grabs = {}, {"kernel11": {}, "kernel13": {}}
+    spied = [None]  # the label being captured
     planes_unspied = MD.diffusion_planes
 
     def capture(module, inputs, output):
+        grab = grabs[spied[0]]
         if isinstance(module, MD.MessagePassing) and "served" not in grab:
             grab["served"] = (inputs[0].detach().clone(), inputs[1].detach().clone())
 
     def spy_planes(x, w, kernel, steps):
         out = planes_unspied(x, w, kernel, steps)
+        grab = grabs[spied[0]]
         if "x" not in grab and out.requires_grad:
             grab["x"], grab["w"] = x.detach().clone(), w.detach().clone()
             out.register_hook(lambda gr: grab.setdefault("g", gr.detach().clone()))
@@ -801,7 +842,8 @@ def variants_phase(D, MD, P, card):
             frozen = model.frozen_param_prefixes
             dead = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith(frozen)}
             check((label == "baseline") == bool(dead), f"{label}: frozen prefixes {frozen}")
-            spying = label == "kernel11"
+            spying = label in grabs
+            spied[0] = label
             if spying:
                 MD.diffusion_planes = spy_planes
             try:
@@ -818,7 +860,7 @@ def variants_phase(D, MD, P, card):
             check(train_launches == want, f"{label} train: launches ({LAUNCH_NAMES}) {train_launches}, expected {want}")
             with open(os.path.join(tmp, label, "log.jsonl")) as f:
                 records = [r for r in map(json.loads, f) if "loss" in r]
-            has_ssim = model.use_ssim and want != (0,) * 6
+            has_ssim = model.use_ssim and want != NO_LAUNCHES
             check(len(records) == VARIANT_STEPS and all(("loss_ssim" in r) == has_ssim for r in records), records)
             check(all(np.isfinite(r["loss"]) for r in records), records)
             first = next(iter(runner.train_loader))
@@ -867,12 +909,12 @@ def variants_phase(D, MD, P, card):
                 + (f"; {len(dead)} frozen parameters bit-equal after {VARIANT_STEPS + 4} steps" if dead else "")
                 + f" [{card}]")
 
-    # the per-step kernels (k = 9, 11) and the fused kernel at k = 3, 6 steps,
+    # the tiled kernels (k = 9, 11) and the fused kernel at k = 3, 6 steps,
     # on random planes of the train stencil's shape and on kernel11's own
     say(f"  stencil kernels of the variants vs plain on ({P_TRAIN},12,12) planes and on kernel11's captured tensors")
     g = torch.Generator(device=dev).manual_seed(11)
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    for k, steps in ((9, STEPS), (11, STEPS), (3, 6)):
+    errs, errs13 = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+    for k, steps in ((9, STEPS), (11, STEPS), (3, 6), (K13, STEPS)):
         x = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev)
         wt = MD.normalize_affinity(torch.rand(P_TRAIN, k * k, 12, 12, generator=g, device=dev), dim=1)
         gr = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev)
@@ -880,34 +922,52 @@ def variants_phase(D, MD, P, card):
             xd, wd, gd = x.to(dt), wt.to(dt), gr.to(dt)
             e_f = check_kernel(D, xd, wd, k, steps, f"{name} k={k} 12x12, {steps} steps")
             e_b = check_bwd(D, gd, step_inputs(D, xd, wd, k, steps), wd, k, f"{name} k={k} 12x12, {steps} steps")
-            if k != 3:
+            if k == K13:
+                errs13 = {"fwd": max(errs13["fwd"], e_f), "bwd": max(errs13["bwd"], e_b)}
+            elif k != 3:
                 errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"], e_b)
-    k11 = K11
-    xp, wt = MD.affinity_planes(*grab["served"], k11)
-    check(tuple(xp.shape) == (P_MAIN, 12, 12) and xp.dtype == torch.bfloat16, (xp.shape, xp.dtype))
-    errs["fwd"] = max(errs["fwd"], check_kernel(D, xp, wt, k11, STEPS, "kernel11 served bf16 stencil inputs"))
-    gx, gw, gg = grab["x"], grab["w"], grab["g"]
-    check(tuple(gx.shape) == (P_TRAIN, 12, 12) and gx.dtype == torch.bfloat16, (gx.shape, gx.dtype))
-    gxs = torch.stack(step_inputs(D, gx, gw, k11, STEPS))
-    errs["bwd"] = max(errs["bwd"], check_bwd(D, gg, gxs, gw, k11, "kernel11 trained bf16, 4 steps"))
-    # the per-step kernels timed on the kernel11 path's own tensors; their
-    # device time is read in the profiler phase with the others
-    per_step_rows, per_step_calls = {}, []
-    for part, fn, plain, bound, match in (
-        ("fwd", functools.partial(D.diffusion_planes, xp, wt, k11, STEPS),
-         functools.partial(D.diffusion_planes_plain, xp, wt, k11, STEPS), stencil_bound(xp, wt, k11, STEPS),
-         "stencil_step_kernel"),
-        ("bwd", functools.partial(D.diffusion_planes_bwd, gg, gxs, gw, k11),
-         functools.partial(D.diffusion_planes_bwd_plain, gg, gxs, gw, k11), stencil_bwd_bound(gg, gxs, gw, k11),
-         "stencil_bwd_kernel"),
-    ):
-        row = dict(ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(plain, 20, warmup=2), bound_ms=bound[0],
-                   bound_by=bound[1])
-        per_step_rows[part] = row
-        per_step_calls.append((f"per-step {part} k={k11} kernel11 bf16", row, "device_ms", fn, match, 200))
-        say(f"  per-step {part} on kernel11's tensors ({tuple(xp.shape if part == 'fwd' else gg.shape)}, k={k11}, "
-            f"{STEPS} steps, bf16): {row['ms']:.5f} ms per call, plain {row['plain_ms']:.5f} ms, bound "
-            f"{bound[0]:.6f} ms ({bound[1]}) [{card}]")
+    # each run's own stencil tensors: kernel11's through the tiled kernels,
+    # kernel13's through the per-step ones, held to the plain versions and
+    # timed (kernel11's beside the per-step kernels on the same tensors);
+    # their device time is read in the profiler phase with the others
+    k11_rows, k13_rows, k11_calls = {}, {}, []
+    for label, k, route, out_rows in (("kernel11", K11, "tiled", k11_rows), ("kernel13", K13, "per_step", k13_rows)):
+        grab = grabs[label]
+        xp, wt = MD.affinity_planes(*grab["served"], k)
+        check(tuple(xp.shape) == (P_MAIN, 12, 12) and xp.dtype == torch.bfloat16, (xp.shape, xp.dtype))
+        e_f = check_kernel(D, xp, wt, k, STEPS, f"{label} served bf16 stencil inputs")
+        gx, gw, gg = grab["x"], grab["w"], grab["g"]
+        check(tuple(gx.shape) == (P_TRAIN, 12, 12) and gx.dtype == torch.bfloat16, (gx.shape, gx.dtype))
+        gxs = torch.stack(step_inputs(D, gx, gw, k, STEPS))
+        e_b = check_bwd(D, gg, gxs, gw, k, f"{label} trained bf16, 4 steps")
+        if label == "kernel11":
+            errs["fwd"], errs["bwd"] = max(errs["fwd"], e_f), max(errs["bwd"], e_b)
+        else:
+            errs13 = {"fwd": max(errs13["fwd"], e_f), "bwd": max(errs13["bwd"], e_b)}
+        for part, fn, per_step, plain, bound, match, step_match in (
+            ("fwd", functools.partial(D.diffusion_planes, xp, wt, k, STEPS),
+             lambda xp=xp, wt=wt, k=k: D._per_step_forward(xp, wt, k, STEPS, None, torch.empty_like(xp)),
+             functools.partial(D.diffusion_planes_plain, xp, wt, k, STEPS), stencil_bound(xp, wt, k, STEPS),
+             "stencil_tiled_fwd", "stencil_step_kernel"),
+            ("bwd", functools.partial(D.diffusion_planes_bwd, gg, gxs, gw, k),
+             functools.partial(D._per_step_backward, gg, gxs, gw, k),
+             functools.partial(D.diffusion_planes_bwd_plain, gg, gxs, gw, k), stencil_bwd_bound(gg, gxs, gw, k),
+             "stencil_tiled_bwd", "stencil_bwd_kernel"),
+        ):
+            row = dict(ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(plain, 20, warmup=2), bound_ms=bound[0],
+                       bound_by=bound[1])
+            if route == "tiled":
+                row["per_step_ms"] = cuda_time_ms(per_step, 200)
+                k11_calls += [(f"tiled {part} k={k} {label} bf16", row, "device_ms", fn, match, 200),
+                              (f"per-step {part} k={k} {label} bf16", row, "per_step_device_ms", per_step, step_match,
+                               200)]
+            else:  # the op is the per-step kernels here
+                k11_calls.append((f"per-step {part} k={k} {label} bf16", row, "device_ms", fn, step_match, 200))
+            out_rows[part] = row
+            say(f"  {route} {part} on {label}'s tensors ({tuple(xp.shape if part == 'fwd' else gg.shape)}, k={k}, "
+                f"{STEPS} steps, bf16): {row['ms']:.5f} ms per call"
+                + (f", per-step kernels {row['per_step_ms']:.5f} ms" if route == "tiled" else "")
+                + f", plain {row['plain_ms']:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) [{card}]")
 
     # remat: the same weights, batch and DropPath generator with and without;
     # two runs without give the card's own run-to-run spread in bf16
@@ -992,7 +1052,7 @@ def variants_phase(D, MD, P, card):
         loss_dev = m_dev.loss(*[t.to(dev) for t in inputs])[0]
         loss_dev.backward()
         torch.cuda.synchronize()
-        check(plane_launches(D) == (0,) * 6, f"tiny {name}: launches {plane_launches(D)}")
+        check(plane_launches(D) == NO_LAUNCHES, f"tiny {name}: launches {plane_launches(D)}")
         loss_cpu, loss_dev = loss_cpu.item(), loss_dev.item()
         check(abs(loss_dev - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu), f"tiny {name} loss {loss_dev} vs {loss_cpu}")
         ref_grads = dict(m_cpu.named_parameters())
@@ -1016,16 +1076,18 @@ def variants_phase(D, MD, P, card):
             f"{TINY_GRAD_RTOL} of its scale (closest: {worst[1]} at {worst[0]:.3f} of it); predict max_abs_err "
             f"{prob_err:.3e}")
         del m_cpu, m_dev
-    k11_row = rows["kernel11"]
+    k11_row, k13_row = rows["kernel11"], rows["kernel13"]
     return {
         "size": SIZE, "serve_batch": BATCH, "train_batch": TRAIN_BATCH, "dtype": "bfloat16",
         "variants": rows, "remat": {**remat_rows, "loss_rel_diff": rel, "gradient_spread": spread,
                                     "noise_factor": REMAT_NOISE_FACTOR},
         "tiny_fp32_card_vs_cpu": tiny_rows, "launch_order": LAUNCH_NAMES,
         "phase_s": time.perf_counter() - t_phase, "card": card,
-        "_per_step": {"fwd": k11_row["launches_train"][4] + k11_row["launches_served"][4],
-                      "bwd": k11_row["launches_train"][5], "err": errs, "rows": per_step_rows,
-                      "calls": per_step_calls},
+        "_kernel11": {"fwd": k11_row["launches_train"][6] + k11_row["launches_served"][6],
+                      "bwd": k11_row["launches_train"][7], "err": errs, "err13": errs13, "rows": k11_rows,
+                      "calls": k11_calls},
+        "_kernel13": {"fwd": k13_row["launches_train"][4] + k13_row["launches_served"][4],
+                      "bwd": k13_row["launches_train"][5], "rows": k13_rows},
     }
 
 
@@ -1077,7 +1139,8 @@ def run(keep):
     # ---- 2. kernel vs plain ----
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    say(f"phase 2: forward kernels (fused, cluster, per-step) vs plain (P={P_MAIN}, {P_LARGE} at {LARGE}, 4 steps)")
+    say(f"phase 2: forward kernels (fused, cluster, tiled) vs plain (P={P_MAIN}, {P_LARGE} at {LARGE}, 4 steps); the "
+        f"tiled kernels' planes")
     g = torch.Generator(device=dev).manual_seed(0)
     for k, (h, w) in SHAPES:
         p = planes_for((h, w), P_MAIN)
@@ -1085,6 +1148,16 @@ def run(keep):
         wt = MD.normalize_affinity(torch.rand(p, k * k, h, w, generator=g, device=dev), dim=1)
         check_kernel(D, x, wt, k, STEPS, f"fp32 k={k} {h}x{w}")
         check_kernel(D, x.bfloat16(), wt.bfloat16(), k, STEPS, f"bf16 k={k} {h}x{w}")
+    tiled_errs = {"fwd": 0.0, "bwd": 0.0}
+    for p, (h, w), k, steps, bf16_only in TILED_CHECKS:
+        p = p or P_MAIN
+        x = torch.rand(p, h, w, generator=g, device=dev)
+        wt = MD.normalize_affinity(torch.rand(p, k * k, h, w, generator=g, device=dev), dim=1)
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))[int(bf16_only):]:
+            err = check_kernel(D, x.to(dt), wt.to(dt), k, steps, f"{name} k={k} ({p},{h},{w}), {steps} steps")
+            tiled_errs["fwd"] = max(tiled_errs["fwd"], err)
+        del x, wt
+    torch.cuda.empty_cache()
 
     # ---- 3. the served path ----
     say(f"phase 3: serve full-width cod at {SIZE}², batch {BATCH}, {N_IMAGES} images")
@@ -1210,7 +1283,8 @@ def run(keep):
         f"(batch {BATCH}, {SIZE}², model.predict back to back) [{card}]")
 
     # ---- 6. backward kernel vs plain backward ----
-    say(f"phase 6: backward kernels (fused, cluster, per-step) vs plain backward (P={P_TRAIN}, {P_LARGE} at {LARGE})")
+    say(f"phase 6: backward kernels (fused, cluster, tiled) vs plain backward (P={P_TRAIN}, {P_LARGE} at {LARGE}); "
+        f"the tiled kernels' planes")
     for k, (h, w) in SHAPES:
         p = planes_for((h, w), P_TRAIN)
         x = torch.rand(p, h, w, generator=g, device=dev)
@@ -1220,6 +1294,19 @@ def run(keep):
             xd, wd, gd = x.to(dt), wt.to(dt), gr.to(dt)
             check_bwd(D, gd, [xd], wd, k, f"{name} k={k} {h}x{w}, 1 step")
             check_bwd(D, gd, step_inputs(D, xd, wd, k, STEPS), wd, k, f"{name} k={k} {h}x{w}, {STEPS} steps")
+    for p, (h, w), k, steps, bf16_only in TILED_CHECKS:
+        p = p or P_TRAIN
+        x = torch.rand(p, h, w, generator=g, device=dev)
+        wt = MD.normalize_affinity(torch.rand(p, k * k, h, w, generator=g, device=dev), dim=1)
+        gr = torch.rand(p, h, w, generator=g, device=dev)
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16))[int(bf16_only):]:
+            xd, wd, gd = x.to(dt), wt.to(dt), gr.to(dt)
+            for n in (1, steps):
+                err = check_bwd(D, gd, step_inputs(D, xd, wd, k, n), wd, k,
+                                f"{name} k={k} ({p},{h},{w}), {n} step{'s' if n > 1 else ''}")
+                tiled_errs["bwd"] = max(tiled_errs["bwd"], err)
+        del x, wt, gr, xd, wd, gd
+    torch.cuda.empty_cache()
     for name, dt, tol in (("fp32", torch.float32, BWD_FP32_TOL), ("bf16", torch.bfloat16, AUTOGRAD_BF16_TOL)):
         x = torch.rand(P_TRAIN, 12, 12, generator=g, device=dev).to(dt)
         wt = MD.normalize_affinity(torch.rand(P_TRAIN, KERNEL ** 2, 12, 12, generator=g, device=dev), dim=1).to(dt)
@@ -1239,8 +1326,8 @@ def run(keep):
         say(f"  Function {name}, {STEPS} steps, vs autograd through the plain forward: max_abs_err={err:.3e}")
 
     # ---- 7. tiny cod: loss and gradients, card vs CPU ----
-    say("phase 7: tiny cod loss and every parameter gradient, fp32 card (TF32 off) vs CPU, grids 8 and 64")
-    for grid in (TINY["grid"], GRID64[0]):
+    say("phase 7: tiny cod loss and every parameter gradient, fp32 card (TF32 off) vs CPU, grids 8, 64 and 96")
+    for grid in (TINY["grid"], GRID64[0], LARGE[0]):
         m_cpu = cod(dtype=torch.float32, seed=0, **{**TINY, "grid": grid})
         m_dev = copy.deepcopy(m_cpu).to(dev)
         rng = np.random.RandomState(5)
@@ -1253,7 +1340,7 @@ def run(keep):
         loss_dev = m_dev.loss(*[t.to(dev) for t in inputs])[0]
         loss_dev.backward()
         torch.cuda.synchronize()
-        route = D.stencil_route(grid, grid, KERNEL, torch.float32)
+        route = D.plane_route(grid, grid, KERNEL, torch.float32, STEPS)
         check(plane_launches(D) == launch_tuple(route, 1, 1), f"tiny cod grid {grid}: launches {plane_launches(D)}")
         loss_cpu, loss_dev = loss_cpu.item(), loss_dev.item()
         check(abs(loss_dev - loss_cpu) <= TINY_LOSS_RTOL * abs(loss_cpu), f"tiny loss card {loss_dev} vs CPU {loss_cpu}")
@@ -1660,30 +1747,31 @@ def run(keep):
         say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
             f"F.layer_norm {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
 
-    # ---- 14. planes above the fused limit: the cluster kernels, then the per-step kernels ----
+    # ---- 14. planes above the fused limit: the cluster kernels, then the tiled kernels ----
     gh, gw = GRID64
     lh, lw = LARGE
-    say(f"phase 14: the op forward and backward on ({P_MAIN},{gh},{gw}) planes (cluster kernels) and on "
-        f"({P_MAIN},{lh},{lw}) planes (per-step kernels)")
+    say(f"phase 14: the op forward and backward on ({P_MAIN},{gh},{gw}) planes (cluster kernels), on "
+        f"({P_MAIN},{lh},{lw}) and ({SERVING_P},{SERVING_GRID[0]},{SERVING_GRID[1]}) planes (tiled kernels)")
     for dt in (torch.bfloat16, torch.float32):
-        check(D.stencil_route(gh, gw, KERNEL, dt) == "cluster" and D.stencil_route(lh, lw, KERNEL, dt) == "per_step",
-              f"routes of {GRID64} and {LARGE} in {dt}")
+        check(D.stencil_route(gh, gw, KERNEL, dt) == "cluster" and D.plane_route(lh, lw, KERNEL, dt, STEPS) == "tiled"
+              and D.plane_route(*SERVING_GRID, KERNEL, dt, STEPS) == "tiled", f"routes of {GRID64}, {LARGE} and "
+              f"{SERVING_GRID} in {dt}")
 
-    def drive_planes(shape, dt, label):
+    def drive_planes(shape, dt, label, p=P_MAIN):
         """The op forward and backward through the autograd Function on
-        (P_MAIN, *shape) planes, the launch counts read around it; forward
+        (p, *shape) planes, the launch counts read around it; forward
         and backward held to the plain versions. Returns the tensors
         (x, w, g, step inputs), the launches and the max abs errors."""
-        xl = torch.rand(P_MAIN, *shape, generator=g, device=dev).to(dt)
-        wl = MD.normalize_affinity(torch.rand(P_MAIN, KERNEL ** 2, *shape, generator=g, device=dev), dim=1).to(dt)
-        gl = torch.rand(P_MAIN, *shape, generator=g, device=dev).to(dt)
+        xl = torch.rand(p, *shape, generator=g, device=dev).to(dt)
+        wl = MD.normalize_affinity(torch.rand(p, KERNEL ** 2, *shape, generator=g, device=dev), dim=1).to(dt)
+        gl = torch.rand(p, *shape, generator=g, device=dev).to(dt)
         xa, wa = xl.clone().requires_grad_(), wl.clone().requires_grad_()
         reset_plane_launches(D)
         out = D.diffusion_planes(xa, wa, KERNEL, STEPS)
         out.backward(gl)
         torch.cuda.synchronize()
         n = plane_launches(D)
-        route = D.stencil_route(*shape, KERNEL, dt)
+        route = D.plane_route(*shape, KERNEL, dt, STEPS)
         per_call = STEPS if route == "per_step" else 1
         check(n == launch_tuple(route, per_call, per_call), f"{label}: launches ({LAUNCH_NAMES}) {n}")
         fp32 = dt == torch.float32
@@ -1691,6 +1779,7 @@ def run(keep):
         torch.testing.assert_close(out.detach().float(), ref, **(FP32_TOL if fp32 else dict(rtol=0, atol=BF16_ATOL)),
                                    msg=lambda m: f"{label} forward: {m}")
         errs = {"fwd": float((out.detach().float() - ref).abs().max())}
+        del ref, out
         # the backward against the plain backward on the step inputs the kernel made
         _, lxs = D._forward_steps(xl, wl, KERNEL, STEPS, keep=True)
         rdx, rdw = D.diffusion_planes_bwd_plain(gl, lxs, wl, KERNEL)
@@ -1703,31 +1792,44 @@ def run(keep):
             f"backward {errs['bwd']:.3e}")
         return (xl, wl, gl, lxs), n, errs
 
+    def time_planes(tensors, n, errs, part_names, label, rows, iters, plain_iters):
+        """The all-steps kernels (the op on these tensors) timed beside the
+        per-step kernels called directly on the same tensors and the plain
+        versions; their device time is read in phase 18. Fills rows[part]
+        for part in ("fwd", "bwd")."""
+        xl, wl, gl, lxs = tensors
+        for part, fn, per_step, plain, match, bound in (
+            ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, STEPS),
+             lambda xl=xl, wl=wl: D._per_step_forward(xl, wl, KERNEL, STEPS, None, torch.empty_like(xl)),
+             functools.partial(D.diffusion_planes_plain, xl, wl, KERNEL, STEPS),
+             part_names[0], stencil_bound(xl, wl, KERNEL, STEPS)),
+            ("bwd", functools.partial(D.diffusion_planes_bwd, gl, lxs, wl, KERNEL),
+             functools.partial(D._per_step_backward, gl, lxs, wl, KERNEL),
+             functools.partial(D.diffusion_planes_bwd_plain, gl, lxs, wl, KERNEL),
+             part_names[1], stencil_bwd_bound(gl, lxs, wl, KERNEL)),
+        ):
+            ms, per_step_ms = cuda_time_ms(fn, iters), cuda_time_ms(per_step, iters)
+            plain_ms = cuda_time_ms(plain, plain_iters, warmup=1)
+            row = dict(ms=ms, per_step_ms=per_step_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                       err=errs[part], launches_per_call=n[part_names[2] + (part == "bwd")])
+            rows[part] = row
+            say(f"  {label} {part} ({STEPS} steps, k={KERNEL}): {ms:.5f} ms per call; per-step kernels "
+                f"{per_step_ms:.5f} ms per call; plain {plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) [{card}]")
+            device_calls.extend([(f"{label} {part}", row, "device_ms", fn, match, iters),
+                                 (f"per-step {part}, {label}'s tensors", row, "per_step_device_ms", per_step,
+                                  "stencil_step_kernel" if part == "fwd" else "stencil_bwd_kernel", iters)])
+
     # the cluster kernels at the paper's grid-64 planes, bf16 and fp32, timed
     # beside the per-step kernels called directly on the same tensors
     cluster_rows = {"fwd": {}, "bwd": {}}
     for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        (xl, wl, gl, lxs), n, errs = drive_planes(GRID64, dt, f"{name} ({P_MAIN},{gh},{gw})")
-        for part, fn, per_step, plain, match, step_match, bound in (
-            ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, STEPS),
-             lambda xl=xl, wl=wl: D._per_step_forward(xl, wl, KERNEL, STEPS, None, torch.empty_like(xl)),
-             functools.partial(D.diffusion_planes_plain, xl, wl, KERNEL, STEPS),
-             "stencil_cluster_fwd", "stencil_step_kernel", stencil_bound(xl, wl, KERNEL, STEPS)),
-            ("bwd", functools.partial(D.diffusion_planes_bwd, gl, lxs, wl, KERNEL),
-             functools.partial(D._per_step_backward, gl, lxs, wl, KERNEL),
-             functools.partial(D.diffusion_planes_bwd_plain, gl, lxs, wl, KERNEL),
-             "stencil_cluster_bwd", "stencil_bwd_kernel", stencil_bwd_bound(gl, lxs, wl, KERNEL)),
-        ):
-            ms, per_step_ms = cuda_time_ms(fn, 100), cuda_time_ms(per_step, 50)
-            plain_ms = cuda_time_ms(plain, 5, warmup=1)
-            row = dict(ms=ms, per_step_ms=per_step_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                       err=errs[part], launches_per_call=n[2] if part == "fwd" else n[3])
-            cluster_rows[part][name] = row
-            say(f"  cluster {part} {name} ({STEPS} steps, {P_MAIN}x{gh}x{gw}, k={KERNEL}): {ms:.5f} ms per call; "
-                f"per-step kernels {per_step_ms:.5f} ms per call; plain {plain_ms:.5f} ms, bound {bound[0]:.6f} ms "
-                f"({bound[1]}) [{card}]")
-            device_calls += [(f"cluster {part} {name}", row, "device_ms", fn, match, 50),
-                             (f"per-step {part} {gh}x{gw} {name}", row, "per_step_device_ms", per_step, step_match, 50)]
+        tensors, n, errs = drive_planes(GRID64, dt, f"{name} ({P_MAIN},{gh},{gw})")
+        rows_ = {}
+        time_planes(tensors, n, errs, ("stencil_cluster_fwd", "stencil_cluster_bwd", 2), f"cluster {name} "
+                    f"({P_MAIN},{gh},{gw})", rows_, 100, 5)
+        for part in ("fwd", "bwd"):
+            cluster_rows[part][name] = rows_[part]
+        del tensors
     # how many clusters the card runs at once: the 8 strips of 8 rows of the
     # grid-64 plane, and a non-portable 16 strips of 4 rows
     occupancy = {}
@@ -1740,24 +1842,46 @@ def run(keep):
     say(f"  max active clusters (k={KERNEL}, bf16, {gh}x{gw} in 8 strips of {gh // 8} rows or 16 of {gh // 16}): "
         f"{occupancy} [{card}]")
 
-    # the per-step kernels' own path: planes beyond the cluster's reach
-    (xl, wl, gl, lxs), large_launches, large_err = drive_planes(LARGE, torch.bfloat16, f"bf16 ({P_MAIN},{lh},{lw})")
-    large_rows = {}
-    for name, fn, plain, match, bound in (
-        ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, STEPS),
-         functools.partial(D.diffusion_planes_plain, xl, wl, KERNEL, STEPS),
-         "stencil_step_kernel", stencil_bound(xl, wl, KERNEL, STEPS)),
-        ("bwd", functools.partial(D.diffusion_planes_bwd, gl, lxs, wl, KERNEL),
-         functools.partial(D.diffusion_planes_bwd_plain, gl, lxs, wl, KERNEL),
-         "stencil_bwd_kernel", stencil_bwd_bound(gl, lxs, wl, KERNEL)),
-    ):
-        ms, plain_ms = cuda_time_ms(fn, 50), cuda_time_ms(plain, 5, warmup=1)
-        large_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], err=large_err[name])
-        say(f"  per-step {name} ({STEPS} steps, {P_MAIN}x{lh}x{lw}, k={KERNEL}, bf16): {ms:.5f} ms per call, "
-            f"plain {plain_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}), max_abs_err {large_err[name]:.3e} [{card}]")
-        device_calls.append((f"per-step {name} {lh}x{lw} bf16", large_rows[name], "device_ms", fn, match, 50))
-    del xl, wl, gl, lxs
-    torch.cuda.empty_cache()
+    # the tiled kernels beyond a cluster's reach: (192, 96, 96) in bf16 and
+    # fp32, and serving_check's (24, 512, 512) in bf16, timed beside the
+    # per-step kernels on the same tensors
+    tiled_rows = {"fwd": {}, "bwd": {}}
+    for key, p_, shape, dt, iters in (("bf16", P_MAIN, LARGE, torch.bfloat16, 50), ("fp32", P_MAIN, LARGE, torch.float32, 50),
+                                      ("serving_bf16", SERVING_P, SERVING_GRID, torch.bfloat16, 10)):
+        label = f"tiled {key} ({p_},{shape[0]},{shape[1]})"
+        tensors, n, errs = drive_planes(shape, dt, label, p=p_)
+        rows_ = {}
+        time_planes(tensors, n, errs, ("stencil_tiled_fwd", "stencil_tiled_bwd", 6), label, rows_, iters, 3)
+        for part in ("fwd", "bwd"):
+            rows_[part]["plan"] = D.tiled_plan(*shape, KERNEL, STEPS, dt, part == "bwd")
+            tiled_rows[part][key] = rows_[part]
+        if dt == torch.bfloat16:
+            # one step a call (the iter1 ablation beyond a cluster's reach):
+            # the tiled kernels held to the plain versions and timed beside
+            # one per-step launch each way, on the same tensors
+            xl, wl, gl, lxs = tensors
+            xs1 = lxs[:1]
+            one_errs = {"fwd": check_kernel(D, xl, wl, KERNEL, 1, f"{label}, 1 step"),
+                        "bwd": check_bwd(D, gl, xs1, wl, KERNEL, f"{label}, 1 step")}
+            for part, fn, per_step, match, step_match in (
+                ("fwd", functools.partial(D.diffusion_planes, xl, wl, KERNEL, 1),
+                 lambda xl=xl, wl=wl: D._per_step_forward(xl, wl, KERNEL, 1, None, torch.empty_like(xl)),
+                 "stencil_tiled_fwd", "stencil_step_kernel"),
+                ("bwd", functools.partial(D.diffusion_planes_bwd, gl, xs1, wl, KERNEL),
+                 functools.partial(D._per_step_backward, gl, xs1, wl, KERNEL), "stencil_tiled_bwd",
+                 "stencil_bwd_kernel"),
+            ):
+                one = dict(ms=cuda_time_ms(fn, iters), per_step_ms=cuda_time_ms(per_step, iters), err=one_errs[part],
+                           plan=D.tiled_plan(*shape, KERNEL, 1, dt, part == "bwd"))
+                tiled_rows[part][key]["one_step"] = one
+                say(f"  {label} {part}, 1 step: {one['ms']:.5f} ms per call; one per-step launch "
+                    f"{one['per_step_ms']:.5f} ms [{card}]")
+                device_calls.extend([(f"{label} {part}, 1 step", one, "device_ms", fn, match, iters),
+                                     (f"per-step {part}, 1 step, {label}'s tensors", one, "per_step_device_ms",
+                                      per_step, step_match, iters)])
+            del xl, wl, gl, lxs, xs1
+        del tensors
+        torch.cuda.empty_cache()
 
     # ---- 15. cod at grid 64: served and trained through the CLIs ----
     grid = GRID64[0]
@@ -1885,14 +2009,86 @@ def run(keep):
     say(f"  train bf16 ms per step (batch {TRAIN_BATCH}, {SIZE}², in turns): grid 12 {step_turns[12]}, grid {grid} "
         f"{step_turns[grid]} [{card}]")
 
+    # cod at grid 96: the tiled kernels' main path (a plane beyond a cluster's reach)
+    grid96 = LARGE[0]
+    say(f"  cod at grid {grid96}: served through predict.main -o grid={grid96} (bf16, batch {BATCH}), trained through "
+        f"train.cli.main -o model.grid={grid96} ({TRAIN_N} images, batch {TRAIN_BATCH}, 1 epoch, bf16)")
+    grab96 = {}
+
+    def capture96(module, inputs, output):
+        if isinstance(module, MD.MessagePassing) and "served" not in grab96:
+            grab96["served"] = (inputs[0].detach().clone(), inputs[1].detach().clone())
+
+    def spy_planes96(x, w, kernel, steps):
+        out = planes_unspied(x, w, kernel, steps)
+        if "x" not in grab96 and out.requires_grad:
+            grab96["x"], grab96["w"] = x.detach().clone(), w.detach().clone()
+            out.register_hook(lambda gr: grab96.setdefault("g", gr.detach().clone()))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid96_") as tmp:
+        model = cod(seed=0)
+        ckpt = os.path.join(tmp, "cod_seed0.pth")
+        torch.save(model.state_dict(), ckpt)
+        del model
+        write_inputs(tmp)
+        out_dir = os.path.join(tmp, "out")
+        hook = torch.nn.modules.module.register_module_forward_hook(capture96)
+        try:
+            reset_plane_launches(D)
+            served96 = P.main(["--checkpoint", ckpt, "--image-dir", os.path.join(tmp, "img"),
+                               "--depth-dir", os.path.join(tmp, "dep"), "--out-dir", out_dir,
+                               "--size", str(SIZE), "--batch", str(BATCH), "-o", f"grid={grid96}"])
+            torch.cuda.synchronize()
+            served96_launches = plane_launches(D)
+        finally:
+            hook.remove()
+        nb96 = served96["batches"]
+        say(f"  served grid {grid96}: {served96['images']} images in {nb96} batches, loop {served96['loop_s']:.3f} s, "
+            f"stencil launches ({LAUNCH_NAMES}) {served96_launches}")
+        check(served96_launches == launch_tuple("tiled", nb96), f"served grid {grid96}: launches {served96_launches}")
+        outs = sorted(os.listdir(out_dir))
+        check(len(outs) == N_IMAGES, outs)
+        xp, wt = MD.affinity_planes(*grab96["served"], KERNEL)
+        check(tuple(xp.shape) == (P_MAIN, grid96, grid96) and xp.dtype == torch.bfloat16, (xp.shape, xp.dtype))
+        served96_err = check_kernel(D, xp, wt, KERNEL, STEPS, f"served grid {grid96} bf16 stencil inputs")
+        del xp, wt, grab96["served"]
+
+        work = os.path.join(tmp, "run")
+        overrides96 = [o if not o.startswith(("work_dir", "model.grid")) else None for o in overrides64]
+        overrides96 = [f"work_dir={work}"] + [o for o in overrides96 if o] + [f"model.grid={grid96}"]
+        MD.diffusion_planes = spy_planes96
+        try:
+            reset_plane_launches(D)
+            trained96 = TC.main([recipe] + [a for o in overrides96 for a in ("-o", o)])
+            torch.cuda.synchronize()
+            train96_launches = plane_launches(D)
+        finally:
+            MD.diffusion_planes = planes_unspied
+        say(f"  trained grid {grid96}: {trained96['steps']} steps in {trained96['loop_s']:.3f} s; stencil launches "
+            f"({LAUNCH_NAMES}) {train96_launches}")
+        check(trained96["steps"] == steps64, trained96)
+        check(train96_launches == launch_tuple("tiled", steps64, steps64),
+              f"launches {train96_launches}: one tiled forward and one tiled backward a step in {steps64} steps")
+        with open(os.path.join(work, "log.jsonl")) as f:
+            losses96 = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        check(len(losses96) == steps64 and bool(np.isfinite(losses96).all()), losses96)
+        say("  losses: " + ", ".join(f"{v:.5f}" for v in losses96))
+        gx, gw96, gg = grab96["x"], grab96["w"], grab96["g"]
+        check(tuple(gx.shape) == (P_TRAIN, grid96, grid96) and gx.dtype == torch.bfloat16, (gx.shape, gx.dtype))
+        train96_err = check_bwd(D, gg, step_inputs(D, gx, gw96, KERNEL, STEPS), gw96, KERNEL,
+                                f"trained grid {grid96} bf16, {STEPS} steps")
+        del gx, gw96, gg, grab96
+        torch.cuda.empty_cache()
+
     # ---- 16. the val pass ----
     val_row = val_phase(D, val_ckpt, card)
     val_fwd_launches, val_batches = val_row.pop("_fwd_launches"), val_row.pop("_batches")
 
     # ---- 17. the model variants ----
     variants_row = variants_phase(D, MD, P, card)
-    per_step = variants_row.pop("_per_step")
-    device_calls += per_step.pop("calls")
+    k11, k13 = variants_row.pop("_kernel11"), variants_row.pop("_kernel13")
+    device_calls += k11.pop("calls")
 
     # ---- 18. device time per call ----
     # from the profiler, read last, so that its tracing cannot touch the
@@ -1992,22 +2188,54 @@ def run(keep):
         "route": "cuda",
         "source": f"dgtd_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
-        "launches": per_step[part],
-        "main_path": (f"{per_step[part]} launches in the kernel11 variant's {VARIANT_STEPS} train steps"
-                      + (f" and {VARIANT_SERVE // BATCH} served batches" if part == "fwd" else "")
-                      + f" (k={K11}, {STEPS} steps, 12x12 planes)"),
-        "max_abs_err": max(large_rows[part]["err"], per_step["err"][part]),
-        **{k: per_step["rows"][part][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
+        "launches": n_launch,
+        "main_path": main_path,
+        "max_abs_err": max(tiled_errs[part], main_err, k11["err"][part],
+                           *(tiled_rows[part][key]["err"] for key in tiled_rows[part])),
+        **{k: tiled_rows[part]["bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "per_step_ms",
+                                                     "per_step_device_ms", "launches_per_call", "plan")},
         "library_ms": None,
         "dtype": "bfloat16",
-        "shape": (f"{'x' if part == 'fwd' else 'g, step inputs, dw'} ({P_MAIN if part == 'fwd' else P_TRAIN},12,12), "
-                  f"w (...,{K11 * K11},12,12), {STEPS} steps: the kernel11 variant's own tensors"),
-        "large_planes": {**large_rows[part], "launches": n_launch,
-                         "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} {large_shape}"},
+        "shape": f"{'x' if part == 'fwd' else 'g, step inputs, dw'} {large_shape}",
+        "one_step": tiled_rows[part]["bf16"]["one_step"],
+        "fp32": tiled_rows[part]["fp32"],
+        "serving_check": {**tiled_rows[part]["serving_bf16"],
+                          "shape": f"({SERVING_P},{SERVING_GRID[0]},{SERVING_GRID[1]}), k={KERNEL}, {STEPS} steps"},
+        "kernel11": {**k11["rows"][part], "shape": f"({P_MAIN if part == 'fwd' else P_TRAIN},12,12), k={K11}, "
+                                                   f"{STEPS} steps: the kernel11 variant's own tensors"},
         "card": card,
-    } for name, source, replaces, part, n_launch in (
-        ("diffusion_stencil", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd", large_launches[4]),
-        ("diffusion_stencil_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd", large_launches[5]),
+    } for name, source, replaces, part, n_launch, main_err, main_path in (
+        ("diffusion_stencil_tiled", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd",
+         served96_launches[6] + train96_launches[6] + k11["fwd"], max(served96_err, 0.0),
+         f"{served96_launches[6]} launches in {nb96} served batches and {train96_launches[6]} in {steps64} train steps "
+         f"of cod at grid {grid96}; {k11['fwd']} in the kernel11 variant's {VARIANT_STEPS} train steps and "
+         f"{VARIANT_SERVE // BATCH} served batches"),
+        ("diffusion_stencil_tiled_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd",
+         train96_launches[7] + k11["bwd"], train96_err,
+         f"{train96_launches[7]} launches in {steps64} train steps of cod at grid {grid96}; {k11['bwd']} in the "
+         f"kernel11 variant's {VARIANT_STEPS} train steps"),
+    )] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"dgtd_tpu_torch/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": k13[part],
+        "main_path": (f"{k13[part]} launches in the kernel13 variant's {VARIANT_STEPS} train steps"
+                      + (f" and {VARIANT_SERVE // BATCH} served batches" if part == "fwd" else "")
+                      + f" (k={K13}, beyond the tiled kernels' templates; {STEPS} steps a call)"),
+        "max_abs_err": k11["err13"][part],
+        **{k: k13["rows"][part][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "shape": f"({P_MAIN if part == 'fwd' else P_TRAIN},12,12), k={K13}, {STEPS} steps: the kernel13 variant's "
+                 "own tensors",
+        "tiled_tensors": {"shape": large_shape, "ms": tiled_rows[part]["bf16"]["per_step_ms"],
+                          "device_ms": tiled_rows[part]["bf16"]["per_step_device_ms"]},
+        "kernel11_tensors": {k: k11["rows"][part][k] for k in ("per_step_ms", "per_step_device_ms")},
+        "card": card,
+    } for name, source, replaces, part in (
+        ("diffusion_stencil", "diffusion_stencil", "dgtd_tpu/ops/diffusion_pallas.py:263", "fwd"),
+        ("diffusion_stencil_bwd", "diffusion_stencil_bwd", "dgtd_tpu/ops/diffusion_pallas.py:162", "bwd"),
     )] + [{
         "name": "diffusion_stencil_nhwc",
         "route": "cuda",

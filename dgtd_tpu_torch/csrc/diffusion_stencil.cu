@@ -17,9 +17,10 @@
 // under a microsecond of DRAM time that the 50 MB L2 mostly absorbs, so
 // launches and their host calls set the time.
 //
-// Three kernels compute the plane steps, chosen by shape and dtype alone
+// Four kernels compute the plane steps, chosen by shape and dtype alone
 // (stencil_route in stencil_common.cuh, which ops/diffusion.py::stencil_route
-// mirrors): the fused kernel, the cluster kernel, the per-step kernel.
+// mirrors): the fused kernel, the cluster kernel, the tiled kernel, the
+// per-step kernel.
 //
 // stencil_fused_fwd_kernel runs all the steps in one launch. One block per
 // plane, one thread per pixel (at most FUSED_MAX_PIXELS = 512 pixels, the
@@ -53,9 +54,28 @@
 // (192, 64, 64) bf16, k = 7 the call's bytes are ~80 MB (w read once), not
 // the per-step kernels' 4 x 77 MB of w, which do not fit the 50 MB L2.
 //
+// stencil_tiled_fwd_kernel runs all the steps of any other plane at an odd
+// k up to 11 (k a template argument) in one launch, by temporal blocking:
+// one block a (plane, tile), the tile planned by tiled_plan. Step t of s
+// computes the tile's interior grown by (s-1-t)*r, so the block loads x on
+// the interior grown by s*r into an fp32 buffer (the plane's zero edge
+// beyond it) and keeps the steps in two ping-pong buffers, rounding each to
+// x's dtype; the halo is computed again by the neighbouring tiles. A plane
+// that one tile holds (the kernel9 and kernel11 ablations' 12x12) has no
+// recomputed halo. It writes the interior's step inputs and its output.
+// Bound: the bytes of w, 98 a pixel at k = 7 in bf16, read by every step.
+// Every step reads w from memory, L2 serving the later steps' re-reads, in
+// tiles of at most 2048 pixels and two blocks an SM (tiled_plan); a thread
+// takes two pixels of a row when the row length is even, whose weights are
+// one 4-byte (bf16) or 8-byte load a tap. The k taps of a row are loaded
+// together before they are summed, so that their latencies overlap. At (192, 96, 96), k = 7, a plane is 5 row
+// strips of 20 rows (tiles 20 x 96): the call reads ~5.5x the plane's w
+// through L2 but once from memory, where the per-step kernel reads it from
+// memory 4 times.
+//
 // stencil_step_kernel, one thread per output pixel and one launch per step
-// (the caller ping-pongs two buffers), takes the planes above the cluster
-// kernel's reach. Consecutive threads take consecutive x of one row, so the reads of
+// (the caller ping-pongs two buffers), takes k >= 13 (no tiled template) and
+// step counts whose halo no tile holds. Consecutive threads take consecutive x of one row, so the reads of
 // w[p, t, y, :] and of x are coalesced; taps that fall outside the plane are
 // skipped (the halo is zero), which also masks ragged and rectangular
 // H x W. No shared memory: the k*k neighbourhood reads of x hit L1.
@@ -242,6 +262,129 @@ cudaError_t launch_cluster_k(const void* x, const void* w, void* xs, void* out, 
   }
 }
 
+template <typename T, int K, int V>
+__global__ void __launch_bounds__(tiled_threads(K), tiled_min_blocks(K))
+stencil_tiled_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ xs,
+                         T* __restrict__ out, int64_t planes, int h, int wd, int steps, int th, int tw,
+                         int tiles) {
+  constexpr int R = K / 2, KK = K * K;
+  extern __shared__ float smem[];
+  const int64_t p = blockIdx.x / tiles;
+  const TileBox b = tile_box((int)(blockIdx.x - p * tiles), h, wd, th, tw, R, steps * R, (steps - 1) * R);
+  const int64_t hw = (int64_t)h * wd;
+  const int bn = b.bh * b.bw;
+  float* src = smem;
+  float* dst = smem + bn;
+  const T* const xp = x + p * hw;
+  const T* const wp = w + p * KK * hw;
+
+  // x on the buffer (zero beyond the plane), the second buffer zeroed, the
+  // interior's step-0 input saved
+#pragma unroll 4
+  for (int i = threadIdx.x; i < bn; i += blockDim.x) {
+    const int yy = b.by0 + i / b.bw, xx = b.bx0 + i % b.bw;
+    const float v = load_or_zero(xp, yy, xx, h, wd);
+    src[i] = v;
+    dst[i] = 0.f;
+    if (xs != nullptr && yy >= b.y0 && yy < b.y1 && xx >= b.x0 && xx < b.x1)
+      store_f(xs + p * hw + (int64_t)yy * wd + xx, v);  // x's own value: exact in its dtype
+  }
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    // the region of this step: the interior grown by (steps-1-s)*r, within
+    // the plane, in groups of V pixels of a row from a column that is a
+    // multiple of V (so that a group's weights are one aligned load)
+    const int e = (steps - 1 - s) * R;
+    const int cy0 = max(b.y0 - e, 0), cx0 = max(b.x0 - e, 0);
+    const int ch = min(b.y1 + e, h) - cy0, cx1 = min(b.x1 + e, wd);
+    const int gx0 = cx0 - cx0 % V, gw = (cx1 - gx0 + V - 1) / V;
+    for (int i = threadIdx.x; i < ch * gw; i += blockDim.x) {
+      const int yy = cy0 + i / gw, xg = gx0 + V * (i % gw);
+      // a pixel of the group outside the region is computed from its
+      // neighbour's window (which the buffer holds) and not stored
+      bool valid[V];
+      const float* win[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        valid[v] = xg + v >= cx0 && xg + v < cx1;
+        const int xv = valid[v] ? xg + v : (valid[0] ? xg : xg + V - 1);
+        win[v] = src + (yy - R - b.by0) * b.bw + (xv - R - b.bx0);  // top-left tap
+      }
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+      // w from memory, a row of k taps' loads at a time
+      const T* wq = wp + (int64_t)yy * wd + xg;
+#pragma unroll tiled_row_unroll(K)
+      for (int dy = 0; dy < K; ++dy) {
+        T raw[K][V];
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) ld_group(wq + (int64_t)(dy * K + dx) * hw, raw[dx]);
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(win[v][dy * b.bw + dx], to_f(raw[dx][v]), acc[v]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (!valid[v]) continue;
+        const int xx = xg + v;
+        const int64_t at = (int64_t)yy * wd + xx;
+        if (s == steps - 1) {
+          store_f(out + p * hw + at, acc[v]);  // the last region is the interior
+        } else {
+          dst[(yy - b.by0) * b.bw + (xx - b.bx0)] = round_to(acc[v], x);
+          if (xs != nullptr && yy >= b.y0 && yy < b.y1 && xx >= b.x0 && xx < b.x1)
+            store_f(xs + ((s + 1) * planes + p) * hw + at, acc[v]);
+        }
+      }
+    }
+    __syncthreads();  // every read of src and write of dst done before the swap
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_tiled(const void* x, const void* w, void* xs, void* out, int64_t planes, int h, int wd,
+                         int steps, cudaStream_t s) {
+  const TiledPlan plan = tiled_plan(h, wd, K, steps, sizeof(T), false);
+  if (plan.th == 0) return cudaErrorInvalidValue;
+  const int tiles = ((h + plan.th - 1) / plan.th) * ((wd + plan.tw - 1) / plan.tw);
+  if (planes * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tiled_smem(plan.th, plan.tw, h, wd, K, steps, sizeof(T), false, false);
+  // an even row length (and w aligned to two elements): every row starts at
+  // an even element, so pairs of pixels from an even column load their
+  // weights as one aligned 4- or 8-byte value
+  const bool pairs = wd % 2 == 0 && reinterpret_cast<uintptr_t>(w) % (2 * sizeof(T)) == 0;
+  auto kern = pairs ? stencil_tiled_fwd_kernel<T, K, 2> : stencil_tiled_fwd_kernel<T, K, 1>;
+  if (smem > STATIC_SMEM_LIMIT) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<(unsigned)(planes * tiles), tiled_threads(K), smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(xs), static_cast<T*>(out), planes, h, wd,
+      steps, plan.th, plan.tw, tiles);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tiled_k(const void* x, const void* w, void* xs, void* out, int64_t planes, int h, int wd,
+                           int k, int steps, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_tiled<T, 1>(x, w, xs, out, planes, h, wd, steps, s);
+    case 3: return launch_tiled<T, 3>(x, w, xs, out, planes, h, wd, steps, s);
+    case 5: return launch_tiled<T, 5>(x, w, xs, out, planes, h, wd, steps, s);
+    case 7: return launch_tiled<T, 7>(x, w, xs, out, planes, h, wd, steps, s);
+    case 9: return launch_tiled<T, 9>(x, w, xs, out, planes, h, wd, steps, s);
+    case 11: return launch_tiled<T, 11>(x, w, xs, out, planes, h, wd, steps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 __global__ void stencil_step_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                     T* __restrict__ out, int64_t planes, int h, int wd,
@@ -366,9 +509,38 @@ extern "C" int dgtd_diffusion_cluster(const void* x, const void* w, void* xs, vo
   return (int)launch_cluster_k<__nv_bfloat16>(x, w, xs, out, planes, h, wd, k, steps, s);
 }
 
+// Tiled entry: all `steps` (>= 1) steps in one launch, for planes whose
+// stencil_route is ROUTE_TILED and that have a tiled_plan (else
+// cudaErrorInvalidValue); arguments as the fused entry's. Returns the
+// launch's error.
+extern "C" int dgtd_diffusion_tiled(const void* x, const void* w, void* xs, void* out, long long planes, int h,
+                                    int wd, int k, int steps, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (stencil_route(h, wd, k, dtype == 0 ? 4 : 2) != ROUTE_TILED || steps < 1) return (int)cudaErrorInvalidValue;
+  if (planes <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_tiled_k<float>(x, w, xs, out, planes, h, wd, k, steps, s);
+  return (int)launch_tiled_k<__nv_bfloat16>(x, w, xs, out, planes, h, wd, k, steps, s);
+}
+
+// The tiled kernels' plan of an (h, wd) plane (forward, or backward when
+// `backward` is not 0): the tile's rows, columns and mode into *th, *tw and
+// *ws (th = 0: no tile fits), and its shared memory in bytes as the return.
+extern "C" long long dgtd_tiled_plan(int h, int wd, int k, int steps, int elem_bytes, int backward, int* th,
+                                     int* tw, int* ws) {
+  const TiledPlan plan = tiled_plan(h, wd, k, steps, elem_bytes, backward != 0);
+  *th = plan.th;
+  *tw = plan.tw;
+  *ws = plan.ws;
+  if (plan.th == 0) return 0;
+  return (long long)tiled_smem(plan.th, plan.tw, h, wd, k, steps, elem_bytes, backward != 0, plan.ws);
+}
+
 // The route of an (h, wd) plane at kernel k and element size elem_bytes, as
-// the entries above decide it: 0 fused, 1 cluster, 2 per-step; and the
-// cluster split into *blocks and *rows.
+// the entries above decide it: 0 fused, 1 cluster, 2 per-step, 3 tiled; and
+// the cluster split into *blocks and *rows.
 extern "C" int dgtd_stencil_route(int h, int wd, int k, int elem_bytes, int* blocks, int* rows) {
   const ClusterSplit sp = cluster_split(h, wd);
   *blocks = sp.blocks;

@@ -21,7 +21,7 @@
 // 12x12, k = 7) that is a few MB that the 50 MB L2 holds, so launches and
 // their host calls set the time.
 //
-// Three kernels, chosen by shape and dtype alone as the forward's are
+// Four kernels, chosen by shape and dtype alone as the forward's are
 // (stencil_route in stencil_common.cuh, mirrored by
 // ops/diffusion.py::stencil_route):
 //
@@ -58,8 +58,32 @@
 // call, where the per-step kernels read w 4 times and move an fp32 dw sum
 // of 154 MB three times.
 //
-// stencil_bwd_kernel, one step a launch, takes the planes above the cluster
-// kernels' reach:
+// stencil_tiled_bwd_kernel runs the backward of all the steps of any other
+// plane at an odd k up to 11 in one launch over the tiles tiled_plan gives
+// it, in reverse: the gradient of step t's input is computed on the
+// interior grown by t*r, from the gradient of its output on the interior
+// grown by (t+1)*r, so the block loads g on the interior grown by s*r and
+// the region shrinks by r a step (the plane's zero edge beyond it). Each
+// step's gradient is rounded to g's dtype, as the chained per-step calls
+// store it. The transpose reads w at the tap's source pixel: its address is
+// clamped into the plane and its value masked, so that each row's k loads
+// are unbranched and in flight together (at k <= 7 a pixel whose window
+// lies in the plane skips the clamp and the mask). In shared memory the block keeps
+// every step's gradient on the interior and every step's input on the
+// interior grown by r; after the step loop it forms dw from them, a row of
+// k taps of a pixel at a time (k fp32 sums in registers, not k*k: at
+// k = 11 121 sums a pixel would not fit), each product rounded to fp32 and
+// added last step first, as the plain version sums, and writes it once in
+// w's dtype: no fp32 dw goes through memory between steps. ws mode
+// (tiled_plan takes it at 2 or more steps where the tiles read at most
+// 1.5x the plane's w, as kernel11's 12x12 planes, one tile a plane) stages
+// w on the interior grown by s*r during the first step for the later
+// ones. Bound: the bytes of w and dw; at (192, 96, 96), k = 7 the per-step
+// kernels move ~2.9 GB a call, this kernel reads w through L2 ~5x and
+// writes dw once.
+//
+// stencil_bwd_kernel, one step a launch, takes k >= 13 and step counts
+// whose halo no tile holds:
 // one thread per (plane, pixel), which gathers dx (no atomics) and writes
 // its k*k dw taps. The caller chains the steps in reverse; a step adds dw_in
 // (fp32, null for the first step of the chain) to its own product and
@@ -322,6 +346,192 @@ cudaError_t launch_cluster_k(const void* g, const void* xs, const void* w, void*
   }
 }
 
+template <typename T, int K, bool WS>
+__global__ void __launch_bounds__(tiled_threads(K), tiled_bwd_min_blocks(K))
+stencil_tiled_bwd_kernel(const T* __restrict__ g, const T* __restrict__ xs, const T* __restrict__ w,
+                         T* __restrict__ dx, T* __restrict__ dw, int64_t planes, int h, int wd, int steps, int th,
+                         int tw, int tiles) {
+  constexpr int R = K / 2, KK = K * K;
+  extern __shared__ float smem[];
+  const int64_t p = blockIdx.x / tiles;
+  const TileBox b = tile_box((int)(blockIdx.x - p * tiles), h, wd, th, tw, R, steps * R, steps * R);
+  const int64_t hw = (int64_t)h * wd;
+  const int bn = b.bh * b.bw, wn = b.wh * b.ww;
+  const int ih = b.y1 - b.y0, iw = b.x1 - b.x0, in = ih * iw;
+  const int xw = iw + 2 * R, xn = (ih + 2 * R) * xw;  // a step input on the interior grown by r
+  // shared memory: the gradient's ping-pong pair, every step's gradient on
+  // the interior, every step's input on the interior grown by r, then w
+  float* src = smem;
+  float* dst = smem + bn;
+  float* const ghist = smem + 2 * bn;
+  float* const xhist = ghist + steps * in;
+  T* const ws = reinterpret_cast<T*>(xhist + steps * xn);
+  const T* const wp = w + p * KK * hw;
+
+#pragma unroll 4
+  for (int i = threadIdx.x; i < bn; i += blockDim.x) {
+    src[i] = load_or_zero(g + p * hw, b.by0 + i / b.bw, b.bx0 + i % b.bw, h, wd);
+    dst[i] = 0.f;
+  }
+  for (int t = 0; t < steps; ++t) {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < xn; j += blockDim.x)
+      xhist[t * xn + j] = load_or_zero(xs + (t * planes + p) * hw, b.y0 - R + j / xw, b.x0 - R + j % xw, h, wd);
+  }
+  __syncthreads();
+
+  for (int s = steps - 1; s >= 0; --s) {
+    // src holds the gradient of step s's output on the interior grown by
+    // (s+1)*r; keep its interior for dw
+    for (int i = threadIdx.x; i < in; i += blockDim.x) {
+      const int iy = i / iw, ix = i - iy * iw;
+      ghist[s * in + i] = src[(b.y0 + iy - b.by0) * b.bw + (b.x0 + ix - b.bx0)];
+    }
+    // the gradient of step s's input on the interior grown by s*r (the
+    // transpose stencil): d[q] = sum_t g[q - o_t] * w[t, q - o_t]
+    const bool staged = WS && s < steps - 1;
+    const int e = s * R;
+    const int cy0 = max(b.y0 - e, 0), cx0 = max(b.x0 - e, 0);
+    const int ch = min(b.y1 + e, h) - cy0, cw = min(b.x1 + e, wd) - cx0;
+    for (int i = threadIdx.x; i < ch * cw; i += blockDim.x) {
+      const int yy = cy0 + i / cw, xx = cx0 + i % cw;
+      // tap t's source pixel (yy + r - dy, xx + r - dx); beyond the plane
+      // the gradient is zero in the buffer and the weight is masked (read
+      // from the clamped address, so that every load is unbranched)
+      const float* gwin = src + (yy + R - b.by0) * b.bw + (xx + R - b.bx0);  // the (0, 0) tap's source
+      float d = 0.f;
+      if (K <= 7 && yy >= R && yy + R < h && xx >= R && xx + R < wd) {
+        // every source of the window lies in the plane: no clamp, no mask
+        // (at k = 9 and 11 the second copy of the loop ran slower on the
+        // card: few pixels of a small plane are that far from its edge)
+#pragma unroll tiled_row_unroll(K)
+        for (int dy = 0; dy < K; ++dy) {
+          const int sy = yy + R - dy;
+          if (staged) {
+            const T* wrow = ws + dy * K * wn + (sy - b.wy0) * b.ww + (xx + R - b.wx0);
+#pragma unroll
+            for (int ddx = 0; ddx < K; ++ddx) d = fmaf(gwin[-dy * b.bw - ddx], to_f(wrow[ddx * wn - ddx]), d);
+          } else {
+            const T* wrow = wp + (int64_t)dy * K * hw + (int64_t)sy * wd + xx + R;
+            T raw[K];
+#pragma unroll
+            for (int ddx = 0; ddx < K; ++ddx) raw[ddx] = ld_raw(wrow + (int64_t)ddx * hw - ddx);
+#pragma unroll
+            for (int ddx = 0; ddx < K; ++ddx) {
+              if (WS) ws[(dy * K + ddx) * wn + (sy - b.wy0) * b.ww + (xx + R - ddx - b.wx0)] = raw[ddx];
+              d = fmaf(gwin[-dy * b.bw - ddx], to_f(raw[ddx]), d);
+            }
+          }
+        }
+      } else if (staged) {
+        // the clamped source lies in the staged region, which reaches the
+        // plane's edge wherever the taps cross it
+#pragma unroll tiled_row_unroll(K)
+        for (int dy = 0; dy < K; ++dy) {
+          const int sy = yy + R - dy;
+          const bool row_in = sy >= 0 && sy < h;
+          const T* wrow = ws + (min(max(sy, 0), h - 1) - b.wy0) * b.ww - b.wx0;
+#pragma unroll
+          for (int ddx = 0; ddx < K; ++ddx) {
+            const int sx = xx + R - ddx;
+            const bool inside = row_in && sx >= 0 && sx < wd;
+            const float wv = to_f(wrow[(dy * K + ddx) * wn + min(max(sx, 0), wd - 1)]);
+            d = fmaf(gwin[-dy * b.bw - ddx], inside ? wv : 0.f, d);
+          }
+        }
+      } else {
+        // the first step reads w from memory, a row of k taps' loads at
+        // a time (and, in ws mode, stages each (tap, pixel) of the w region
+        // once)
+#pragma unroll tiled_row_unroll(K)
+        for (int dy = 0; dy < K; ++dy) {
+          const int sy = yy + R - dy;
+          const bool row_in = sy >= 0 && sy < h;
+          const int64_t row = (int64_t)min(max(sy, 0), h - 1) * wd;
+          T raw[K];
+#pragma unroll
+          for (int ddx = 0; ddx < K; ++ddx)
+            raw[ddx] = ld_raw(wp + (int64_t)(dy * K + ddx) * hw + row + min(max(xx + R - ddx, 0), wd - 1));
+#pragma unroll
+          for (int ddx = 0; ddx < K; ++ddx) {
+            const int sx = xx + R - ddx;
+            const bool inside = row_in && sx >= 0 && sx < wd;
+            if (WS && inside) ws[(dy * K + ddx) * wn + (sy - b.wy0) * b.ww + (sx - b.wx0)] = raw[ddx];
+            d = fmaf(gwin[-dy * b.bw - ddx], inside ? to_f(raw[ddx]) : 0.f, d);
+          }
+        }
+      }
+      if (s == 0) {
+        store_f(dx + p * hw + (int64_t)yy * wd + xx, d);  // the last region is the interior
+      } else {
+        dst[(yy - b.by0) * b.bw + (xx - b.bx0)] = round_to(d, g);
+      }
+    }
+    __syncthreads();  // every read of src (and ws) and write of dst done before the swap
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  // dw on the interior, tap by tap: the product of each step's gradient and
+  // input rounded to fp32 and added in the plain version's order (the last
+  // step first), written once in w's dtype
+  // A thread takes a pixel (consecutive threads consecutive pixels, so the
+  // writes of each tap are coalesced) and its taps a row of k at a time, k
+  // sums in registers.
+  for (int j = threadIdx.x; j < in; j += blockDim.x) {
+    const int iy = j / iw, ix = j - iy * iw;
+    T* const dq = dw + p * KK * hw + (int64_t)(b.y0 + iy) * wd + b.x0 + ix;
+#pragma unroll 1
+    for (int dy = 0; dy < K; ++dy) {
+      const float* xq = xhist + (iy + dy) * xw + ix;
+      float acc[K];
+#pragma unroll
+      for (int ddx = 0; ddx < K; ++ddx) acc[ddx] = 0.f;
+      for (int s = steps - 1; s >= 0; --s) {
+        const float gs = ghist[s * in + j];
+#pragma unroll
+        for (int ddx = 0; ddx < K; ++ddx) acc[ddx] += __fmul_rn(gs, xq[s * xn + ddx]);
+      }
+#pragma unroll
+      for (int ddx = 0; ddx < K; ++ddx) store_f(dq + (int64_t)(dy * K + ddx) * hw, acc[ddx]);
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_tiled(const void* g, const void* xs, const void* w, void* dx, void* dw, int64_t planes, int h,
+                         int wd, int steps, cudaStream_t s) {
+  const TiledPlan plan = tiled_plan(h, wd, K, steps, sizeof(T), true);
+  if (plan.th == 0) return cudaErrorInvalidValue;
+  const int tiles = ((h + plan.th - 1) / plan.th) * ((wd + plan.tw - 1) / plan.tw);
+  if (planes * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = tiled_smem(plan.th, plan.tw, h, wd, K, steps, sizeof(T), true, plan.ws);
+  auto kern = plan.ws ? stencil_tiled_bwd_kernel<T, K, true> : stencil_tiled_bwd_kernel<T, K, false>;
+  if (smem > STATIC_SMEM_LIMIT) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<(unsigned)(planes * tiles), tiled_threads(K), smem, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(xs), static_cast<const T*>(w), static_cast<T*>(dx),
+      static_cast<T*>(dw), planes, h, wd, steps, plan.th, plan.tw, tiles);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tiled_k(const void* g, const void* xs, const void* w, void* dx, void* dw, int64_t planes, int h,
+                           int wd, int k, int steps, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_tiled<T, 1>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 3: return launch_tiled<T, 3>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 5: return launch_tiled<T, 5>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 7: return launch_tiled<T, 7>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 9: return launch_tiled<T, 9>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    case 11: return launch_tiled<T, 11>(g, xs, w, dx, dw, planes, h, wd, steps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, typename TO>
 __global__ void stencil_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
                                    const T* __restrict__ w, T* __restrict__ dx,
@@ -413,6 +623,23 @@ extern "C" int dgtd_diffusion_cluster_bwd(const void* g, const void* xs, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_cluster_k<float>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
   return (int)launch_cluster_k<__nv_bfloat16>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
+}
+
+// Tiled entry: the backward of all `steps` (>= 1) steps in one launch, for
+// planes whose stencil_route is ROUTE_TILED and that have a backward
+// tiled_plan (else cudaErrorInvalidValue); arguments as the fused entry's.
+// Returns the launch's error.
+extern "C" int dgtd_diffusion_tiled_bwd(const void* g, const void* xs, const void* w, void* dx, void* dw,
+                                        long long planes, int h, int wd, int k, int steps, int dtype, int device,
+                                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (stencil_route(h, wd, k, dtype == 0 ? 4 : 2) != ROUTE_TILED || steps < 1) return (int)cudaErrorInvalidValue;
+  if (planes <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_tiled_k<float>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
+  return (int)launch_tiled_k<__nv_bfloat16>(g, xs, w, dx, dw, planes, h, wd, k, steps, s);
 }
 
 // How many clusters of the k = 7 cluster backward (bf16) the card holds at

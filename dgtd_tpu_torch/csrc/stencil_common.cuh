@@ -1,9 +1,9 @@
 // Shared by diffusion_stencil.cu and diffusion_stencil_bwd.cu: element loads
 // and stores in fp32 or bf16, the limit of the fused (all steps in one
-// launch) kernels, which ops/diffusion.py::fused_path mirrors, and the route
-// of a plane among the fused, cluster and per-step kernels with the cluster
-// kernels' strip split, which ops/diffusion.py::stencil_route and
-// cluster_split mirror.
+// launch) kernels, which ops/diffusion.py::fused_path mirrors, the route of
+// a plane among the fused, cluster, tiled and per-step kernels with the
+// cluster kernels' strip split and the tiled kernels' plan, which
+// ops/diffusion.py::stencil_route, cluster_split and tiled_plan mirror.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -25,6 +25,22 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ float to_f(float v) { return v; }
+// a read-only load of an element in its own dtype
+__device__ __forceinline__ float ld_raw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ld_raw(const __nv_bfloat16* p) { return __ldg(p); }
+// read-only loads of V consecutive elements, p aligned to V elements for V = 2
+__device__ __forceinline__ void ld_group(const float* p, float (&r)[1]) { r[0] = __ldg(p); }
+__device__ __forceinline__ void ld_group(const __nv_bfloat16* p, __nv_bfloat16 (&r)[1]) { r[0] = __ldg(p); }
+__device__ __forceinline__ void ld_group(const float* p, float (&r)[2]) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  r[0] = v.x;
+  r[1] = v.y;
+}
+__device__ __forceinline__ void ld_group(const __nv_bfloat16* p, __nv_bfloat16 (&r)[2]) {
+  const __nv_bfloat162 v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  r[0] = v.x;
+  r[1] = v.y;
+}
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 // v rounded to T and back: the value a step stores in its tensors' dtype
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
@@ -89,9 +105,14 @@ inline size_t cluster_bwd_smem(int rows, int wd, int k, int elem_bytes) {
 
 // Which kernels run an (h, wd) plane at this k and element size: the fused
 // ones, the cluster ones (a halo comes from the adjacent strip only, so a
-// strip needs r rows), or the per-step ones. ops/diffusion.py::stencil_route
-// mirrors it.
-enum StencilRoute { ROUTE_FUSED = 0, ROUTE_CLUSTER = 1, ROUTE_PER_STEP = 2 };
+// strip needs r rows), the tiled ones (any other plane at an odd k up to
+// TILED_MAX_KERNEL), or the per-step ones (k >= 13).
+// ops/diffusion.py::stencil_route mirrors it.
+enum StencilRoute { ROUTE_FUSED = 0, ROUTE_CLUSTER = 1, ROUTE_PER_STEP = 2, ROUTE_TILED = 3 };
+
+// k is a template argument of the tiled kernels: 1, 3, ..., 11, the range of
+// the kernel3..kernel11 ablations
+constexpr int TILED_MAX_KERNEL = 11;
 
 inline int stencil_route(int h, int wd, int k, int elem_bytes) {
   if (fused_fits(h, wd, k, elem_bytes)) return ROUTE_FUSED;
@@ -99,7 +120,167 @@ inline int stencil_route(int h, int wd, int k, int elem_bytes) {
   const bool cluster = (k == 1 || k == 3 || k == 5 || k == 7) && sp.blocks > 0 &&
                        sp.blocks <= CLUSTER_MAX_BLOCKS && sp.rows >= k / 2 &&
                        cluster_bwd_smem(sp.rows, wd, k, elem_bytes) <= FUSED_SMEM_LIMIT;
-  return cluster ? ROUTE_CLUSTER : ROUTE_PER_STEP;
+  if (cluster) return ROUTE_CLUSTER;
+  return k >= 1 && k % 2 == 1 && k <= TILED_MAX_KERNEL && h > 0 && wd > 0 ? ROUTE_TILED : ROUTE_PER_STEP;
+}
+
+// The tiled kernels (temporal blocking): one block a (plane, tile), all the
+// steps of a call in one launch. A tile's interior is th x tw pixels; step t
+// of s computes the interior grown by (s-1-t)*r on each side, so the block
+// loads x on the interior grown by s*r, and the region grown beyond the
+// plane is the plane's zero edge, never computed. A plane that one tile
+// holds is computed once, with no recomputed halo. The backward runs the
+// steps in reverse with the gradient's region shrinking by r a step.
+//
+// Shared memory of a tile (fp32 unless named):
+//   both: two ping-pong buffers of the interior grown by s*r (clipped to r
+//     beyond the plane): x's steps forward, the gradient's backward;
+//   backward: every step's gradient on the interior (dw is formed from them
+//     after the step loop, tap by tap, and written once) and every step's
+//     input on the interior grown by r;
+//   ws mode (backward only): the tile's k*k weight planes in their own
+//     dtype, on the region that its steps read them (the interior grown by
+//     s*r, within the plane), staged by the first step's reads and read
+//     from shared memory by the later steps.
+// Without ws (the forward always), every step reads w from device memory
+// (L2 serves the later steps' re-reads).
+// threads of a tiled block: 512 for k <= 7, 256 for k = 9 and 11. The
+// forward keeps to 64 registers a thread (tiled_min_blocks blocks an SM),
+// so that the register file holds 1024 threads, whose loads hide each
+// other's latency; so does the backward at k = 9 and 11. The backward at
+// k <= 7 takes the registers it needs (128 at 512 threads): under 64 or 80
+// it spills, and it ran slower on the card both ways. Both unroll the k
+// rows of taps at k <= 7 only (tiled_row_unroll): at 9 and 11 a fully
+// unrolled window's addresses alone would fill the registers.
+__host__ __device__ constexpr int tiled_threads(int k) { return k <= 7 ? 512 : 256; }
+__host__ __device__ constexpr int tiled_min_blocks(int k) { return 1024 / tiled_threads(k); }
+__host__ __device__ constexpr int tiled_bwd_min_blocks(int k) { return k <= 7 ? 1 : tiled_min_blocks(k); }
+__host__ __device__ constexpr int tiled_row_unroll(int k) { return k <= 7 ? k : 1; }
+constexpr int TILED_MAX_TILE_ROWS = 256;
+// the backward's ws mode is taken at 2 or more steps (at one step no later
+// step reads what it stages) when its tiles read at most 3/2 times the
+// plane's w from memory (the halo's recompute): its one block an SM cannot
+// overlap the loads with the steps, and without ws two or more blocks an
+// SM do, L2 serving the later steps' re-reads. The forward has no ws mode:
+// on the card it ran slower than streaming at kernel11's (240, 12, 12) and
+// at (24, 512, 512).
+constexpr int TILED_WS_MAX_RATIO_NUM = 3, TILED_WS_MAX_RATIO_DEN = 2;
+// without ws, a tile of at most this many pixels, so that a plane gives
+// blocks enough to fill the card (a 96 x 96 plane 5 tiles), and at most
+// TILED_STREAM_SMEM bytes: two blocks an SM (228 KB, less 1 KB a block
+// that the runtime keeps)
+constexpr int TILED_STREAM_MAX_PIXELS = 2048;
+constexpr size_t TILED_STREAM_SMEM = 233472 / 2 - 1024;
+
+struct TiledPlan {
+  int th, tw, ws;  // th = 0: no tile fits shared memory
+};
+
+inline int64_t imin64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// The halo of the region a tile reads w on: (s-1)*r forward, s*r backward.
+inline int64_t tiled_w_halo(int k, int steps, bool bwd) {
+  return (int64_t)(k / 2) * (bwd ? steps : steps - 1);
+}
+
+inline size_t tiled_smem(int th, int tw, int h, int wd, int k, int steps, int elem_bytes, bool bwd, bool ws) {
+  const int64_t r = k / 2, halo = (int64_t)steps * r;
+  const int64_t bh = imin64(th + 2 * halo, h + 2 * r), bw = imin64(tw + 2 * halo, wd + 2 * r);
+  int64_t bytes = 2 * 4 * bh * bw;
+  if (bwd) bytes += 4 * (int64_t)steps * ((int64_t)th * tw + (th + 2 * r) * (tw + 2 * r));
+  if (ws) {
+    const int64_t wh = tiled_w_halo(k, steps, bwd);
+    bytes += (int64_t)k * k * imin64(th + 2 * wh, h) * imin64(tw + 2 * wh, wd) * elem_bytes;
+  }
+  return (size_t)bytes;
+}
+
+// The tile within `budget` bytes of shared memory that reads the fewest w
+// values in all (tiles x the w region of a tile), fewer tiles on a tie; rows
+// and columns split as evenly as their tile counts allow (without ws, at
+// most TILED_STREAM_MAX_PIXELS pixels a tile). cost receives
+// that count; th = 0 if no tile fits.
+inline TiledPlan tiled_search(int h, int wd, int k, int steps, int elem_bytes, bool bwd, bool ws, size_t budget,
+                              int64_t* cost) {
+  TiledPlan best = {0, 0, ws ? 1 : 0};
+  int64_t best_cost = -1, best_tiles = 0;
+  const int64_t wh = tiled_w_halo(k, steps, bwd);
+  const int top = h < TILED_MAX_TILE_ROWS ? h : TILED_MAX_TILE_ROWS;
+  for (int th0 = 1; th0 <= top; ++th0) {
+    const int ny = (h + th0 - 1) / th0, th = (h + ny - 1) / ny;
+    if (tiled_smem(th, 1, h, wd, k, steps, elem_bytes, bwd, ws) > budget) break;
+    int lo = 1, hi = ws ? wd : min(wd, TILED_STREAM_MAX_PIXELS / th);  // the widest tile of th rows that fits
+    while (lo < hi) {
+      const int mid = lo + (hi - lo + 1) / 2;
+      if (tiled_smem(th, mid, h, wd, k, steps, elem_bytes, bwd, ws) <= budget) lo = mid; else hi = mid - 1;
+    }
+    const int nx = (wd + lo - 1) / lo, tw = (wd + nx - 1) / nx;
+    const int64_t tiles = (int64_t)ny * nx;
+    const int64_t c = tiles * imin64(th + 2 * wh, h) * imin64(tw + 2 * wh, wd);
+    if (best_cost < 0 || c < best_cost || (c == best_cost && tiles < best_tiles)) {
+      best = {th, tw, ws ? 1 : 0};
+      best_cost = c;
+      best_tiles = tiles;
+    }
+  }
+  *cost = best_cost;
+  return best;
+}
+
+// The tiled kernels' plan of an (h, wd) plane at k, steps and element
+// size, forward or backward: in backward at 2 or more steps ws mode where
+// its tiles read at most 3/2 times the plane's w; else w from memory at
+// every step in a tile of at most TILED_STREAM_SMEM bytes (two blocks an
+// SM) or, failing that, a block's whole shared memory.
+// ops/diffusion.py::tiled_plan mirrors it.
+inline TiledPlan tiled_plan(int h, int wd, int k, int steps, int elem_bytes, bool bwd) {
+  if (h < 1 || wd < 1 || steps < 1 || k < 1 || k % 2 == 0 || k > TILED_MAX_KERNEL) return {0, 0, 0};
+  int64_t cost = 0;
+  if (bwd && steps > 1) {
+    const TiledPlan ws = tiled_search(h, wd, k, steps, elem_bytes, bwd, true, FUSED_SMEM_LIMIT, &cost);
+    if (ws.th > 0 && cost * TILED_WS_MAX_RATIO_DEN <= (int64_t)TILED_WS_MAX_RATIO_NUM * h * wd) return ws;
+  }
+  const TiledPlan half = tiled_search(h, wd, k, steps, elem_bytes, bwd, false, TILED_STREAM_SMEM, &cost);
+  if (half.th > 0) return half;
+  return tiled_search(h, wd, k, steps, elem_bytes, bwd, false, FUSED_SMEM_LIMIT, &cost);
+}
+
+// Plane element (yy, xx) of a (h, wd) plane at base, 0 beyond the plane:
+// the load is unconditional, from the clamped address, so that a loop of
+// them keeps several in flight.
+template <typename T>
+__device__ __forceinline__ float load_or_zero(const T* base, int yy, int xx, int h, int wd) {
+  const bool inside = yy >= 0 && yy < h && xx >= 0 && xx < wd;
+  const float v = to_f(ld_raw(base + (int64_t)min(max(yy, 0), h - 1) * wd + min(max(xx, 0), wd - 1)));
+  return inside ? v : 0.f;
+}
+
+// Where a tile lies: its interior [y0, y1) x [x0, x1), the buffer of the
+// interior grown by `halo` within r of the plane ([by0, by0 + bh) x
+// [bx0, bx0 + bw)), and the w region grown by `whalo` within the plane.
+struct TileBox {
+  int y0, y1, x0, x1;
+  int by0, bh, bx0, bw;
+  int wy0, wh, wx0, ww;
+};
+
+__device__ __forceinline__ TileBox tile_box(int tile, int h, int wd, int th, int tw, int r, int halo, int whalo) {
+  const int nx = (wd + tw - 1) / tw;
+  const int ty = tile / nx, tx = tile - ty * nx;
+  TileBox b;
+  b.y0 = ty * th;
+  b.y1 = min(b.y0 + th, h);
+  b.x0 = tx * tw;
+  b.x1 = min(b.x0 + tw, wd);
+  b.by0 = max(b.y0 - halo, -r);
+  b.bh = min(b.y1 + halo, h + r) - b.by0;
+  b.bx0 = max(b.x0 - halo, -r);
+  b.bw = min(b.x1 + halo, wd + r) - b.bx0;
+  b.wy0 = max(b.y0 - whalo, 0);
+  b.wh = min(b.y1 + whalo, h) - b.wy0;
+  b.wx0 = max(b.x0 - whalo, 0);
+  b.ww = min(b.x1 + whalo, wd) - b.wx0;
+  return b;
 }
 
 // Threads of a cluster kernel's block: one a pixel of a strip, in whole warps.

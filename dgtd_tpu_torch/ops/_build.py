@@ -96,14 +96,15 @@ def load(name: str) -> ctypes.CDLL:
 _FNS: Dict[str, Callable] = {}
 
 
-def function(name: str, symbol: str, argtypes) -> Callable:
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int) -> Callable:
     """The C function ``symbol`` of ``csrc/<name>.cu`` with its argument
-    types set; it returns a ``cudaError_t`` as an int."""
+    types set; it returns a ``cudaError_t`` as an int unless ``restype``
+    says otherwise."""
     fn = _FNS.get(symbol)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FNS[symbol] = fn
     return fn
 

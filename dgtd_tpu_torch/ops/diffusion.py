@@ -6,7 +6,7 @@ Plane layout is the counterpart of
 ``dgtd_tpu/ops/diffusion_pallas.py::diffusion_pallas_v2_planes`` and its
 custom VJP. The forward kernels replace the Pallas
 ``diffusion_step_pallas_v2``, the backward kernels both Pallas kernels of
-``diffusion_step_bwd_pallas``. Three kernels each, chosen by the plane's
+``diffusion_step_bwd_pallas``. Four kernels each, chosen by the plane's
 shape and dtype alone (``stencil_route``): a plane of at most 512 pixels at
 k in {1, 3, 5, 7} (the cod recipe's 12x12 grid) runs all its steps in one
 launch of the fused forward and, in backward, one of the fused backward,
@@ -14,13 +14,17 @@ the plane held in one block's shared memory; a larger plane that a thread
 block cluster holds (up to 8 strips of at most 512 pixels, the paper's
 grid-64 ablation among them) runs all its steps in one launch of the
 cluster forward and one of the cluster backward, the strips exchanging
-halo rows through distributed shared memory; a plane beyond that runs one
-launch of the per-step kernel a step. Unlike the JAX package, which keeps
-grids under 64 on fused XLA, the port launches kernels at every grid size
-on CUDA.
+halo rows through distributed shared memory; every other plane at an odd
+k up to 11 (grids beyond 64, the kernel9 and kernel11 ablations at any
+grid) runs all its steps in one launch of the tiled forward and one of the
+tiled backward, one block a tile of the plane with a halo that it
+recomputes (``tiled_plan``); k >= 13, or a step count whose halo no tile
+holds (``plane_route``), runs one launch of the per-step kernel a step.
+Unlike the JAX package, which keeps grids under 64 on fused XLA, the port
+launches kernels at every grid size on CUDA.
 
 NHWC is the counterpart of ``diffusion_pallas`` (x (B, H, W, C), weights
-(B, H, W, C, k²), tap-major inside): its forward kernel, a third kernel in
+(B, H, W, C, k²), tap-major inside): its forward kernel, another kernel in
 ``csrc/diffusion_stencil.cu``, replaces the Pallas ``diffusion_step_pallas``;
 its backward moves g, the step inputs and w into plane layout and runs the
 plane backward kernels (the JAX backward is the VJP of the jnp stencil).
@@ -32,6 +36,7 @@ exception, never a plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -48,8 +53,12 @@ FUSED_BWD_LAUNCHES = 0
 #: cluster's reach): one launch for all the steps of a call
 CLUSTER_LAUNCHES = 0
 CLUSTER_BWD_LAUNCHES = 0
-#: the per-step forward and backward (planes beyond the cluster kernels'
-#: reach): one launch per step
+#: the tiled forward and backward (every other plane at an odd k up to
+#: 11): one launch for all the steps of a call
+TILED_LAUNCHES = 0
+TILED_BWD_LAUNCHES = 0
+#: the per-step forward and backward (k >= 13, or a step count whose halo
+#: no tile holds): one launch per step
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 #: the NHWC forward (one per step); its backward counts in the plane
@@ -98,7 +107,8 @@ def cluster_split(h: int, w: int) -> Tuple[int, int]:
 
 def stencil_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> str:
     """Which kernels run an (H, W) plane at this kernel and dtype on CUDA:
-    "fused", "cluster" or "per_step"."""
+    "fused", "cluster", "tiled" (every other plane at an odd k up to
+    TILED_MAX_KERNEL) or "per_step" (k >= 13)."""
     if fused_path(h, w, kernel, dtype):
         return "fused"
     blocks, rows = cluster_split(h, w)
@@ -106,13 +116,113 @@ def stencil_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> str:
     smem = 4 * 4 * (rows + 2 * r) * (w + 2 * r) + (kernel * kernel * (rows + 2 * r) * w + 2 * r) * dtype.itemsize
     if kernel in FUSED_KERNELS and 0 < blocks <= CLUSTER_MAX_BLOCKS and rows >= r and smem <= FUSED_SMEM_LIMIT:
         return "cluster"
+    if kernel % 2 == 1 and 1 <= kernel <= TILED_MAX_KERNEL and h > 0 and w > 0:
+        return "tiled"
     return "per_step"
 
 
-#: the C entries of the all-steps kernels (forward, backward) by route; the
-#: fused and the cluster entries take the same arguments
+#: the tiled kernels' limits, as ``csrc/stencil_common.cuh`` states them:
+#: k a template argument up to 11 (the kernel3..kernel11 ablations); tiles
+#: of at most 256 rows; the backward's w-in-shared-memory mode at 2 or more
+#: steps while its tiles read at most 3/2 times the plane's w
+TILED_MAX_KERNEL = 11
+TILED_MAX_TILE_ROWS = 256
+TILED_WS_MAX_RATIO = 1.5
+#: without ws mode, tiles of at most 2048 pixels (a 96 x 96 plane 5 tiles)
+#: and 115712 bytes of shared memory (two blocks an SM)
+TILED_STREAM_MAX_PIXELS = 2048
+TILED_STREAM_SMEM = 233472 // 2 - 1024
+
+
+def _tiled_w_halo(kernel: int, steps: int, bwd: bool) -> int:
+    return (kernel // 2) * (steps if bwd else steps - 1)
+
+
+def tiled_smem(th: int, tw: int, h: int, w: int, kernel: int, steps: int, elem_bytes: int, bwd: bool,
+               ws: bool) -> int:
+    """Shared memory of a tiled block of th x tw interior pixels: two fp32
+    buffers of the interior grown by steps·r (within r of the plane); in
+    backward every step's gradient on the interior and input on the
+    interior grown by r, and in ws mode the k² weight planes on the region
+    the steps read them (grown by steps·r, within the plane)."""
+    r, halo = kernel // 2, steps * (kernel // 2)
+    nbytes = 8 * min(th + 2 * halo, h + 2 * r) * min(tw + 2 * halo, w + 2 * r)
+    if bwd:
+        nbytes += 4 * steps * (th * tw + (th + 2 * r) * (tw + 2 * r))
+    if ws:
+        wh = _tiled_w_halo(kernel, steps, bwd)
+        nbytes += kernel * kernel * min(th + 2 * wh, h) * min(tw + 2 * wh, w) * elem_bytes
+    return nbytes
+
+
+def _tiled_search(h, w, kernel, steps, elem_bytes, bwd, ws, budget):
+    """(plan, cost): the tile within ``budget`` bytes that reads the fewest
+    w values in all (tiles x its w region), fewer tiles on a tie, rows and
+    columns split as evenly as their counts allow (without ws, at most
+    TILED_STREAM_MAX_PIXELS pixels a tile); plan None if none fits."""
+    best, best_cost, best_tiles = None, -1, 0
+    wh = _tiled_w_halo(kernel, steps, bwd)
+    for th0 in range(1, min(h, TILED_MAX_TILE_ROWS) + 1):
+        ny = -(-h // th0)
+        th = -(-h // ny)
+        if tiled_smem(th, 1, h, w, kernel, steps, elem_bytes, bwd, ws) > budget:
+            break
+        lo, hi = 1, w if ws else min(w, TILED_STREAM_MAX_PIXELS // th)
+        while lo < hi:
+            mid = lo + (hi - lo + 1) // 2
+            if tiled_smem(th, mid, h, w, kernel, steps, elem_bytes, bwd, ws) <= budget:
+                lo = mid
+            else:
+                hi = mid - 1
+        nx = -(-w // lo)
+        tw = -(-w // nx)
+        tiles = ny * nx
+        cost = tiles * min(th + 2 * wh, h) * min(tw + 2 * wh, w)
+        if best is None or cost < best_cost or (cost == best_cost and tiles < best_tiles):
+            best, best_cost, best_tiles = (th, tw, ws), cost, tiles
+    return best, best_cost
+
+
+@functools.lru_cache(maxsize=4096)
+def tiled_plan(h: int, w: int, kernel: int, steps: int, dtype: torch.dtype,
+               bwd: bool = False) -> Optional[Tuple[int, int, bool]]:
+    """(tile rows, tile columns, ws mode) of the tiled forward (or backward)
+    on an (H, W) plane, as ``csrc/stencil_common.cuh::tiled_plan`` decides
+    it; None if no tile fits. In backward at 2 or more steps ws mode (w
+    staged in shared memory by the first step) where its tiles read at most
+    TILED_WS_MAX_RATIO times the plane's w; else w from memory every step in
+    a tile of at most TILED_STREAM_SMEM bytes (two blocks an SM) or, failing
+    that, a block's whole shared memory."""
+    if h < 1 or w < 1 or steps < 1 or kernel % 2 == 0 or not 1 <= kernel <= TILED_MAX_KERNEL:
+        return None
+    eb = dtype.itemsize
+    if bwd and steps > 1:
+        plan, cost = _tiled_search(h, w, kernel, steps, eb, bwd, True, FUSED_SMEM_LIMIT)
+        if plan is not None and cost <= TILED_WS_MAX_RATIO * h * w:
+            return plan
+    plan, _ = _tiled_search(h, w, kernel, steps, eb, bwd, False, TILED_STREAM_SMEM)
+    if plan is None:
+        plan, _ = _tiled_search(h, w, kernel, steps, eb, bwd, False, FUSED_SMEM_LIMIT)
+    return plan
+
+
+def plane_route(h: int, w: int, kernel: int, dtype: torch.dtype, steps: int) -> str:
+    """The route a call of ``steps`` steps takes: ``stencil_route``, but
+    "per_step" for a tiled plane whose halo at this step count no tile
+    holds (k = 11 beyond 16 steps on a plane that one tile does not hold,
+    for one)."""
+    route = stencil_route(h, w, kernel, dtype)
+    if route == "tiled" and (tiled_plan(h, w, kernel, steps, dtype) is None
+                             or tiled_plan(h, w, kernel, steps, dtype, True) is None):
+        return "per_step"
+    return route
+
+
+#: the C entries of the all-steps kernels (forward, backward) by route;
+#: they take the same arguments
 _ALL_STEPS = {"fused": ("dgtd_diffusion_fused", "dgtd_diffusion_fused_bwd"),
-              "cluster": ("dgtd_diffusion_cluster", "dgtd_diffusion_cluster_bwd")}
+              "cluster": ("dgtd_diffusion_cluster", "dgtd_diffusion_cluster_bwd"),
+              "tiled": ("dgtd_diffusion_tiled", "dgtd_diffusion_tiled_bwd")}
 _ALL_STEPS_FWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -146,7 +256,7 @@ def _nhwc_fn():
     ])
 
 
-_ROUTES = ("fused", "cluster", "per_step")
+_ROUTES = ("fused", "cluster", "per_step", "tiled")
 
 
 def native_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> Tuple[str, Tuple[int, int]]:
@@ -160,6 +270,20 @@ def native_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> Tuple[str, 
     blocks, rows = ctypes.c_int(), ctypes.c_int()
     route = fn(h, w, kernel, dtype.itemsize, ctypes.byref(blocks), ctypes.byref(rows))
     return _ROUTES[route], (blocks.value, rows.value)
+
+
+def native_tiled_plan(h: int, w: int, kernel: int, steps: int, dtype: torch.dtype,
+                      bwd: bool = False) -> Tuple[Optional[Tuple[int, int, bool]], int]:
+    """The tiled plan and its shared memory in bytes as the C entries decide
+    them, for holding ``tiled_plan`` and ``tiled_smem`` to them. Builds the
+    library."""
+    fn = _build.function("diffusion_stencil", "dgtd_tiled_plan", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ], restype=ctypes.c_longlong)
+    th, tw, ws = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = fn(h, w, kernel, steps, dtype.itemsize, int(bwd), ctypes.byref(th), ctypes.byref(tw), ctypes.byref(ws))
+    return ((th.value, tw.value, bool(ws.value)) if th.value else None), smem
 
 
 def cluster_occupancy(blocks: int, rows: int, w: int, backward: bool, device: int = 0) -> int:
@@ -268,11 +392,13 @@ def _forward_steps(
     if steps == 0:
         return x.clone(), xs
     out = torch.empty_like(x)
-    route = stencil_route(x.shape[1], x.shape[2], kernel, x.dtype)
+    route = plane_route(x.shape[1], x.shape[2], kernel, x.dtype, steps)
     if route == "fused":
         _fused_forward(x, w, kernel, steps, xs, out)
     elif route == "cluster":
         _cluster_forward(x, w, kernel, steps, xs, out)
+    elif route == "tiled":
+        _tiled_forward(x, w, kernel, steps, xs, out)
     else:
         _per_step_forward(x, w, kernel, steps, xs, out)
     return out, xs
@@ -281,7 +407,7 @@ def _forward_steps(
 def _all_steps_forward(route: str, x, w, kernel: int, steps: int, xs: Optional[torch.Tensor],
                        out: torch.Tensor) -> None:
     """All ``steps`` steps in one launch of the route's forward kernel
-    ("fused" or "cluster") into ``out``, every step's input into ``xs``
+    ("fused", "cluster" or "tiled") into ``out``, every step's input into ``xs``
     unless it is None. A launch that fails raises: nothing falls back."""
     p, h, wd = x.shape
     dev, stream = _build.device_and_stream(x)
@@ -302,6 +428,12 @@ def _cluster_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], 
     global CLUSTER_LAUNCHES
     _all_steps_forward("cluster", x, w, kernel, steps, xs, out)
     CLUSTER_LAUNCHES += 1
+
+
+def _tiled_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    global TILED_LAUNCHES
+    _all_steps_forward("tiled", x, w, kernel, steps, xs, out)
+    TILED_LAUNCHES += 1
 
 
 def _per_step_forward(x, w, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
@@ -331,8 +463,9 @@ def diffusion_planes_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of ``len(xs)`` steps whose inputs were ``xs`` (a sequence of
     (P, H, W) tensors or one (steps, P, H, W) tensor): (dx, dw). On CUDA one
-    launch of the fused or the cluster backward for all the steps, as
-    ``stencil_route`` says, else one launch of the per-step backward a step;
+    launch of the fused, the cluster or the tiled backward for all the
+    steps, as ``plane_route`` says, else one launch of the per-step backward
+    a step;
     dw is summed in fp32 and cast to w's dtype once. On the CPU the plain
     version."""
     if g.device.type == "cpu" and w.device.type == "cpu":
@@ -346,17 +479,19 @@ def diffusion_planes_bwd(
     if steps == 0:
         return g, torch.zeros_like(w)
     xs = xs.contiguous()
-    route = stencil_route(g.shape[1], g.shape[2], kernel, g.dtype)
+    route = plane_route(g.shape[1], g.shape[2], kernel, g.dtype, steps)
     if route == "fused":
         return _fused_backward(g, xs, w, kernel)
     if route == "cluster":
         return _cluster_backward(g, xs, w, kernel)
+    if route == "tiled":
+        return _tiled_backward(g, xs, w, kernel)
     return _per_step_backward(g, xs, w, kernel)
 
 
 def _all_steps_backward(route: str, g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of all ``len(xs)`` steps in one launch of the route's
-    backward kernel ("fused" or "cluster"); dw summed on chip and written
+    backward kernel ("fused", "cluster" or "tiled"); dw summed on chip and written
     once, in w's dtype. A launch that fails raises."""
     p, h, wd = g.shape
     dev, stream = _build.device_and_stream(g)
@@ -380,6 +515,13 @@ def _cluster_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor
     global CLUSTER_BWD_LAUNCHES
     out = _all_steps_backward("cluster", g, xs, w, kernel)
     CLUSTER_BWD_LAUNCHES += 1
+    return out
+
+
+def _tiled_backward(g, xs: torch.Tensor, w, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global TILED_BWD_LAUNCHES
+    out = _all_steps_backward("tiled", g, xs, w, kernel)
+    TILED_BWD_LAUNCHES += 1
     return out
 
 
@@ -438,10 +580,10 @@ def diffusion_planes(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) 
     gradient.
 
     x (P, H, W) and w (P, k², H, W), w already normalized, P = B·C. On CUDA
-    a plane that ``stencil_route`` sends to the fused or the cluster kernels
-    takes one launch of that forward for all the steps and, in backward, one
-    of that backward; a plane beyond them one launch of the per-step kernels
-    a step. On the CPU the plain
+    a plane that ``plane_route`` sends to the fused, the cluster or the
+    tiled kernels takes one launch of that forward for all the steps and, in
+    backward, one of that backward; the per-step route one launch of the
+    per-step kernels a step. On the CPU the plain
     versions run. Without a gradient to record (serving) the forward runs
     without the autograd Function, whose ``apply`` costs more host time than
     the fused launch itself."""
@@ -556,8 +698,8 @@ class DiffusionNHWCFn(torch.autograd.Function):
 def diffusion_nhwc_tap_major(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
     """``steps`` NHWC stencil steps on tap-major weights (B, H, W, k²·C),
     with their gradient. On CUDA each step is one launch of the NHWC forward
-    kernel; the backward is the plane backward's (one fused or cluster
-    launch where ``stencil_route`` says so). On the CPU the plain versions
+    kernel; the backward is the plane backward's (one fused, cluster or
+    tiled launch where ``plane_route`` says so). On the CPU the plain versions
     run."""
     return DiffusionNHWCFn.apply(x, w_tm, kernel, steps)
 

@@ -47,9 +47,10 @@ LAYERS = [
 def _category(name: str) -> str:
     n = name.lower()
     for key, cat in (("stencil_fused_fwd", "diffusion stencil (ours)"), ("stencil_step", "diffusion stencil (ours)"),
-                     ("stencil_cluster_fwd", "diffusion stencil (ours)"),
+                     ("stencil_cluster_fwd", "diffusion stencil (ours)"), ("stencil_tiled_fwd", "diffusion stencil (ours)"),
                      ("stencil_fused_bwd", "diffusion stencil backward (ours)"),
                      ("stencil_cluster_bwd", "diffusion stencil backward (ours)"),
+                     ("stencil_tiled_bwd", "diffusion stencil backward (ours)"),
                      ("stencil_bwd", "diffusion stencil backward (ours)"),
                      ("multi_tensor", "optimizer (foreach)"), ("dgrad", "conv backward"),
                      ("wgrad", "conv backward"), ("softmax", "softmax"),

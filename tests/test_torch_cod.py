@@ -112,13 +112,13 @@ def test_predict_cli_serves_on_cpu(carried, tmp_path):
     np.savez(npz, **flat)
     common = ["--image-dir", str(tmp_path / "img"), "--depth-dir", str(tmp_path / "dep"),
               "--size", "64", "--batch", "2", "--fp32", "--device", "cpu"] + TINY_ARGS
-    before = (D.FUSED_LAUNCHES, D.LAUNCHES)
+    before = (D.FUSED_LAUNCHES, D.LAUNCHES, D.TILED_LAUNCHES)
     summary = port_predict.main(["--checkpoint", str(pth), "--out-dir", str(tmp_path / "a")] + common)
     assert summary["images"] == n and summary["batches"] == 3
     port_predict.main(["--checkpoint", str(npz), "--out-dir", str(tmp_path / "b")] + common)
     # uint8 ingest: normalized on the device, differs only by input rounding
     port_predict.main(["--checkpoint", str(pth), "--out-dir", str(tmp_path / "c"), "--uint8-io"] + common)
-    assert (D.FUSED_LAUNCHES, D.LAUNCHES) == before  # CPU path: plain version, no kernel launch
+    assert (D.FUSED_LAUNCHES, D.LAUNCHES, D.TILED_LAUNCHES) == before  # CPU path: plain version, no kernel launch
     a, b, c = (_read_masks(tmp_path / d, n) for d in "abc")
     assert a.shape == (n, 64, 64) and a.dtype == np.uint8
     np.testing.assert_array_equal(a, b)

@@ -36,7 +36,8 @@ def _planes(rng, p, h, w, k):
     return x, raw / (raw.sum(1, keepdims=True) + 1e-5)
 
 
-@pytest.mark.parametrize("k,p,h,w,steps", [(1, 4, 12, 12, 2), (3, 6, 13, 20, 3), (7, 4, 12, 12, 4), (7, 3, 9, 17, 3)])
+@pytest.mark.parametrize("k,p,h,w,steps", [(1, 4, 12, 12, 2), (3, 6, 13, 20, 3), (7, 4, 12, 12, 4), (7, 3, 9, 17, 3),
+                                           (9, 2, 12, 12, 3), (11, 2, 13, 20, 2)])
 def test_diffusion_planes_matches_pallas_and_jnp(k, p, h, w, steps):
     x, wt = _planes(np.random.RandomState(k * 100 + h), p, h, w, k)
     out = D.diffusion_planes(torch.from_numpy(x), torch.from_numpy(wt), k, steps).numpy()
@@ -52,7 +53,8 @@ def test_diffusion_planes_matches_pallas_and_jnp(k, p, h, w, steps):
     np.testing.assert_allclose(out, np.transpose(np.asarray(ref)[0], (2, 0, 1)), **STENCIL_TOL)
 
 
-@pytest.mark.parametrize("k,p,h,w,steps", [(1, 4, 12, 12, 2), (3, 6, 13, 20, 3), (7, 4, 12, 12, 4), (7, 3, 9, 17, 3)])
+@pytest.mark.parametrize("k,p,h,w,steps", [(1, 4, 12, 12, 2), (3, 6, 13, 20, 3), (7, 4, 12, 12, 4), (7, 3, 9, 17, 3),
+                                           (9, 2, 12, 12, 3), (11, 2, 13, 20, 2)])
 def test_diffusion_planes_backward_matches_pallas_vjp(k, p, h, w, steps):
     rng = np.random.RandomState(k * 10 + w)
     x, wt = _planes(rng, p, h, w, k)
@@ -267,9 +269,9 @@ def test_tiny_cod_grid24_takes_the_cluster_route(cod24):
     assert D.stencil_route(24, 24, 7, torch.float32) == D.stencil_route(24, 24, 7, torch.bfloat16) == "cluster"
     assert D.cluster_split(24, 24) == (2, 12)
     batch = _cod_batch(1, b=1)
-    before = (D.FUSED_LAUNCHES, D.CLUSTER_LAUNCHES, D.LAUNCHES)
+    before = (D.FUSED_LAUNCHES, D.CLUSTER_LAUNCHES, D.LAUNCHES, D.TILED_LAUNCHES)
     pm.predict(torch.from_numpy(batch["input"]), torch.from_numpy(batch["depth"]))
-    assert (D.FUSED_LAUNCHES, D.CLUSTER_LAUNCHES, D.LAUNCHES) == before
+    assert (D.FUSED_LAUNCHES, D.CLUSTER_LAUNCHES, D.LAUNCHES, D.TILED_LAUNCHES) == before
 
 
 def test_tiny_cod_grid24_predict_matches_jax(cod24):

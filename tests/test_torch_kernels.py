@@ -1,7 +1,7 @@
 """The port's CUDA stencil and LayerNorm wrappers: dispatch, refusals, the
-route predicate (fused, cluster, per-step) and the cluster kernels' strip
-split, and (on a card) the plane stencil's fused, cluster and per-step
-kernels forward and backward, the NHWC stencil kernel and the LayerNorm
+route predicate (fused, cluster, tiled, per-step) and the cluster kernels'
+strip split, and (on a card) the plane stencil's fused, cluster, tiled and
+per-step kernels forward and backward, the NHWC stencil kernel and the LayerNorm
 kernel against their plain versions, and the val pass's per-image metric
 statistics (``metrics/device.py::batch_statistics``, plain PyTorch) on the
 card against the CPU.
@@ -53,17 +53,20 @@ def _planes(seed, p, h, w, k, device="cpu"):
 
 def _plane_launches():
     """fused forward, fused backward, cluster forward, cluster backward,
-    per-step forward, per-step backward"""
+    per-step forward, per-step backward, tiled forward, tiled backward"""
     return (D.FUSED_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.CLUSTER_LAUNCHES, D.CLUSTER_BWD_LAUNCHES,
-            D.LAUNCHES, D.BWD_LAUNCHES)
+            D.LAUNCHES, D.BWD_LAUNCHES, D.TILED_LAUNCHES, D.TILED_BWD_LAUNCHES)
+
+
+_SLOTS = {"fused": 0, "cluster": 2, "per_step": 4, "tiled": 6}
 
 
 def _expected_launches(before, route, steps, bwd):
     """The counters after one call of ``steps`` steps (forward, or backward
-    when ``bwd``) on a plane of this route: one fused or cluster launch for
-    all the steps, or one per-step launch a step."""
-    slot = {"fused": 0, "cluster": 2, "per_step": 4}[route] + int(bwd)
-    add = [0] * 6
+    when ``bwd``) on a plane of this route: one fused, cluster or tiled
+    launch for all the steps, or one per-step launch a step."""
+    slot = _SLOTS[route] + int(bwd)
+    add = [0] * 8
     add[slot] = steps if route == "per_step" else int(steps > 0)
     return tuple(b + a for b, a in zip(before, add))
 
@@ -102,18 +105,19 @@ def test_fused_path_predicate(h, w, k, fused, dtype):
     (64, 64, 7, "cluster"),  # the paper's grid-64 ablation: 8 strips of 8 rows, 4096 pixels
     (64, 64, 1, "cluster"), (64, 64, 3, "cluster"), (64, 64, 5, "cluster"),
     (4096, 1, 7, "cluster"),  # 4096 pixels in 8 strips of 512 rows
-    (4097, 1, 7, "per_step"),  # 4097 pixels: a ninth block
-    (17, 241, 7, "per_step"),  # 4097 pixels again
-    (1, 600, 7, "per_step"),  # a row wider than a block
-    (1, 4096, 7, "per_step"),
-    (65, 64, 7, "per_step"),  # 9 strips
-    (90, 90, 7, "per_step"), (96, 96, 7, "per_step"), (128, 128, 7, "per_step"),
-    (64, 64, 9, "per_step"),  # k not a template argument
-    (12, 12, 9, "per_step"), (12, 12, 11, "per_step"),  # the kernel9 and kernel11 ablations at the recipe's grid
+    (4097, 1, 7, "tiled"),  # 4097 pixels: a ninth block
+    (17, 241, 7, "tiled"),  # 4097 pixels again
+    (1, 600, 7, "tiled"),  # a row wider than a block
+    (1, 4096, 7, "tiled"),
+    (65, 64, 7, "tiled"),  # 9 strips
+    (90, 90, 7, "tiled"), (96, 96, 7, "tiled"), (128, 128, 7, "tiled"),
+    (64, 64, 9, "tiled"),  # k not a template argument of the cluster kernels
+    (12, 12, 9, "tiled"), (12, 12, 11, "tiled"),  # the kernel9 and kernel11 ablations at the recipe's grid
     (12, 12, 3, "fused"),  # baseline's k = 3 (cod -o model.diffusion_kernel=3)
     (8, 512, 3, "cluster"),  # strips of one row, r = 1
-    (8, 512, 5, "per_step"),  # a strip shorter than r = 2
-    (16, 200, 5, "cluster"), (16, 200, 7, "per_step"),  # strips of 2 rows
+    (8, 512, 5, "tiled"),  # a strip shorter than r = 2
+    (16, 200, 5, "cluster"), (16, 200, 7, "tiled"),  # strips of 2 rows
+    (12, 12, 13, "per_step"), (96, 96, 13, "per_step"),  # k beyond the tiled kernels' templates
 ])
 def test_stencil_route(h, w, k, route, dtype):
     assert D.stencil_route(h, w, k, dtype) == route
@@ -125,7 +129,7 @@ def test_stencil_route_counts_shared_memory_by_dtype():
     weight planes of a strip and its halo rows take 300 KB in fp32, more
     than a block's 227 KB, and 150 KB in bf16."""
     assert D.cluster_split(6, 170) == (2, 3)
-    assert D.stencil_route(6, 170, 7, torch.float32) == "per_step"
+    assert D.stencil_route(6, 170, 7, torch.float32) == "tiled"
     assert D.stencil_route(6, 170, 7, torch.bfloat16) == "cluster"
 
 
@@ -278,7 +282,7 @@ def test_non_cuda_device_raises():
 #: the card cases: the cod recipe's 12x12 grid, the test grid 13x20 (both
 #: fused); the paper's grid-64 ablation, a plane just above the fused limit,
 #: rectangular and ragged strips, and 8 strips of 512 rows, the cluster
-#: limit (all cluster); a row wider than a block (per-step)
+#: limit (all cluster); a row wider than a block (tiled)
 CARD_GRIDS = [(12, 12), (13, 20), (64, 64), (23, 23), (24, 30), (33, 17), (80, 50), (4096, 1), (1, 4096)]
 
 
@@ -361,6 +365,74 @@ def test_cuda_cluster_forward_saves_step_inputs(cuda, hw, dtype):
     assert torch.equal(out, D.diffusion_planes(x, w, 7, 6))
 
 
+#: planes of the tiled route at every odd k up to 11, at 1, 4 and 6 steps:
+#: beyond a cluster's reach (96²), a 1-row plane whose row is wider than a
+#: tile, a column of 4097, 17 x 241 and 100 x 75 (not multiples of their
+#: tiles), the kernel9 and kernel11 ablations' planes; and of the per-step
+#: route: k = 13 (no tiled template) beyond the fused limit, at 4 steps and
+#: at 1, and k = 11 at 17 steps on a plane that one tile does not hold,
+#: whose halo no tile holds (plane_route)
+TILED_GRIDS = [(96, 96), (1, 4096), (4097, 1), (17, 241), (100, 75)]
+TILED_CASES = ([(hw, k) for hw in TILED_GRIDS for k in (1, 3, 5, 7, 9, 11)] + [((12, 12), 9), ((12, 12), 11)])
+PLANE_CASES = ([(hw, k, steps, "tiled") for hw, k in TILED_CASES for steps in (1, 4, 6)]
+               + [((96, 96), 13, 4, "per_step"), ((23, 23), 13, 1, "per_step"), ((171, 171), 11, 17, "per_step")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,k,steps,route", PLANE_CASES,
+                         ids=[f"{h}x{w}k{k}s{s}" for (h, w), k, s, _ in PLANE_CASES])
+def test_cuda_tiled_and_per_step_kernels_match_plain(cuda, hw, k, steps, route):
+    """The tiled or the per-step forward (its saved step inputs too) and
+    backward against the plain versions, fp32 and bf16: one tiled launch a
+    call each way, whatever the step count, or steps + steps per-step
+    launches."""
+    x, w = _planes(30 + k, 24, *hw, k, cuda)
+    g = torch.rand(24, *hw, generator=torch.Generator().manual_seed(k + steps)).to(cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        assert D.plane_route(*hw, k, dt, steps) == route
+        xd, wd, gd = x.to(dt), w.to(dt), g.to(dt)
+        before = _plane_launches()
+        out, xs = D._forward_steps(xd, wd, k, steps, keep=True)
+        dx, dw = D.diffusion_planes_bwd(gd, xs, wd, k)
+        torch.cuda.synchronize()
+        after = _expected_launches(_expected_launches(before, route, steps, False), route, steps, True)
+        assert _plane_launches() == after
+        assert out.dtype == xs.dtype == dx.dtype == dw.dtype == dt
+        ref = [xd]
+        for _ in range(steps):
+            ref.append(D.diffusion_step_plain(ref[-1], wd, k))
+        rdx, rdw = D.diffusion_planes_bwd_plain(gd, list(xs), wd, k)
+        if dt == torch.float32:
+            torch.testing.assert_close(out, D.diffusion_planes_plain(x, w, k, steps), **FP32_TOL)
+            torch.testing.assert_close(xs, torch.stack(ref[:-1]), **FP32_TOL)
+            tol = FP32_TOL
+        else:
+            fref = D.diffusion_planes_plain(xd.float(), wd.float(), k, steps)
+            torch.testing.assert_close(out.float(), fref, rtol=0, atol=bf16_atol(steps))
+            torch.testing.assert_close(xs.float(), torch.stack(ref[:-1]).float(), rtol=0, atol=bf16_atol(steps))
+            tol = BWD_BF16_TOL
+        torch.testing.assert_close(dx.float(), rdx.float(), **tol)
+        torch.testing.assert_close(dw.float(), rdw.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_plan_is_the_c_entries_plan(cuda):
+    """tiled_plan and tiled_smem give the plan and shared memory that
+    csrc/stencil_common.cuh gives, forward and backward, each odd k up to
+    13, 1 to 17 steps and each dtype, on planes about the tile limits."""
+    planes = [(12, 12), (13, 20), (96, 96), (512, 512), (1, 4096), (4097, 1), (17, 241), (100, 75), (300, 7),
+              (3, 900), (171, 171)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 3, 5, 7, 9, 11, 13):
+            for steps in (1, 2, 4, 6, 9, 16, 17):
+                for h, w in planes:
+                    for bwd in (False, True):
+                        plan, smem = D.native_tiled_plan(h, w, k, steps, dtype, bwd)
+                        assert plan == D.tiled_plan(h, w, k, steps, dtype, bwd), (h, w, k, steps, dtype, bwd)
+                        assert smem == (D.tiled_smem(*plan[:2], h, w, k, steps, dtype.itemsize, bwd, plan[2])
+                                        if plan else 0)
+
+
 #: (h, w, k) planes about the fused and the cluster limits: 512 pixels (1 x
 #: 512 has the fused backward's largest shared memory, 144 KB in fp32) and
 #: 513; 4096 pixels in 8 strips, in rows of 64 and of 1; 9 strips; 6 x 170,
@@ -377,7 +449,7 @@ def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, plane, dt
     """Each plane's own route (fused or cluster) runs and agrees with the
     plain versions; the C entries of the other all-steps kernels refuse it,
     so the predicate and the kernels state one limit. The per-step kernels
-    take what neither admits."""
+    take what neither admits; they are tested below."""
     *hw, k = plane
     x, w = _planes(5, 24, *hw, k, cuda)
     x, w = x.to(dtype), w.to(dtype)
@@ -385,7 +457,8 @@ def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, plane, dt
     xs = torch.empty((4, 24, *hw), dtype=dtype, device=cuda)
     out = torch.empty_like(x)
     route = D.stencil_route(*hw, k, dtype)
-    entries = {"fused": (D._fused_forward, D._fused_backward), "cluster": (D._cluster_forward, D._cluster_backward)}
+    entries = {"fused": (D._fused_forward, D._fused_backward), "cluster": (D._cluster_forward, D._cluster_backward),
+               "tiled": (D._tiled_forward, D._tiled_backward)}
     for name, (fwd, bwd) in entries.items():
         if name == route:
             continue
@@ -393,8 +466,6 @@ def test_cuda_fused_kernels_take_the_planes_the_predicate_admits(cuda, plane, dt
             fwd(x, w, k, 4, xs, out)
         with pytest.raises(RuntimeError, match="cudaError"):
             bwd(g, xs, w, k)
-    if route == "per_step":
-        return
     fwd, bwd = entries[route]
     fwd(x, w, k, 4, xs, out)
     dx, dw = bwd(g, xs, w, k)
@@ -419,7 +490,7 @@ def test_cuda_route_is_the_c_entries_route(cuda):
     planes = [(h, w) for h in range(1, 71) for w in range(1, 71)]
     planes += [(1, w) for w in range(500, 601)] + [(h, 1) for h in range(4000, 4201, 7)]
     for dtype in (torch.float32, torch.bfloat16):
-        for k in (1, 3, 5, 7, 9):
+        for k in (1, 3, 5, 7, 9, 11, 13):
             for h, w in planes:
                 route, split = D.native_route(h, w, k, dtype)
                 assert (route, split) == (D.stencil_route(h, w, k, dtype), D.cluster_split(h, w)), (h, w, k, dtype)
@@ -436,17 +507,17 @@ def test_cuda_function_gradients_match_autograd_of_plain(cuda):
     before = _plane_launches()
     D.diffusion_planes(xa, wa, 7, 4).backward(g)
     torch.cuda.synchronize()
-    assert _plane_launches() == tuple(b + a for b, a in zip(before, (1, 1, 0, 0, 0, 0)))
+    assert _plane_launches() == tuple(b + a for b, a in zip(before, (1, 1, 0, 0, 0, 0, 0, 0)))
     D.diffusion_planes_plain(xb, wb, 7, 4).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw,launches", [((64, 64), (0, 0, 1, 1, 0, 0)), ((96, 96), (0, 0, 0, 0, 4, 4))])
+@pytest.mark.parametrize("hw,launches", [((64, 64), (0, 0, 1, 1, 0, 0, 0, 0)), ((96, 96), (0, 0, 0, 0, 0, 0, 1, 1))])
 def test_cuda_function_gradients_above_the_fused_limit(cuda, hw, launches):
     """The paper's grid-64 planes go through both cluster kernels, one
-    launch each for all 4 steps; 96 x 96 through the per-step ones."""
+    launch each for all 4 steps; 96 x 96 through the tiled ones."""
     x, w = _planes(9, 48, *hw, 7, cuda)
     g = torch.rand(48, *hw, generator=torch.Generator().manual_seed(9)).to(cuda)
     xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -461,9 +532,10 @@ def test_cuda_function_gradients_above_the_fused_limit(cuda, hw, launches):
 
 
 # the ablations' planes at the recipe's grid and train batch (10 x 24
-# latent channels): kernel9 and kernel11 take the per-step kernels (r = 5:
-# the halo is most of a 12x12 plane), k = 3 at 6 steps the fused ones
-VARIANT_PLANES = [(9, 4, "per_step"), (11, 4, "per_step"), (3, 6, "fused")]
+# latent channels): kernel9 and kernel11 take the tiled kernels (one tile a
+# plane), k = 3 at 6 steps the fused ones, k = 13 (beyond the tiled
+# kernels' templates) the per-step ones
+VARIANT_PLANES = [(9, 4, "tiled"), (11, 4, "tiled"), (3, 6, "fused"), (13, 4, "per_step")]
 
 
 @pytest.mark.cuda
@@ -471,7 +543,8 @@ VARIANT_PLANES = [(9, 4, "per_step"), (11, 4, "per_step"), (3, 6, "fused")]
 def test_cuda_model_variant_planes_match_plain(cuda, k, steps, route):
     """Forward and backward through the autograd Function on (240, 12, 12)
     planes, fp32 and bf16, against the plain versions; per call 1 + 1
-    launches on the fused route, steps + steps on the per-step one."""
+    launches on the fused and the tiled routes, steps + steps on the
+    per-step one."""
     x, w = _planes(20 + k, 240, 12, 12, k, cuda)
     g = torch.rand(240, 12, 12, generator=torch.Generator().manual_seed(k)).to(cuda)
     for dt in (torch.float32, torch.bfloat16):
@@ -482,10 +555,9 @@ def test_cuda_model_variant_planes_match_plain(cuda, k, steps, route):
         out = D.diffusion_planes(xa, wa, k, steps)
         out.backward(gd)
         torch.cuda.synchronize()
-        per_call = steps if route == "per_step" else 1
-        slot = {"fused": 0, "per_step": 4}[route]
-        add = [0] * 6
-        add[slot] = add[slot + 1] = per_call
+        slot = _SLOTS[route]
+        add = [0] * 8
+        add[slot] = add[slot + 1] = steps if route == "per_step" else 1
         assert _plane_launches() == tuple(b + a for b, a in zip(before, add))
         ref = D.diffusion_planes_plain(xd.float(), wd.float(), k, steps)
         xs = [xd]
