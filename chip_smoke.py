@@ -54,15 +54,24 @@ Phases (any failure exits non-zero):
  10. hold the three multi-scale deformable attention kernels (forward,
      dValue, dLocation/dWeight) against their plain versions: channels
      {30, 32, 64, 71, 1025, 2048, 3096} on two small levels and the 4-level
-     layout, fp32 and bf16 value, locations off the levels and on integer
-     pixel coordinates;
+     layout, then the forward and dLocation/dWeight kernels' other routes
+     (some levels staged in shared memory, none staged, an Lq that the
+     query chunks do not divide, and value and gradient one element off a
+     16-byte boundary, which takes the scalar route), fp32 and bf16 value,
+     locations off the levels and on integer pixel coordinates;
  11. train the ``MSDeformAttn`` layer at Deformable DETR's encoder width
      (d_model 256, 8 heads, 4 levels of 64²/32²/16²/8², 4 points; N = 2,
      Lq = S = 5440; seeded weights): 4 forward+backward iterations on
      distinct seeded reference points with each kernel's launch count read
      around them; the first iteration's output and every gradient held to
      the same layer on the CPU; a bf16-autocast iteration; the op, each
-     kernel and its plain version timed at the captured tensors;
+     kernel and its plain version timed at the captured tensors; the
+     forward and dLocation/dWeight kernels held to their plain versions
+     and timed on two location sets, the captured random reference points
+     and Deformable DETR's encoder grid (each level's pixel centres, a
+     query's own point on every level, the layer's own offsets), in fp32
+     and bf16; the reference's per-level ``F.grid_sample`` composition
+     timed as a yardstick;
  12. the NHWC stencil on tap-major weights: its forward kernel against the
      plain version (the phase-2 grids, B = 8, C = 24, fp32 and bf16), its
      gradient (through the plane backward kernel) against autograd through
@@ -125,14 +134,17 @@ Phases (any failure exits non-zero):
      generator: loss and every gradient, peak memory of both); tiny
      baseline and DQnet, fp32 on the card against the CPU;
  18. the device time per call of every stencil kernel timed in phases 5, 9,
-     14 and 17, from ``torch.profiler`` (last, so that its tracing cannot slow
-     the host-bound timings).
+     14 and 17 and of every MSDA kernel timed in phase 11, from
+     ``torch.profiler`` (last, so that its tracing cannot slow the
+     host-bound timings).
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
 cluster, the tiled and the per-step kernels; the tiled kernels' launches
 are those of cod at grid 96 and of the kernel11 variant, the per-step
-kernels' those of the kernel13 variant), a served-throughput line, a ``trained``, a ``grid64``,
+kernels' those of the kernel13 variant; the MSDA forward and
+dLocation/dWeight rows carry their plan, bf16 and encoder-grid times), a
+served-throughput line, a ``trained``, a ``grid64``,
 a ``val``, a ``variants`` and an ``msda`` JSON line, each with the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -251,6 +263,12 @@ SOURCES = ["diffusion_stencil", "diffusion_stencil_bwd", "msda_fwd", "msda_bwd",
 MSDA_CHANNELS = (30, 32, 64, 71, 1025, 2048, 3096)
 MSDA_SMALL = ((6, 4), (3, 2))
 MSDA_FOUR = ((8, 8), (4, 4), (2, 2), (1, 1))
+# the stage's routes beyond those: some levels staged (the 32x32 level too
+# large at 128 channels), none staged (3096 fp32 channels on two levels that
+# each pass a block's shared memory), an Lq that the chunks do not divide
+MSDA_STAGING = ((128, ((32, 32), (8, 8), (4, 4)), dict(lq=70, m=4, p=4)),
+                (3096, ((6, 4), (5, 4)), dict(lq=40)),
+                (32, MSDA_FOUR, dict(lq=157, m=8, p=4)))
 # tests/test_msda.py's tolerances (forward and dValue atol 1e-6, dLocation
 # 1e-5, dWeight 1e-6, rtol 1e-4); a bf16 output one bf16 ulp (kernel and
 # plain both sum in fp32 and round once)
@@ -308,10 +326,12 @@ def cuda_time_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, match):
+def device_ms(fn, iters, match, per_launch=False):
     """Device time per call (ms) of the kernels whose name holds ``match``,
     summed from ``torch.profiler``'s ``key_averages()`` over ``iters`` calls;
-    None if the profiler recorded no such kernel."""
+    None if the profiler recorded no such kernel. ``per_launch``: the mean
+    over the launches it recorded instead, for a kernel launched once a
+    call (the profiler may drop some of a run's launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -321,7 +341,10 @@ def device_ms(fn, iters, match):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if match in e.key)
+    found = [e for e in prof.key_averages() if match in e.key]
+    us = sum(getattr(e, "device_time_total", 0.0) for e in found)
+    if per_launch:
+        iters = sum(e.count for e in found)
     return us / 1e3 / iters if us > 0 else None
 
 
@@ -493,6 +516,41 @@ def check_msda(A, value, loc, aw, g, shapes, label, scale_atol=0.0):
         torch.testing.assert_close(got, ref, **tol, msg=lambda msg: f"{label} {name}: {msg}")
         errs[name] = float((got - ref).abs().max())
     return errs
+
+
+def off_16_bytes(t):
+    """A contiguous copy of t one element past a 16-byte boundary (a slice
+    of a larger buffer), which the MSDA kernels load one element at a time."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    check(out.is_contiguous() and out.data_ptr() % 16 != 0, "a misaligned copy")
+    return out
+
+
+def msda_plan_row(A, v, loc, g):
+    """The forward and dLocation/dWeight kernels' plan for these tensors."""
+    plan = A._call_plan(v, ENC_SHAPES, loc, g)
+    return {"staged_levels": list(plan.staged), "vector_width": plan.vec, "wide": plan.wide,
+            "chunks_per_head": plan.chunks, "smem_bytes": plan.smem_bytes}
+
+
+def msda_timings(A, v, loc, aw, g, label, card):
+    """The forward and dLocation/dWeight kernels on these encoder-shape
+    tensors: CUDA-event ms, the bound, the plan; and the calls whose device
+    time phase 18 reads into the same rows."""
+    fns = {"msda_fwd": lambda: A.ms_deform_attn_fwd(v, ENC_SHAPES, loc, aw),
+           "msda_dlocw": lambda: A.ms_deform_attn_dlocw(g, v, ENC_SHAPES, loc, aw)}
+    bounds = msda_bounds(v, loc, aw, ENC_SHAPES)
+    rows, calls = {}, []
+    for name, fn in fns.items():
+        rows[name] = {"ms": cuda_time_ms(fn, 100), "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                      "plan": msda_plan_row(A, v, loc, g)}
+        calls.append((f"{name} {label}", rows[name], "device_ms", fn, f"{name}_kernel", 100, "per launch"))
+        say(f"  {name} {label}: kernel {rows[name]['ms']:.5f} ms, bound {bounds[name][0]:.6f} ms, plan "
+            f"{rows[name]['plan']} [{card}]")
+    return rows, calls
 
 
 def msda_corners(loc, shapes):
@@ -1523,15 +1581,25 @@ def run(keep):
     # ---- 10. MSDA kernels vs plain ----
     from dgtd_tpu_torch.ops import layernorm as L
     from dgtd_tpu_torch.ops import msda as A
+    from dgtd_tpu_torch.tools import profile_msda
 
-    say("phase 10: MSDA kernels vs plain (forward, dValue, dLocation/dWeight)")
-    cases = [(c, MSDA_SMALL, dict(lq=40)) for c in MSDA_CHANNELS]
-    cases.append((32, MSDA_FOUR, dict(lq=150, m=8, p=4)))
-    for i, (channels, shapes, kw) in enumerate(cases):
+    say("phase 10: MSDA kernels vs plain (forward, dValue, dLocation/dWeight); the forward and dLocation/dWeight "
+        "kernels' plan (staged levels, channels a load) per case")
+    cases = [(c, MSDA_SMALL, dict(lq=40), False) for c in MSDA_CHANNELS]
+    cases.append((32, MSDA_FOUR, dict(lq=150, m=8, p=4), False))
+    cases += [(c, shapes, kw, False) for c, shapes, kw in MSDA_STAGING]
+    cases.append((32, MSDA_FOUR, dict(lq=150, m=8, p=4), True))
+    for i, (channels, shapes, kw, misaligned) in enumerate(cases):
         value, loc, aw, gr = msda_inputs(channels, 100 + i, shapes, dev=dev, **kw)
         for name, v, gv in (("fp32", value, gr), ("bf16", value.bfloat16(), gr.bfloat16())):
-            errs = check_msda(A, v, loc, aw, gv, shapes, f"{name} D={channels} {len(shapes)} levels")
-            say(f"  {name} D={channels}, {len(shapes)} levels: max_abs_err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+            if misaligned:
+                v, gv = off_16_bytes(v), off_16_bytes(gv)
+            plan = A._call_plan(v, shapes, loc, gv)
+            label = (f"{name} D={channels} {len(shapes)} levels{', misaligned base' if misaligned else ''} "
+                     f"[staged {list(plan.staged)}, {plan.vec} a load]")
+            check(plan.vec == 1 or not misaligned, f"{label}: a misaligned base takes the scalar route")
+            errs = check_msda(A, v, loc, aw, gv, shapes, label)
+            say(f"  {label}: max_abs_err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
 
     # ---- 11. the MSDeformAttn layer at Deformable DETR's encoder width ----
     say(f"phase 11: MSDeformAttn d_model {ENC_D_MODEL}, {ENC_HEADS} heads, levels {ENC_SHAPES}, {ENC_POINTS} points; "
@@ -1623,14 +1691,39 @@ def run(keep):
     eg = torch.from_numpy(np.random.RandomState(12).rand(ENC_N, ENC_S, ENC_D_MODEL).astype(np.float32)).to(dev)
     enc_errs = check_msda(A, ev, el, ea, eg, ENC_SHAPES, "encoder shape fp32", scale_atol=MSDA_SCALE_ATOL)
     say("  kernels vs plain on the layer's captured tensors: " + ", ".join(f"{k} {e:.3e}" for k, e in enc_errs.items()))
+    # the second location set: Deformable DETR's encoder reference points
+    # (each level's pixel centres, a query's own point on every level) with
+    # the layer's own offsets; the forward and dLocation/dWeight kernels on
+    # both sets in fp32 and bf16, each held to the plain versions
+    with torch.no_grad():
+        grid_set = tuple(t.contiguous() for t in layer.sampling(
+            query, profile_msda.encoder_grid_refs(ENC_SHAPES, ENC_N).to(dev), value_in, ENC_SHAPES))
+    msda_sets = {}  # (set, dtype) -> kernel -> row; random_reference fp32 is the row timed below
+    for set_name, (sv, sl, sa) in (("random_reference", (ev, el, ea)), ("encoder_grid", grid_set)):
+        for dt_name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            if (set_name, dt_name) == ("random_reference", "fp32"):
+                continue
+            v_, g_ = sv.to(dt), eg.to(dt)
+            errs = check_msda(A, v_, sl, sa, g_, ENC_SHAPES, f"encoder shape {set_name} {dt_name}",
+                              scale_atol=MSDA_SCALE_ATOL)
+            rows_, calls_ = msda_timings(A, v_, sl, sa, g_, f"{set_name} {dt_name}", card)
+            rows_["msda_fwd"]["err"] = errs["out"]
+            rows_["msda_dlocw"]["err"] = max(errs["dloc"], errs["daw"])
+            msda_sets[(set_name, dt_name)] = rows_
+            device_calls += calls_
+            say(f"  {set_name} {dt_name} vs plain: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    del grid_set
     msda_bound = msda_bounds(ev, el, ea, ENC_SHAPES)
+    msda_plan = msda_plan_row(A, ev, el, eg)
     msda_rows = {}
+    # the kernel calls bind their tensors (phase 18 calls them again, after
+    # this phase's names are gone)
     timed = {
-        "msda_fwd": (lambda: A.ms_deform_attn_fwd(ev, ENC_SHAPES, el, ea),
+        "msda_fwd": (functools.partial(A.ms_deform_attn_fwd, ev, ENC_SHAPES, el, ea),
                      lambda: A.ms_deform_attn_plain(ev, ENC_SHAPES, el, ea), ("out",)),
-        "msda_dvalue": (lambda: A.ms_deform_attn_dvalue(eg, ev, ENC_SHAPES, el, ea),
+        "msda_dvalue": (functools.partial(A.ms_deform_attn_dvalue, eg, ev, ENC_SHAPES, el, ea),
                         lambda: A.ms_deform_attn_dvalue_plain(eg, ev, ENC_SHAPES, el, ea), ("dvalue",)),
-        "msda_dlocw": (lambda: A.ms_deform_attn_dlocw(eg, ev, ENC_SHAPES, el, ea),
+        "msda_dlocw": (functools.partial(A.ms_deform_attn_dlocw, eg, ev, ENC_SHAPES, el, ea),
                        lambda: A.ms_deform_attn_dlocw_plain(eg, ev, ENC_SHAPES, el, ea), ("dloc", "daw")),
     }
     for name, (kern, plain, outs) in timed.items():
@@ -1639,7 +1732,12 @@ def run(keep):
         bound_ms, bound_by = msda_bound[name]
         msda_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                err=max(enc_errs[o] for o in outs))
+        device_calls.append((f"{name} random_reference fp32 (phase 11 row)", msda_rows[name], "device_ms", kern,
+                             f"{name}_kernel", 100, "per launch"))
         say(f"  {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    grid_sample_ms = cuda_time_ms(lambda: profile_msda.grid_sample_composition(ev, ENC_SHAPES, el, ea), 10, warmup=2)
+    say(f"  the reference's per-level F.grid_sample composition (a yardstick, on no path of the port): "
+        f"{grid_sample_ms:.5f} ms [{card}]")
     vr, lr, ar = (t.clone().requires_grad_() for t in (ev, el, ea))
     op_fwd_ms = cuda_time_ms(lambda: A.ms_deform_attn(ev, ENC_SHAPES, el, ea), 100)
     op_step_ms = cuda_time_ms(lambda: torch.autograd.grad(A.ms_deform_attn(vr, ENC_SHAPES, lr, ar), (vr, lr, ar), eg), 50)
@@ -2094,8 +2192,8 @@ def run(keep):
     # from the profiler, read last, so that its tracing cannot touch the
     # per-call and end-to-end timings above, which are host-bound
     say("phase 18: device time per call (torch.profiler key_averages):")
-    for label, row, key, fn, match, iters in device_calls:
-        row[key] = device_ms(fn, iters, match)
+    for label, row, key, fn, match, iters, *per_launch in device_calls:
+        row[key] = device_ms(fn, iters, match, bool(per_launch))
         say(f"    {label}: {row[key] if row[key] is not None else 'no device time recorded'} ms [{card}]")
     del device_calls
     torch.cuda.empty_cache()
@@ -2282,8 +2380,14 @@ def run(keep):
         "bound_ms": msda_rows[name]["bound_ms"],
         "bound_by": msda_rows[name]["bound_by"],
         "library_ms": None,
+        "device_ms": msda_rows[name]["device_ms"],
         "dtype": "float32",
         "shape": f"value ({ENC_N},{ENC_S},{ENC_HEADS},{ENC_D_MODEL // ENC_HEADS}), Lq {ENC_S}, levels {ENC_SHAPES}, {ENC_POINTS} points",
+        "locations": "random_reference",
+        **({} if name == "msda_dvalue" else {
+            "plan": msda_plan,
+            "bf16": msda_sets[("random_reference", "bf16")][name],
+            "encoder_grid": {dt: msda_sets[("encoder_grid", dt)][name] for dt in ("fp32", "bf16")}}),
         "card": card,
     } for name, replaces in (("msda_fwd", "dgtd_tpu/ops/msda.py:165"), ("msda_dvalue", "dgtd_tpu/ops/msda.py:255"),
                              ("msda_dlocw", "dgtd_tpu/ops/msda.py:353"))]}))
@@ -2323,6 +2427,7 @@ def run(keep):
         "iterations": ENC_ITERS, "launches": msda_launches,
         "op_fwd_ms": op_fwd_ms, "op_bwd_ms": op_bwd_ms, "op_fwd_bwd_ms": op_step_ms,
         "layer_iteration_ms": layer_step_ms,
+        "grid_sample_ms": grid_sample_ms,
         "card_vs_cpu_rel": layer_errs,
         "card": card,
     }}))

@@ -21,12 +21,19 @@ padding_mode='zeros')``: src = loc * size - 0.5, out-of-range corners
 contribute zero. ``loc`` and ``aw`` are upcast to fp32 at the op's boundary
 and the gradients cast back to the caller's dtypes. CPU tensors take the
 plain versions; a CUDA tensor gets the kernels or an exception.
+
+The forward and dLocation/dWeight kernels run on one plan per call,
+:func:`msda_plan`, computed here from the shapes and passed to the C
+functions, which check it: the levels a block stages in shared memory, the
+channels a lane loads at once, 32- or 64-bit offsets, and the query chunks
+of a head.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -48,8 +55,13 @@ _COMMON_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, 
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
+#: the plan's arguments of the forward and dLocation/dWeight C functions:
+#: mask, vec, wide, chunks
+_PLAN_ARGS = [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+
+
 def _fwd_fn():
-    return _build.function("msda_fwd", "dgtd_msda_fwd", [ctypes.c_void_p] * 4 + _COMMON_ARGS)
+    return _build.function("msda_fwd", "dgtd_msda_fwd", [ctypes.c_void_p] * 4 + _COMMON_ARGS + _PLAN_ARGS)
 
 
 def _dvalue_fn():
@@ -57,7 +69,7 @@ def _dvalue_fn():
 
 
 def _dlocw_fn():
-    return _build.function("msda_bwd", "dgtd_msda_dlocw", [ctypes.c_void_p] * 6 + _COMMON_ARGS)
+    return _build.function("msda_bwd", "dgtd_msda_dlocw", [ctypes.c_void_p] * 6 + _COMMON_ARGS + _PLAN_ARGS)
 
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -137,6 +149,74 @@ def ms_deform_attn_dlocw_plain(g, value, spatial_shapes, loc, aw) -> Tuple[torch
 
 
 # ---------------------------------------------------------------------------
+# the kernels' plan
+# ---------------------------------------------------------------------------
+
+#: threads of a forward or dLocation/dWeight block (MSDA_THREADS in the
+#: CUDA sources): 32 warps, one (n, q, m) at a time each, at most 64
+#: registers a thread, so one block fills an SM's registers
+THREADS = 1024
+#: dynamic shared memory a block may stage (MSDA_SMEM_MAX): the 227 KB a
+#: Hopper block can have, less 1 KB for the level table
+SMEM_MAX = 232448 - 1024
+SM_COUNT = 132  # an H100 SXM; the wrappers pass the card's own count
+INT32_MAX = 2 ** 31 - 1
+
+
+class Plan(NamedTuple):
+    """How the forward and dLocation/dWeight kernels run one call.
+
+    ``staged``: the levels a block copies into shared memory (its head's
+    rows of them), smallest first while they fit ``SMEM_MAX``; the kernels
+    gather the other levels' corners from L2. ``smem_bytes``: their size.
+    ``vec``: channels a lane loads at once, 16 bytes (4 fp32, 8 bf16) where
+    a head row is a multiple of 16 bytes and the tensors are 16-byte
+    aligned, else 1. ``wide``: 64-bit offsets within a block, where a head's
+    value or a chunk's queries reach past 2^31 elements. ``chunks``: query
+    chunks per (n, m) head, a block each: with a stage, one wave of blocks
+    over the card's SMs; without, one query a warp."""
+
+    staged: Tuple[int, ...]
+    smem_bytes: int
+    vec: int
+    wide: bool
+    chunks: int
+
+
+def msda_plan(shapes, n: int, lq: int, m: int, d: int, n_points: int, dtype: torch.dtype,
+              aligned: bool = True, sm_count: int = SM_COUNT) -> Plan:
+    """The plan of a call from its shapes alone (no tensor is read).
+    ``aligned``: every tensor the kernel loads with 16-byte loads starts on
+    a 16-byte boundary. Raises for more than ``MAX_LEVELS`` levels."""
+    return _plan(_static_shapes(shapes), n, lq, m, d, n_points, dtype, aligned, sm_count)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shapes: Shapes, n: int, lq: int, m: int, d: int, n_points: int, dtype: torch.dtype,
+          aligned: bool, sm_count: int) -> Plan:
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"ms_deform_attn takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
+    item = torch.empty((), dtype=dtype).element_size()
+    row = d * item
+    staged, used = [], 0
+    for lid in sorted(range(len(shapes)), key=lambda l: (shapes[l][0] * shapes[l][1], l)):
+        size = shapes[lid][0] * shapes[lid][1] * row
+        if used + size > SMEM_MAX:
+            break
+        staged.append(lid)
+        used += size
+    staged.sort()
+    vec = 16 // item if aligned and row % 16 == 0 else 1
+    s = sum(h * w for h, w in shapes)
+    samples = len(shapes) * n_points
+    wide = max(s * m * d, lq * m * samples * 2, lq * m * d) > INT32_MAX
+    most = max(1, -(-lq // (THREADS // 32)))  # a query a warp at the least
+    # a block an SM: with a stage, one wave, so that each SM stages a head once
+    chunks = max(1, min(most, sm_count // (n * m))) if staged else most
+    return Plan(tuple(staged), used, vec, wide, chunks)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -178,6 +258,30 @@ def _launch_args(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor):
             _build.DTYPE_CODES[value.dtype], dev, stream)
 
 
+def aligned16(*ts: torch.Tensor) -> bool:
+    """Every tensor starts on a 16-byte boundary (a slice may not)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _call_plan(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor, *loaded: torch.Tensor) -> Plan:
+    """The plan for these tensors; ``loaded``: those read or written with
+    16-byte loads besides value (the output, or g)."""
+    n, _, m, d = value.shape
+    dev = value.device.index if value.device.index is not None else torch.cuda.current_device()
+    return msda_plan(shapes, n, loc.shape[1], m, d, loc.shape[4], value.dtype, aligned16(value, *loaded),
+                     _sm_count(dev))
+
+
+def _plan_args(plan: Plan):
+    """The plan as the C functions take it: the staged levels as a bitmask."""
+    return sum(1 << l for l in plan.staged), plan.vec, int(plan.wide), plan.chunks
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
@@ -185,8 +289,8 @@ def _raise_on(rc: int, what: str) -> None:
 
 def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes, loc: torch.Tensor, aw: torch.Tensor) -> torch.Tensor:
     """The forward without autograd: (N, Lq, M*D) in value's dtype. On CUDA
-    one launch of the forward kernel (loc and aw fp32); on the CPU the plain
-    version."""
+    one launch of the forward kernel on :func:`msda_plan`'s plan (loc and aw
+    fp32); on the CPU the plain version."""
     global LAUNCHES
     shapes = _static_shapes(spatial_shapes)
     if _on_cpu(value, loc, aw):
@@ -194,7 +298,9 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes, loc: torch.Tensor, a
     _check(value, shapes, loc, aw)
     n, _, m, d = value.shape
     out = torch.empty((n, loc.shape[1], m * d), dtype=value.dtype, device=value.device)
-    rc = _fwd_fn()(value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(), *_launch_args(value, shapes, loc))
+    plan = _call_plan(value, shapes, loc, out)
+    rc = _fwd_fn()(value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(), *_launch_args(value, shapes, loc),
+                   *_plan_args(plan))
     _raise_on(rc, "MSDA forward")
     LAUNCHES += 1
     return out
@@ -220,8 +326,8 @@ def ms_deform_attn_dvalue(g: torch.Tensor, value: torch.Tensor, spatial_shapes, 
 def ms_deform_attn_dlocw(g: torch.Tensor, value: torch.Tensor, spatial_shapes, loc: torch.Tensor,
                          aw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dL/dloc (N, Lq, M, L, P, 2), dL/daw (N, Lq, M, L, P)) in fp32. On
-    CUDA one launch of the dLocation/dWeight kernel; on the CPU the plain
-    version."""
+    CUDA one launch of the dLocation/dWeight kernel on :func:`msda_plan`'s
+    plan; on the CPU the plain version."""
     global DLOCW_LAUNCHES
     shapes = _static_shapes(spatial_shapes)
     if _on_cpu(g, value, loc, aw):
@@ -229,8 +335,9 @@ def ms_deform_attn_dlocw(g: torch.Tensor, value: torch.Tensor, spatial_shapes, l
     _check(value, shapes, loc, aw, g)
     dloc = torch.empty(loc.shape, dtype=torch.float32, device=loc.device)
     daw = torch.empty(aw.shape, dtype=torch.float32, device=aw.device)
+    plan = _call_plan(value, shapes, loc, g)
     rc = _dlocw_fn()(g.data_ptr(), value.data_ptr(), loc.data_ptr(), aw.data_ptr(), dloc.data_ptr(),
-                     daw.data_ptr(), *_launch_args(value, shapes, loc))
+                     daw.data_ptr(), *_launch_args(value, shapes, loc), *_plan_args(plan))
     _raise_on(rc, "MSDA dLocation/dWeight")
     DLOCW_LAUNCHES += 1
     return dloc, daw
@@ -306,10 +413,11 @@ class MSDeformAttn(nn.Module):
         if seed is not None:
             init_parameters(self, torch.Generator().manual_seed(seed))
 
-    def forward(self, query: torch.Tensor, reference_points: torch.Tensor, value: torch.Tensor,
-                spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """query (N, Lq, C); reference_points (N, Lq, L, 2) in [0, 1], (x, y);
-        value (N, S, C); spatial_shapes static ((H, W), ...)."""
+    def sampling(self, query: torch.Tensor, reference_points: torch.Tensor, value: torch.Tensor,
+                 spatial_shapes: Sequence[Tuple[int, int]]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The op's inputs: the projected value (N, S, M, D), the sampling
+        locations (N, Lq, M, L, P, 2) and the attention weights
+        (N, Lq, M, L, P), softmax over levels x points."""
         shapes = _static_shapes(spatial_shapes)
         n, lq, _ = query.shape
         m, n_levels, p = self.n_heads, self.n_levels, self.n_points
@@ -318,5 +426,12 @@ class MSDeformAttn(nn.Module):
         weights = F.softmax(self.attention_weights(query).view(n, lq, m, n_levels * p), dim=-1)
         norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=query.device)
         loc = reference_points[:, :, None, :, None, :] + offsets / norm[None, None, None, :, None, :]
-        out = ms_deform_attn(v, shapes, loc, weights.view(n, lq, m, n_levels, p))
-        return self.output_proj(out)
+        return v, loc, weights.view(n, lq, m, n_levels, p)
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor, value: torch.Tensor,
+                spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """query (N, Lq, C); reference_points (N, Lq, L, 2) in [0, 1], (x, y);
+        value (N, S, C); spatial_shapes static ((H, W), ...)."""
+        shapes = _static_shapes(spatial_shapes)
+        v, loc, aw = self.sampling(query, reference_points, value, shapes)
+        return self.output_proj(ms_deform_attn(v, shapes, loc, aw))

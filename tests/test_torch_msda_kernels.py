@@ -231,3 +231,114 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda):
         A.ms_deform_attn_dvalue(g.bfloat16(), value, SHAPES, loc, aw)
     with pytest.raises(ValueError):
         A.ms_deform_attn_fwd(value.transpose(2, 3), SHAPES, loc, aw)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose storage starts one element past a
+    16-byte boundary (a slice of a larger buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+# (channels, shapes, dtype, the plan's staged levels and vector width): every
+# route of the forward and dLocation/dWeight kernels
+ROUTES = {
+    "all_staged_vector": (32, SHAPES4, torch.float32, (0, 1, 2, 3), 4),
+    "all_staged_vector_bf16": (32, SHAPES4, torch.bfloat16, (0, 1, 2, 3), 8),
+    "all_staged_scalar": (30, SHAPES4, torch.float32, (0, 1, 2, 3), 1),
+    "some_staged": (64, ((32, 32), (8, 8), (4, 4)), torch.float32, (1, 2), 4),
+    "some_staged_scalar_bf16": (71, ((40, 40), (8, 8), (4, 4)), torch.bfloat16, (1, 2), 1),
+    "none_staged": (3096, ((6, 4), (5, 4)), torch.float32, (), 4),
+    "none_staged_bf16": (3096, ((8, 6), (7, 6)), torch.bfloat16, (), 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_cuda_kernel_routes(cuda, route):
+    channels, shapes, dtype, staged, vec = ROUTES[route]
+    value, loc, aw, g = make_inputs(channels, seed=len(route), lq=45, shapes=shapes, m=3, p=2, device=cuda)
+    value, g = value.to(dtype), g.to(dtype)
+    plan = A.msda_plan(shapes, 2, 45, 3, channels, 2, dtype)
+    assert (plan.staged, plan.vec) == (staged, vec)
+    _check_kernels(value, loc, aw, g, shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_misaligned_base(cuda, dtype):
+    """value and g contiguous slices one element off a 16-byte boundary: the
+    scalar route at a width that is otherwise vector-loaded."""
+    value, loc, aw, g = make_inputs(32, seed=21, lq=60, shapes=SHAPES4, m=4, p=3, device=cuda)
+    value, g = _misaligned(value.to(dtype)), _misaligned(g.to(dtype))
+    assert A._call_plan(value, SHAPES4, loc, g).vec == 1
+    _check_kernels(value, loc, aw, g, SHAPES4)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_ragged_chunks(cuda):
+    """An Lq that the blocks' query chunks do not divide."""
+    lq = 157
+    plan = A.msda_plan(SHAPES4, 2, lq, 8, 32, 4, torch.float32, sm_count=A._sm_count(cuda.index or 0))
+    per = -(-lq // plan.chunks)
+    assert plan.chunks > 1 and lq % per != 0
+    value, loc, aw, g = make_inputs(32, seed=22, lq=lq, shapes=SHAPES4, m=8, p=4, device=cuda)
+    _check_kernels(value, loc, aw, g, SHAPES4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", ["wide", "unstaged"])
+def test_cuda_kernels_forced_plans(cuda, monkeypatch, override):
+    """The 64-bit-offset instantiation and the empty stage on a small
+    shape, by overriding the plan the wrappers take."""
+    plan_of = A.msda_plan
+
+    def forced(*args, **kwargs):
+        plan = plan_of(*args, **kwargs)
+        if override == "wide":
+            return plan._replace(wide=True)
+        return plan._replace(staged=(), smem_bytes=0)
+
+    monkeypatch.setattr(A, "msda_plan", forced)
+    value, loc, aw, g = make_inputs(32, seed=23, lq=70, shapes=SHAPES4, m=8, p=4, device=cuda)
+    _check_kernels(value, loc, aw, g, SHAPES4)
+    _check_kernels(value.bfloat16(), loc, aw, g.bfloat16(), SHAPES4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_encoder_shape(cuda, dtype):
+    """Deformable DETR's encoder shape (N2, Lq = S = 5440, M8, D32, 4
+    levels, P4): levels 1-3 staged."""
+    shapes = ((64, 64), (32, 32), (16, 16), (8, 8))
+    value, loc, aw, g = make_inputs(32, seed=24, lq=5440, shapes=shapes, m=8, p=4, device=cuda)
+    value, g = value.to(dtype), g.to(dtype)
+    assert A._call_plan(value, shapes, loc, g).staged == (1, 2, 3)
+    _check_kernels(value, loc, aw, g, shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["stage_too_large", "vector_on_misaligned", "level_past_the_last"])
+def test_cuda_refuses_plans_that_do_not_fit(cuda, monkeypatch, bad):
+    """The C functions check the plan they are given."""
+    shapes = ((40, 40), (8, 8))
+    value, loc, aw, g = make_inputs(64, seed=25, lq=20, shapes=shapes, device=cuda)
+    plan_of = A.msda_plan
+
+    def forced(*args, **kwargs):
+        plan = plan_of(*args, **kwargs)
+        if bad == "stage_too_large":  # 1600 rows of 256 bytes
+            return plan._replace(staged=(0, 1))
+        if bad == "vector_on_misaligned":
+            return plan._replace(vec=4)
+        return plan._replace(staged=plan.staged + (2,))
+
+    if bad == "vector_on_misaligned":
+        value, g = _misaligned(value), _misaligned(g)
+    monkeypatch.setattr(A, "msda_plan", forced)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        A.ms_deform_attn_fwd(value, shapes, loc, aw)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        A.ms_deform_attn_dlocw(g, value, shapes, loc, aw)
