@@ -54,11 +54,12 @@ Phases (any failure exits non-zero):
  10. hold the three multi-scale deformable attention kernels (forward,
      dValue, dLocation/dWeight) against their plain versions: channels
      {30, 32, 64, 71, 1025, 2048, 3096} on two small levels and the 4-level
-     layout, then the forward and dLocation/dWeight kernels' other routes
-     (some levels staged in shared memory, none staged, an Lq that the
-     query chunks do not divide, and value and gradient one element off a
-     16-byte boundary, which takes the scalar route), fp32 and bf16 value,
-     locations off the levels and on integer pixel coordinates;
+     layout, then the other routes of their plans (some levels staged in
+     shared memory, none staged, an Lq that the query chunks do not divide,
+     and value and gradient one element off a 16-byte boundary, which takes
+     the scalar route; dValue on its own plan of fp32 accumulator rows),
+     fp32 and bf16 value, locations off the levels and on integer pixel
+     coordinates;
  11. train the ``MSDeformAttn`` layer at Deformable DETR's encoder width
      (d_model 256, 8 heads, 4 levels of 64²/32²/16²/8², 4 points; N = 2,
      Lq = S = 5440; seeded weights): 4 forward+backward iterations on
@@ -66,20 +67,28 @@ Phases (any failure exits non-zero):
      around them; the first iteration's output and every gradient held to
      the same layer on the CPU; a bf16-autocast iteration; the op, each
      kernel and its plain version timed at the captured tensors; the
-     forward and dLocation/dWeight kernels held to their plain versions
-     and timed on two location sets, the captured random reference points
+     three kernels held to their plain versions and timed on two location
+     sets, the captured random reference points
      and Deformable DETR's encoder grid (each level's pixel centres, a
      query's own point on every level, the layer's own offsets), in fp32
      and bf16; the reference's per-level ``F.grid_sample`` composition
      timed as a yardstick;
- 12. the NHWC stencil on tap-major weights: its forward kernel against the
-     plain version (the phase-2 grids, B = 8, C = 24, fp32 and bf16), its
-     gradient (through the plane backward kernel) against autograd through
-     the plain version, and its time at the served stencil's work;
+ 12. the NHWC stencil on tap-major weights: its forward kernels against
+     the plain version (the phase-2 grids, B = 8, C = 24, fp32 and bf16:
+     the plane kernel where a block holds the plane and its w, the grid
+     kernel elsewhere, both all the steps of a call in one launch; k = 13
+     on the per-step kernel, one launch a step), each case's launches read
+     from the kernels' own counters; its gradient (one plane-kernel
+     launch, one fused plane backward launch) against autograd through the
+     plain version; its time at the served stencil's work (8,12,12,24;
+     the plane kernel), at the grid-96 stencil's (8,96,96,24) and at
+     serving_check's (1,512,512,24) (the grid kernel), beside the per-step
+     kernel called directly on the same tensors, and the per-step kernel
+     on its own route (k = 13);
  13. the LayerNorm kernel against its plain version (C in {64, 130, 1024,
      2048}, fp32 and bf16, mean-0 and mean-100 rows), then forward and
      backward at a PVTv2-b2 stage-1 and a ConvNeXt-B stage-1 shape of a
-     served batch, timed beside ``F.layer_norm``;
+     served batch, timed beside ``F.layer_norm`` (device time in phase 18);
  14. planes above the fused limit: the op forward and backward on
      (192, 64, 64) planes (the paper's grid-64 ablation), one cluster launch
      each way read from the counters, checked against the plain versions,
@@ -134,16 +143,18 @@ Phases (any failure exits non-zero):
      generator: loss and every gradient, peak memory of both); tiny
      baseline and DQnet, fp32 on the card against the CPU;
  18. the device time per call of every stencil kernel timed in phases 5, 9,
-     14 and 17 and of every MSDA kernel timed in phase 11, from
-     ``torch.profiler`` (last, so that its tracing cannot slow the
-     host-bound timings).
+     12, 14 and 17, of every MSDA kernel timed in phase 11 and of the
+     LayerNorm kernel timed in phase 13, from ``torch.profiler`` (last, so
+     that its tracing cannot slow the host-bound timings).
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
 cluster, the tiled and the per-step kernels; the tiled kernels' launches
 are those of cod at grid 96 and of the kernel11 variant, the per-step
-kernels' those of the kernel13 variant; the MSDA forward and
-dLocation/dWeight rows carry their plan, bf16 and encoder-grid times), a
+kernels' those of the kernel13 variant; the three MSDA rows carry their
+plan, bf16 and encoder-grid times; the NHWC rows are the plane kernel
+and the grid kernel, each with its device ms and the per-step kernel's ms
+on the same tensors, and the per-step kernel on its own route), a
 served-throughput line, a ``trained``, a ``grid64``,
 a ``val``, a ``variants`` and an ``msda`` JSON line, each with the card's
 name and power limit; the last line is
@@ -172,6 +183,13 @@ P_TRAIN = 10 * 24  # train stencil: batch 10 x 24 latent channels
 # (529 pixels, just above the fused limit) the cluster ones; 96x96 (beyond a
 # cluster of 8 blocks of 512 pixels) the tiled ones
 SHAPES = [(k, hw) for k in (1, 3, 7) for hw in ((12, 12), (13, 20), (64, 64), (23, 23), (96, 96))]
+# the NHWC stencil's per-step route (k = 13, beyond the plane and grid kernels' k),
+# driven beside SHAPES in phase 12
+NHWC_PER_STEP_SHAPES = [(13, (12, 12)), (13, (23, 23))]
+# the NHWC kernel's timed shapes (B, H, W, C): the served stencil's work
+# (B = 8, C = 24 on the recipe's 12x12), the grid-96 stencil's, and
+# dgtd_tpu/tools/serving_check.py's diffusion block (w 617 MB in bf16)
+NHWC_SHAPES = {"served": (8, 12, 12, 24), "grid96": (8, 96, 96, 24), "serving_check": (1, 512, 512, 24)}
 GRID64 = (64, 64)  # the cluster kernels' main path (phases 14, 15)
 LARGE = (96, 96)  # the tiled kernels' main path (phases 14, 15)
 P_LARGE = 48  # planes of the 96x96 checks in phases 2 and 6, to keep their time
@@ -529,24 +547,27 @@ def off_16_bytes(t):
     return out
 
 
-def msda_plan_row(A, v, loc, g):
-    """The forward and dLocation/dWeight kernels' plan for these tensors."""
-    plan = A._call_plan(v, ENC_SHAPES, loc, g)
+def msda_plan_row(A, v, loc, g, accumulate=False):
+    """The forward and dLocation/dWeight kernels' plan for these tensors, or
+    with ``accumulate`` dValue's (its fp32 accumulators; a fresh gradient
+    buffer is aligned)."""
+    plan = A._call_plan(v, ENC_SHAPES, loc, g, accumulate=accumulate)
     return {"staged_levels": list(plan.staged), "vector_width": plan.vec, "wide": plan.wide,
             "chunks_per_head": plan.chunks, "smem_bytes": plan.smem_bytes}
 
 
 def msda_timings(A, v, loc, aw, g, label, card):
-    """The forward and dLocation/dWeight kernels on these encoder-shape
-    tensors: CUDA-event ms, the bound, the plan; and the calls whose device
-    time phase 18 reads into the same rows."""
+    """The three MSDA kernels on these encoder-shape tensors: CUDA-event ms,
+    the bound, the plan; and the calls whose device time phase 18 reads
+    into the same rows."""
     fns = {"msda_fwd": lambda: A.ms_deform_attn_fwd(v, ENC_SHAPES, loc, aw),
+           "msda_dvalue": lambda: A.ms_deform_attn_dvalue(g, v, ENC_SHAPES, loc, aw),
            "msda_dlocw": lambda: A.ms_deform_attn_dlocw(g, v, ENC_SHAPES, loc, aw)}
     bounds = msda_bounds(v, loc, aw, ENC_SHAPES)
     rows, calls = {}, []
     for name, fn in fns.items():
         rows[name] = {"ms": cuda_time_ms(fn, 100), "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                      "plan": msda_plan_row(A, v, loc, g)}
+                      "plan": msda_plan_row(A, v, loc, g, accumulate=name == "msda_dvalue")}
         calls.append((f"{name} {label}", rows[name], "device_ms", fn, f"{name}_kernel", 100, "per launch"))
         say(f"  {name} {label}: kernel {rows[name]['ms']:.5f} ms, bound {bounds[name][0]:.6f} ms, plan "
             f"{rows[name]['plan']} [{card}]")
@@ -1584,7 +1605,7 @@ def run(keep):
     from dgtd_tpu_torch.tools import profile_msda
 
     say("phase 10: MSDA kernels vs plain (forward, dValue, dLocation/dWeight); the forward and dLocation/dWeight "
-        "kernels' plan (staged levels, channels a load) per case")
+        "kernels' plan and dValue's (staged levels, channels a load) per case")
     cases = [(c, MSDA_SMALL, dict(lq=40), False) for c in MSDA_CHANNELS]
     cases.append((32, MSDA_FOUR, dict(lq=150, m=8, p=4), False))
     cases += [(c, shapes, kw, False) for c, shapes, kw in MSDA_STAGING]
@@ -1595,9 +1616,11 @@ def run(keep):
             if misaligned:
                 v, gv = off_16_bytes(v), off_16_bytes(gv)
             plan = A._call_plan(v, shapes, loc, gv)
+            dv_plan = A._call_plan(v, shapes, loc, gv, accumulate=True)
             label = (f"{name} D={channels} {len(shapes)} levels{', misaligned base' if misaligned else ''} "
-                     f"[staged {list(plan.staged)}, {plan.vec} a load]")
-            check(plan.vec == 1 or not misaligned, f"{label}: a misaligned base takes the scalar route")
+                     f"[staged {list(plan.staged)}, {plan.vec} a load; dValue staged {list(dv_plan.staged)}, "
+                     f"{dv_plan.vec} a load]")
+            check((plan.vec, dv_plan.vec) == (1, 1) or not misaligned, f"{label}: a misaligned base takes the scalar route")
             errs = check_msda(A, v, loc, aw, gv, shapes, label)
             say(f"  {label}: max_abs_err " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
 
@@ -1708,13 +1731,15 @@ def run(keep):
                               scale_atol=MSDA_SCALE_ATOL)
             rows_, calls_ = msda_timings(A, v_, sl, sa, g_, f"{set_name} {dt_name}", card)
             rows_["msda_fwd"]["err"] = errs["out"]
+            rows_["msda_dvalue"]["err"] = errs["dvalue"]
             rows_["msda_dlocw"]["err"] = max(errs["dloc"], errs["daw"])
             msda_sets[(set_name, dt_name)] = rows_
             device_calls += calls_
             say(f"  {set_name} {dt_name} vs plain: " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
     del grid_set
     msda_bound = msda_bounds(ev, el, ea, ENC_SHAPES)
-    msda_plan = msda_plan_row(A, ev, el, eg)
+    msda_plans = {name: msda_plan_row(A, ev, el, eg, accumulate=name == "msda_dvalue")
+                  for name in ("msda_fwd", "msda_dvalue", "msda_dlocw")}
     msda_rows = {}
     # the kernel calls bind their tensors (phase 18 calls them again, after
     # this phase's names are gone)
@@ -1751,32 +1776,59 @@ def run(keep):
     torch.cuda.empty_cache()
 
     # ---- 12. NHWC stencil on tap-major weights ----
-    say("phase 12: NHWC stencil (tap-major weights) vs plain; gradient through the plane backward kernel")
-    for k, (h, w) in SHAPES:
+    say("phase 12: NHWC stencil (tap-major weights) vs plain: the plane and grid kernels (all the steps of a call in "
+        "one launch) and the per-step kernel (k >= 13); gradient through the plane backward kernel; times at "
+        f"{', '.join(str(v) for v in NHWC_SHAPES.values())}")
+
+    def nhwc_counts():
+        return D.NHWC_PLANE_LAUNCHES, D.NHWC_GRID_LAUNCHES, D.NHWC_LAUNCHES
+
+    def reset_nhwc_counts():
+        D.NHWC_PLANE_LAUNCHES = D.NHWC_GRID_LAUNCHES = D.NHWC_LAUNCHES = 0
+
+    def nhwc_want(route):
+        return {"plane": (1, 0, 0), "grid": (0, 1, 0), "per_step": (0, 0, STEPS)}[route]
+
+    nhwc_errs = {"plane": 0.0, "grid": 0.0, "per_step": 0.0}
+    nhwc_step_launches = None
+    for k, (h, w) in SHAPES + NHWC_PER_STEP_SHAPES:
         x = torch.rand(8, h, w, 24, generator=g, device=dev)
         nw = MD.normalize_affinity(torch.rand(8, h, w, 24, k * k, generator=g, device=dev), dim=-1)
         wt = D.to_tap_major(nw)
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            route = D.nhwc_route(h, w, k, dt)
+            reset_nhwc_counts()
             out = D.diffusion_nhwc_tap_major(x.to(dt), wt.to(dt), k, STEPS)
             torch.cuda.synchronize()
+            n = nhwc_counts()
+            check(n == nhwc_want(route), f"NHWC {name} k={k} {h}x{w} [{route}]: launches (plane, grid, per-step) {n}, "
+                                         f"expected {nhwc_want(route)}")
+            if route == "per_step" and dt == torch.bfloat16 and (h, w) == (12, 12):
+                nhwc_step_launches = n[2]
             ref = D.diffusion_nhwc_plain(x.to(dt).float(), wt.to(dt).float(), k, STEPS)
             tol = FP32_TOL if dt == torch.float32 else dict(rtol=0, atol=BF16_ATOL)
             torch.testing.assert_close(out.float(), ref, **tol, msg=lambda m: f"NHWC {name} k={k} {h}x{w}: {m}")
-            say(f"  {name} k={k} {h}x{w}: max_abs_err={float((out.float() - ref).abs().max()):.3e}")
+            err = float((out.float() - ref).abs().max())
+            nhwc_errs[route] = max(nhwc_errs[route], err)
+            say(f"  {name} k={k} {h}x{w} [{route}]: launches (plane, grid, per-step) {n}; max_abs_err={err:.3e}")
+        del x, nw, wt
+    check(nhwc_step_launches == STEPS, f"NHWC per-step route: {nhwc_step_launches} launches for {STEPS} steps")
     x = torch.rand(8, 12, 12, 24, generator=g, device=dev)
     nw = MD.normalize_affinity(torch.rand(8, 12, 12, 24, KERNEL ** 2, generator=g, device=dev), dim=-1)
     gout = torch.rand(8, 12, 12, 24, generator=g, device=dev)
     nhwc_grad_err = {}
     for name, dt, tol in (("fp32", torch.float32, BWD_FP32_TOL), ("bf16", torch.bfloat16, AUTOGRAD_BF16_TOL)):
         xa, wa, xb, wb = (t.to(dt).clone().requires_grad_() for t in (x, nw, x, nw))
-        D.NHWC_LAUNCHES = 0
+        reset_nhwc_counts()
         reset_plane_launches(D)
         D.diffusion_nhwc(xa, wa, KERNEL, STEPS).backward(gout.to(dt))
         torch.cuda.synchronize()
-        # the backward's 12x12 planes take the fused plane backward: one launch
-        nhwc_launches = (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES)
-        check(nhwc_launches == (STEPS, 1) and plane_launches(D) == launch_tuple("fused", 0, 1),
-              f"NHWC {name} forward+backward launches {nhwc_launches}, plane {plane_launches(D)}")
+        # one plane-kernel launch for the forward's steps; the backward's
+        # 12x12 planes take the fused plane backward: one launch
+        nhwc_launches = (D.NHWC_PLANE_LAUNCHES, D.FUSED_BWD_LAUNCHES)
+        check(nhwc_launches == (1, 1) and nhwc_counts() == (1, 0, 0) and plane_launches(D) == launch_tuple("fused", 0, 1),
+              f"NHWC {name} forward+backward launches {nhwc_launches}, NHWC (plane, grid, per-step) {nhwc_counts()}, "
+              f"plane stencil {plane_launches(D)}")
         D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), KERNEL, STEPS).backward(gout.to(dt))
         err = 0.0
         for gname, got, ref in (("dx", xa.grad, xb.grad), ("dw", wa.grad, wb.grad)):
@@ -1785,18 +1837,63 @@ def run(keep):
         nhwc_grad_err[name] = err
         say(f"  NHWC {name} x (8,12,12,24), k={KERNEL}, {STEPS} steps: launches forward {nhwc_launches[0]}, "
             f"backward {nhwc_launches[1]}; gradients vs autograd through the plain forward max_abs_err={err:.3e}")
+    del x, nw, gout, xa, wa, xb, wb
+    # the plane kernel at the served stencil's work, the grid kernel at the
+    # grid-96 stencil's and at serving_check's block, each beside the
+    # per-step kernel called directly on the same tensors, the launches of
+    # a call read around its check; device times in phase 18
     nhwc_rows = {}
-    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        xt, wt = x.to(dt), D.to_tap_major(nw).to(dt)
+    for key, shape, dt, iters in (("bf16", NHWC_SHAPES["served"], torch.bfloat16, 200),
+                                  ("fp32", NHWC_SHAPES["served"], torch.float32, 200),
+                                  ("grid96_bf16", NHWC_SHAPES["grid96"], torch.bfloat16, 50),
+                                  ("serving_check_bf16", NHWC_SHAPES["serving_check"], torch.bfloat16, 10)):
+        b_, h, w, c = shape
+        xt = torch.rand(shape, generator=g, device=dev).to(dt)
+        wt = D.to_tap_major(MD.normalize_affinity(torch.rand(b_, h, w, c, KERNEL ** 2, generator=g, device=dev),
+                                                  dim=-1)).to(dt)
+        route = D.nhwc_route(h, w, KERNEL, dt)
+        reset_nhwc_counts()
         out = D.diffusion_nhwc_tap_major(xt, wt, KERNEL, STEPS)
-        ref = D.diffusion_nhwc_plain(xt, wt, KERNEL, STEPS)
-        err = float((out.float() - ref.float()).abs().max())
-        ms = cuda_time_ms(lambda: D.diffusion_nhwc_tap_major(xt, wt, KERNEL, STEPS), 200)
-        plain_ms = cuda_time_ms(lambda: D.diffusion_nhwc_plain(xt, wt, KERNEL, STEPS), 50)
+        torch.cuda.synchronize()
+        nhwc_n = nhwc_counts()
+        check(nhwc_n == nhwc_want(route), f"NHWC {key} {shape} [{route}]: launches (plane, grid, per-step) {nhwc_n}")
+        ref = D.diffusion_nhwc_plain(xt.float(), wt.float(), KERNEL, STEPS)
+        tol = FP32_TOL if dt == torch.float32 else dict(rtol=0, atol=BF16_ATOL)
+        torch.testing.assert_close(out.float(), ref, **tol, msg=lambda m: f"NHWC {key} {shape}: {m}")
+        err = float((out.float() - ref).abs().max())
+        del out, ref
+        fn = functools.partial(D.diffusion_nhwc_tap_major, xt, wt, KERNEL, STEPS)
+        per_step = functools.partial(D._nhwc_per_step_forward, xt, wt, KERNEL, STEPS, None, torch.empty_like(xt))
+        plain = functools.partial(D.diffusion_nhwc_plain, xt, wt, KERNEL, STEPS)
+        ms, per_step_ms = cuda_time_ms(fn, iters), cuda_time_ms(per_step, iters)
+        plain_ms = cuda_time_ms(plain, min(iters, 50), warmup=2)
         bound_ms, bound_by = stencil_bound(xt, wt, KERNEL, STEPS)
-        nhwc_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, err=err)
-        say(f"  NHWC stencil {name} ({STEPS} steps, x (8,12,12,24), w (8,12,12,{KERNEL ** 2}*24)): kernel {ms:.5f} ms, "
-            f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        nhwc_rows[key] = row = dict(ms=ms, per_step_ms=per_step_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, err=err, shape=list(shape), kernel_route=route,
+                                    launches=nhwc_n[{"plane": 0, "grid": 1}[route]])
+        device_calls.extend([(f"NHWC {route} {key} {shape}", row, "device_ms", fn, f"stencil_nhwc_{route}", iters),
+                             (f"NHWC per-step {key} {shape}", row, "per_step_device_ms", per_step,
+                              "stencil_step_nhwc", iters)])
+        say(f"  NHWC stencil {key} x {shape}, w ({b_},{h},{w},{KERNEL ** 2}*{c}), {STEPS} steps [{route}]: kernel "
+            f"{ms:.5f} ms, per-step kernel {per_step_ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}), max_abs_err {err:.3e} [{card}]")
+        del xt, wt, fn, per_step, plain
+        torch.cuda.empty_cache()
+    # the per-step kernel on its own route: k = 13 at the served shape
+    xt = torch.rand(NHWC_SHAPES["served"], generator=g, device=dev).bfloat16()
+    wt = D.to_tap_major(MD.normalize_affinity(torch.rand(*NHWC_SHAPES["served"], K13 ** 2, generator=g, device=dev),
+                                              dim=-1)).bfloat16()
+    fn = functools.partial(D.diffusion_nhwc_tap_major, xt, wt, K13, STEPS)
+    ref = D.diffusion_nhwc_plain(xt.float(), wt.float(), K13, STEPS)
+    bound_ms, bound_by = stencil_bound(xt, wt, K13, STEPS)
+    nhwc_step_row = dict(ms=cuda_time_ms(fn, 200), plain_ms=cuda_time_ms(
+        functools.partial(D.diffusion_nhwc_plain, xt, wt, K13, STEPS), 50), bound_ms=bound_ms, bound_by=bound_by,
+        err=float((fn().float() - ref).abs().max()))
+    device_calls.append((f"NHWC per-step k={K13} {NHWC_SHAPES['served']}", nhwc_step_row, "device_ms", fn,
+                         "stencil_step_nhwc", 200))
+    say(f"  NHWC per-step kernel (its own route, k={K13}) bf16 x {NHWC_SHAPES['served']}: {nhwc_step_row['ms']:.5f} ms, "
+        f"plain {nhwc_step_row['plain_ms']:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+    del ref
 
     # ---- 13. LayerNorm ----
     say("phase 13: LayerNorm kernel vs plain; forward+backward at served stage-1 shapes")
@@ -1842,6 +1939,8 @@ def run(keep):
         bound_ms, bound_by = layer_norm_bound(xl)
         ln_rows[shape_name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, err=err, shape=[rows_n, c], dtype="bfloat16")
+        device_calls.append((f"LayerNorm {shape_name} ({rows_n}, {c}) bf16", ln_rows[shape_name], "device_ms",
+                             functools.partial(L.layer_norm_fwd, xl, sc, bi, 1e-6), "ln_", 200))
         say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
             f"F.layer_norm {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
 
@@ -2340,17 +2439,47 @@ def run(keep):
         "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",
         "replaces": "dgtd_tpu/ops/diffusion_pallas.py:55",
         "launches": nhwc_launches[0],
-        "max_abs_err": nhwc_rows["bf16"]["err"],
-        "ms": nhwc_rows["bf16"]["ms"],
-        "plain_ms": nhwc_rows["bf16"]["plain_ms"],
-        "bound_ms": nhwc_rows["bf16"]["bound_ms"],
-        "bound_by": nhwc_rows["bf16"]["bound_by"],
+        "main_path": f"{nhwc_launches[0]} launch of the plane kernel for the {STEPS} steps of a forward+backward "
+                     "through diffusion_nhwc on x (8,12,12,24)",
+        "max_abs_err": max(nhwc_errs["plane"], nhwc_rows["bf16"]["err"], nhwc_rows["fp32"]["err"]),
+        **{k: nhwc_rows["bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "per_step_ms",
+                                              "per_step_device_ms", "kernel_route")},
         "library_ms": None,
         "dtype": "bfloat16",
         "shape": f"x (8,12,12,24), w (8,12,12,{KERNEL * KERNEL}*24) tap-major, {STEPS} steps",
         "backward_launches": nhwc_launches[1],
         "grad_max_abs_err": nhwc_grad_err,
         "fp32": nhwc_rows["fp32"],
+        "card": card,
+    }, {
+        "name": "diffusion_stencil_nhwc_grid",
+        "route": "cuda",
+        "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",
+        "replaces": "dgtd_tpu/ops/diffusion_pallas.py:55",
+        "launches": nhwc_rows["grid96_bf16"]["launches"],
+        "main_path": f"{nhwc_rows['grid96_bf16']['launches']} launch of the grid kernel for the {STEPS} steps of "
+                     "diffusion_nhwc_tap_major on x (8,96,96,24)",
+        "max_abs_err": max(nhwc_errs["grid"], nhwc_rows["grid96_bf16"]["err"], nhwc_rows["serving_check_bf16"]["err"]),
+        **{k: nhwc_rows["grid96_bf16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                                     "per_step_ms", "per_step_device_ms", "kernel_route")},
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "shape": f"x (8,96,96,24), w (8,96,96,{KERNEL * KERNEL}*24) tap-major, {STEPS} steps",
+        "serving_check": nhwc_rows["serving_check_bf16"],
+        "card": card,
+    }, {
+        "name": "diffusion_stencil_nhwc_step",
+        "route": "cuda",
+        "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",
+        "replaces": "dgtd_tpu/ops/diffusion_pallas.py:55",
+        "launches": nhwc_step_launches,
+        "main_path": f"{nhwc_step_launches} launches for the {STEPS} steps of diffusion_nhwc_tap_major on x "
+                     f"(8,12,12,24) at k={K13} (beyond the plane and grid kernels' templates)",
+        "max_abs_err": max(nhwc_errs["per_step"], nhwc_step_row["err"]),
+        **{k: nhwc_step_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "shape": f"x (8,12,12,24), w (8,12,12,{K13 * K13}*24) tap-major, {STEPS} steps",
         "card": card,
     }, {
         "name": "layer_norm",
@@ -2364,6 +2493,7 @@ def run(keep):
         "bound_ms": ln_rows["pvt_b2_stage1"]["bound_ms"],
         "bound_by": ln_rows["pvt_b2_stage1"]["bound_by"],
         "library_ms": ln_rows["pvt_b2_stage1"]["library_ms"],
+        "device_ms": ln_rows["pvt_b2_stage1"]["device_ms"],
         "dtype": "bfloat16",
         "shape": "x (8*96*96, 64)",
         "convnext_b_stage1": ln_rows["convnext_b_stage1"],
@@ -2384,10 +2514,9 @@ def run(keep):
         "dtype": "float32",
         "shape": f"value ({ENC_N},{ENC_S},{ENC_HEADS},{ENC_D_MODEL // ENC_HEADS}), Lq {ENC_S}, levels {ENC_SHAPES}, {ENC_POINTS} points",
         "locations": "random_reference",
-        **({} if name == "msda_dvalue" else {
-            "plan": msda_plan,
-            "bf16": msda_sets[("random_reference", "bf16")][name],
-            "encoder_grid": {dt: msda_sets[("encoder_grid", dt)][name] for dt in ("fp32", "bf16")}}),
+        "plan": msda_plans[name],
+        "bf16": msda_sets[("random_reference", "bf16")][name],
+        "encoder_grid": {dt: msda_sets[("encoder_grid", dt)][name] for dt in ("fp32", "bf16")},
         "card": card,
     } for name, replaces in (("msda_fwd", "dgtd_tpu/ops/msda.py:165"), ("msda_dvalue", "dgtd_tpu/ops/msda.py:255"),
                              ("msda_dlocw", "dgtd_tpu/ops/msda.py:353"))]}))

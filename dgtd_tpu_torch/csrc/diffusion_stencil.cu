@@ -80,21 +80,92 @@
 // skipped (the halo is zero), which also masks ragged and rectangular
 // H x W. No shared memory: the k*k neighbourhood reads of x hit L1.
 //
-// The fourth kernel, stencil_step_nhwc_kernel, replaces
-// dgtd_tpu/ops/diffusion_pallas.py::diffusion_step_pallas (the Pallas kernel
-// _stencil_kernel): the same step on NHWC x (B, H, W, C) with tap-major
-// weights (B, H, W, k*k*C), whose index is t*C + c (to_tap_major):
+// The NHWC kernels replace dgtd_tpu/ops/diffusion_pallas.py::diffusion_step_pallas
+// (the Pallas kernel _stencil_kernel) and its chain of one call per step:
+// the same step on NHWC x (B, H, W, C) with tap-major weights
+// (B, H, W, k*k*C), whose index is t*C + c (to_tap_major):
 //
 //   out[b, y, x, c] = sum_t x[b, y + t/k - r, x + t%k - r, c] * w[b, y, x, t*C + c]
 //
-// read in place, without a copy into plane layout (w is k*k times x). One
-// thread per output element; consecutive threads take consecutive c, so
-// for each tap the reads of x and of w[b, y, x, t*C : (t+1)*C] are
-// coalesced. Bound and launch pattern as above.
+// read in place, without a copy into plane layout (w is k*k times x).
+//
+// What bounds them on this card: the bytes of w, k*k values a pixel and
+// channel (98 bytes in bf16 at k = 7), and how they are read. In
+// tap-major NHWC a pixel's taps are rows of C channels (48 bytes at C = 24
+// in bf16): a block that reads only its own 16-byte channel group of each
+// uses half of every 32-byte sector, and a warp whose lanes take 32 pixels
+// touches 32 lines a load; measured on the card, such a kernel (a tile of
+// pixels with a recomputed halo a block) moved 0.2 sectors a cycle an SM
+// and ran slower than the per-step kernel at 96x96 and 512x512. So the
+// route (nhwc_route, by shape and dtype) picks one of two layouts, both
+// running every step of a call in one launch:
+//
+// stencil_nhwc_plane_kernel: a block owns one image b and one 16-byte
+// channel group (4 fp32 or 8 bf16 channels; a C that is not a multiple of
+// the group leaves the last group a masked tail), and holds the whole
+// plane padded by r as two fp32 ping-pong buffers and the plane's w for
+// its group, copied into shared memory once (cp.async) and read there by
+// every step, where they fit a block (the cod recipe's 12x12 at k <= 9).
+// A thread computes 4 channels of a pixel (the group's one quad in fp32,
+// one of its two in bf16): for each tap one read of w's copy and one of the
+// window, each step rounded to x's dtype as the chained steps round it.
+//
+// stencil_nhwc_grid_kernel: every other plane at an odd k up to 11. A
+// cooperative launch of as many blocks as the card holds at once; each
+// step, a thread computes (b, pixel, 4 channels) items, a pixel's quads on
+// neighbouring lanes, so that a warp's loads of a tap take its C channels
+// contiguously (whole sectors, L1 serving the neighbouring tap's bytes).
+// It reads w in place every step (from memory: at 96x96 and beyond w
+// passes L2) and the step's input from the previous step's output in
+// global memory (x's dtype, through L2: L1 is not coherent across SMs),
+// with a grid barrier between steps; the k taps of a row of both are
+// loaded as raw words (16 bytes of fp32, 8 of bf16) before the first is
+// used.
+//
+// With autograd both write every step's input into one (steps, B, H, W, C)
+// tensor, as the plane kernels do (the grid kernel runs the steps through
+// it; without, through two scratch tensors).
+//
+// stencil_step_nhwc_kernel, one launch per step, takes k >= 13 (no
+// template of the other two). One thread per output element;
+// consecutive threads take consecutive c, so for each tap the reads of x
+// and of w[b, y, x, t*C : (t+1)*C] are coalesced.
 
 #include "stencil_common.cuh"
 
+#include <algorithm>
+
 namespace {
+
+// The NHWC kernels' route, which ops/diffusion.py::nhwc_route mirrors:
+// shape and dtype alone decide it. A block of the plane kernel holds one image's whole plane for one 16-byte
+// channel group (4 fp32 or 8 bf16 channels: nhwc_group), the plane padded
+// by r as two fp32 buffers and the plane's w for the group, so that w is
+// read from memory once for all the steps: the shared memory of a plane
+// tile of the tiled plane kernels in ws mode (tiled_smem) times the group's
+// channels. Every other plane at an odd k up to TILED_MAX_KERNEL takes the
+// grid kernel; k >= 13 the per-step kernel.
+enum NhwcRoute { NHWC_PLANE = 0, NHWC_GRID = 1, NHWC_PER_STEP = 2 };
+
+__host__ __device__ constexpr int nhwc_group(int elem_bytes) { return 16 / elem_bytes; }
+
+inline size_t nhwc_plane_smem(int h, int wd, int k, int elem_bytes) {
+  return tiled_smem(h, wd, h, wd, k, 1, elem_bytes, false, true) * nhwc_group(elem_bytes);
+}
+
+inline int nhwc_route(int h, int wd, int k, int elem_bytes) {
+  if (h < 1 || wd < 1 || k < 1 || k % 2 == 0 || k > TILED_MAX_KERNEL) return NHWC_PER_STEP;
+  return nhwc_plane_smem(h, wd, k, elem_bytes) <= FUSED_SMEM_LIMIT ? NHWC_PLANE : NHWC_GRID;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gsrc) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gsrc) : "memory");
+}
+
+// threads of a block of the NHWC grid kernel
+constexpr int NHWC_GRID_THREADS = 128;
+
 
 template <typename T, int K>
 __global__ void __launch_bounds__(FUSED_MAX_PIXELS)
@@ -442,6 +513,373 @@ __global__ void stencil_step_nhwc_kernel(const T* __restrict__ x, const T* __res
   store_f(out + idx, acc);
 }
 
+// 4 fp32 values of the shared buffers (16-byte aligned)
+__device__ __forceinline__ void ld_buf(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void st_buf(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// 4 channels (a quad) of T as one raw word, 16 bytes of fp32 or 8 of
+// bf16: loads through the read-only path (ldg) or past L1 (ldcg), and the
+// word's channels as fp32
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw ldg(const float* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
+  static __device__ __forceinline__ Raw ldcg(const float* p) { return __ldcg(reinterpret_cast<const uint4*>(p)); }
+  static __device__ __forceinline__ void unpack(const Raw& t, float (&v)[4]) {
+    v[0] = __uint_as_float(t.x);
+    v[1] = __uint_as_float(t.y);
+    v[2] = __uint_as_float(t.z);
+    v[3] = __uint_as_float(t.w);
+  }
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw ldg(const __nv_bfloat16* p) { return __ldg(reinterpret_cast<const uint2*>(p)); }
+  static __device__ __forceinline__ Raw ldcg(const __nv_bfloat16* p) { return __ldcg(reinterpret_cast<const uint2*>(p)); }
+  static __device__ __forceinline__ void unpack(const Raw& t, float (&v)[4]) {
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xffff0000u);
+  }
+};
+
+// the first `valid` of 4 channels at p (the masked tail of C) as fp32,
+// the rest 0: element loads
+__device__ __forceinline__ void ld_elems(const float* p, int valid, float (&v)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = k < valid ? p[k] : 0.f;
+}
+__device__ __forceinline__ void ld_elems(const __nv_bfloat16* p, int valid, float (&v)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = k < valid ? __bfloat162float(p[k]) : 0.f;
+}
+
+// 4 channels into global memory at p in its dtype: one access on the
+// vector route, else element stores of the first `valid`
+template <bool VEC>
+__device__ __forceinline__ void st_quad(float* p, int valid, const float (&v)[4]) {
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < valid) p[k] = v[k];
+  }
+}
+template <bool VEC>
+__device__ __forceinline__ void st_quad(__nv_bfloat16* p, int valid, const float (&v)[4]) {
+  if constexpr (VEC) {
+    __nv_bfloat162 b[2] = {__floats2bfloat162_rn(v[0], v[1]), __floats2bfloat162_rn(v[2], v[3])};
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(b);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < valid) p[k] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(tiled_threads(K), 1)
+stencil_nhwc_plane_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ xs, T* __restrict__ out,
+                          int64_t batch, int h, int wd, int c, int steps, int groups) {
+  constexpr int R = K / 2, KK = K * K, V = nhwc_group(sizeof(T));
+  extern __shared__ __align__(16) float nhwc_smem[];
+  const int grp = (int)(blockIdx.x % groups);
+  const int64_t b = blockIdx.x / groups;
+  const int c0 = grp * V, valid = min(V, c - c0);
+  const int pw = wd + 2 * R, pn = (h + 2 * R) * pw;  // the plane padded by r
+  const int hw = h * wd;
+  float* src = nhwc_smem;
+  float* dst = nhwc_smem + (size_t)pn * V;
+  T* const wsm = reinterpret_cast<T*>(nhwc_smem + 2 * (size_t)pn * V);  // [pixel][tap][V]
+  const int64_t img = b * hw * c + c0;  // pixel p's group at img + p*c in x, out and each step of xs
+  const int64_t xs_step = batch * hw * c;
+  const T* const wb = w + b * hw * KK * c + c0;  // pixel p's tap t at wb + (p*KK + t)*c
+
+  // x on the padded buffer (the r-wide edge zero), the second buffer zeroed,
+  // the step-0 input saved; a quad of 4 channels at a time (the group's
+  // S quads of a pixel are neighbours in the buffers)
+  constexpr int S = V / 4;  // quads a group
+  for (int i = threadIdx.x; i < pn * S; i += blockDim.x) {
+    const int pp = i / S, q = i - pp * S;
+    const int yy = pp / pw - R, xx = pp % pw - R;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    const int qvalid = valid - q * 4;
+    if (yy >= 0 && yy < h && xx >= 0 && xx < wd && qvalid > 0) {
+      const int64_t at = img + ((int64_t)yy * wd + xx) * c + q * 4;
+      if constexpr (VEC) {
+        Quad<T>::unpack(Quad<T>::ldg(x + at), v);
+      } else {
+        ld_elems(x + at, qvalid, v);
+      }
+      if (xs != nullptr) st_quad<VEC>(xs + at, qvalid, v);  // x's own value: exact in its dtype
+    }
+    st_buf(src + (size_t)i * 4, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = 0.f;
+    st_buf(dst + (size_t)i * 4, v);
+  }
+  // the plane's w for the group, one 16-byte copy a (pixel, tap): cp.async
+  // on the vector route, element copies (the tail zero) on the other
+  for (int i = threadIdx.x; i < hw * KK; i += blockDim.x) {
+    const T* s = wb + (int64_t)i * c;
+    T* d = wsm + (size_t)i * V;
+    if constexpr (VEC) {
+      cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) d[k] = k < valid ? s[k] : T{};
+    }
+  }
+  if constexpr (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // a thread computes a quad of a pixel (the group's one in fp32, one of
+  // its two in bf16), so that a bf16 block has twice the threads of an fp32
+  // one for the same work a thread
+  for (int s = 0; s < steps; ++s) {
+    for (int it = threadIdx.x; it < hw * S; it += blockDim.x) {
+      const int pix = it / S, q = it - pix * S;
+      const int y = pix / wd, xx = pix - (pix / wd) * wd;
+      const float* win = src + ((size_t)y * pw + xx) * V + q * 4;  // top-left tap in the padded buffer
+      const T* wq = wsm + (size_t)pix * KK * V + q * 4;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll tiled_row_unroll(K)
+      for (int dy = 0; dy < K; ++dy) {
+        float wv[K][4];
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx)
+          Quad<T>::unpack(*reinterpret_cast<const typename Quad<T>::Raw*>(wq + (size_t)(dy * K + dx) * V), wv[dx]);
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          float xv[4];
+          ld_buf(win + (size_t)(dy * pw + dx) * V, xv);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[v] = fmaf(xv[v], wv[dx][v], acc[v]);
+        }
+      }
+      const int64_t at = img + (int64_t)pix * c + q * 4;
+      const int qvalid = valid - q * 4;
+      if (s == steps - 1) {
+        if (qvalid > 0) st_quad<VEC>(out + at, qvalid, acc);
+      } else {
+        float rv[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) rv[v] = round_to(acc[v], x);
+        st_buf(dst + ((size_t)(y + R) * pw + xx + R) * V + q * 4, rv);
+        if (xs != nullptr && qvalid > 0) st_quad<VEC>(xs + (s + 1) * xs_step + at, qvalid, acc);
+      }
+    }
+    __syncthreads();  // every read of src and write of dst done before the swap
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_nhwc_plane(const void* x, const void* w, void* xs, void* out, int64_t batch, int h, int wd, int c,
+                              int steps, int device, cudaStream_t s) {
+  constexpr int V = nhwc_group(sizeof(T));
+  const int groups = (c + V - 1) / V;
+  if (batch * groups > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = nhwc_plane_smem(h, wd, K, sizeof(T));
+  // 16-byte accesses of x, out and xs need whole groups and aligned tensors
+  const bool vec = c % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(xs) % 16 == 0;
+  auto kern = vec ? stencil_nhwc_plane_kernel<T, K, true> : stencil_nhwc_plane_kernel<T, K, false>;
+  // lift each kernel's shared-memory limit once per device
+  static bool raised[2][64] = {};
+  if (smem > STATIC_SMEM_LIMIT && !(device < 64 && raised[vec][device])) {
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FUSED_SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    if (device < 64) raised[vec][device] = true;
+  }
+  const int threads = std::min(tiled_threads(K), (h * wd * (V / 4) + 31) / 32 * 32);
+  kern<<<(unsigned)(batch * groups), threads, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                                          static_cast<T*>(xs), static_cast<T*>(out), batch, h, wd, c,
+                                                          steps, groups);
+  return cudaGetLastError();
+}
+
+// A grid barrier for a cooperative launch (every block resident): the
+// k-th barrier of a launch returns once all gridDim.x blocks have arrived at
+// it, count starting at 0.
+__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // this block's stores of the step before every arrival
+    atomicAdd(count, 1u);
+    const unsigned target = k * gridDim.x;
+    while (*reinterpret_cast<volatile unsigned*>(count) < target) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// the first `valid` of 4 channels at p (global, written earlier in this
+// launch by other blocks), the rest 0: element loads that skip L1, which
+// is not coherent across SMs
+__device__ __forceinline__ void ld_elems_cg(const float* p, int valid, float (&v)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = k < valid ? __ldcg(p + k) : 0.f;
+}
+__device__ __forceinline__ void ld_elems_cg(const __nv_bfloat16* p, int valid, float (&v)[4]) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = k < valid ? __uint_as_float((unsigned)__ldcg(q + k) << 16) : 0.f;
+}
+
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(NHWC_GRID_THREADS, K <= 7 ? 4 : 2)
+stencil_nhwc_grid_kernel(const T* __restrict__ x, const T* __restrict__ w, T* xs, T* out, T* scratch,
+                         unsigned* count, int64_t batch, int h, int wd, int c, int steps) {
+  constexpr int R = K / 2, KK = K * K;
+  using Q = Quad<T>;
+  const int quads = (c + 3) / 4;
+  const int64_t hw = (int64_t)h * wd, n = batch * hw * c;  // elements of one step's tensor
+  const int64_t items = batch * hw * quads;
+  for (int s = 0; s < steps; ++s) {
+    if (s > 0) grid_barrier(count, s);  // step s - 1's outputs all stored
+    const T* src = s == 0 ? x : (xs != nullptr ? xs + s * n : scratch + ((s - 1) & 1) * n);
+    T* dst = s == steps - 1 ? out : (xs != nullptr ? xs + (s + 1) * n : scratch + (s & 1) * n);
+    for (int64_t it = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; it < items;
+         it += (int64_t)gridDim.x * blockDim.x) {
+      // (b, pixel, quad of 4 channels), the quad fastest: a pixel's quads
+      // are neighbouring lanes, whose loads of a tap's C channels are
+      // contiguous
+      const int qd = (int)(it % quads);
+      const int64_t pl = it / quads;  // b * H * W + pixel
+      const int64_t b = pl / hw;
+      const int pix = (int)(pl - b * hw);
+      const int y = pix / wd, xx = pix - (pix / wd) * wd;
+      const int c0 = qd * 4, valid = min(4, c - c0);
+      const T* sb = src + b * hw * c + c0;
+      const T* wq = w + pl * KK * c + c0;
+      if (s == 0 && xs != nullptr) {
+        float v[4];
+        if constexpr (VEC) {
+          Q::unpack(Q::ldg(x + pl * c + c0), v);
+        } else {
+          ld_elems(x + pl * c + c0, valid, v);
+        }
+        st_quad<VEC>(xs + pl * c + c0, valid, v);  // x's own value: exact in its dtype
+      }
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll tiled_row_unroll(K)
+      for (int dy = 0; dy < K; ++dy) {
+        const int yy = y + dy - R;
+        if (yy < 0 || yy >= h) continue;
+        if constexpr (VEC) {
+          // the row's k taps of w and of the step's input as raw words (16
+          // bytes of fp32, 8 of bf16), all loads in flight before the
+          // first is used, converted at the multiply
+          typename Q::Raw rw[K], rx[K];
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) {
+            rw[dx] = Q::ldg(wq + (int64_t)(dy * K + dx) * c);
+            const int xc = xx + dx - R;
+            rx[dx] = xc >= 0 && xc < wd ? Q::ldcg(sb + ((int64_t)yy * wd + xc) * c) : typename Q::Raw{};
+          }
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) {
+            float wv[4], xv[4];
+            Q::unpack(rw[dx], wv);
+            Q::unpack(rx[dx], xv);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[v] = fmaf(xv[v], wv[v], acc[v]);
+          }
+        } else {
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) {
+            float wv[4], xv[4];
+            ld_elems(wq + (int64_t)(dy * K + dx) * c, valid, wv);
+            const int xc = xx + dx - R;
+            if (xc >= 0 && xc < wd) {
+              ld_elems_cg(sb + ((int64_t)yy * wd + xc) * c, valid, xv);
+            } else {
+#pragma unroll
+              for (int v = 0; v < 4; ++v) xv[v] = 0.f;
+            }
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[v] = fmaf(xv[v], wv[v], acc[v]);
+          }
+        }
+      }
+      st_quad<VEC>(dst + pl * c + c0, valid, acc);  // rounded to T, as the chain rounds each step
+    }
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_nhwc_grid(const void* x, const void* w, void* xs, void* out, void* scratch, unsigned* count,
+                             int64_t batch, int h, int wd, int c, int steps, int device, cudaStream_t s) {
+  // a quad's one access needs whole quads and aligned tensors
+  const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(xs) % 16 == 0 && reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  auto kern = vec ? stencil_nhwc_grid_kernel<T, K, true> : stencil_nhwc_grid_kernel<T, K, false>;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NHWC_GRID_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t items = batch * h * wd * ((c + 3) / 4);
+  const int64_t want = (items + NHWC_GRID_THREADS - 1) / NHWC_GRID_THREADS;
+  const int grid = (int)std::min<int64_t>(want, (int64_t)per_sm * sms);
+  if (grid < 1) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return err;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* xsp = static_cast<T*>(xs);
+  T* op = static_cast<T*>(out);
+  T* sp = static_cast<T*>(scratch);
+  void* args[] = {&xp, &wp, &xsp, &op, &sp, &count, &batch, &h, &wd, &c, &steps};
+  return launch_error(cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(NHWC_GRID_THREADS), args, 0, s));
+}
+
+template <typename T>
+cudaError_t launch_nhwc_grid_k(const void* x, const void* w, void* xs, void* out, void* scratch, unsigned* count,
+                               int64_t batch, int h, int wd, int c, int k, int steps, int device, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_nhwc_grid<T, 1>(x, w, xs, out, scratch, count, batch, h, wd, c, steps, device, s);
+    case 3: return launch_nhwc_grid<T, 3>(x, w, xs, out, scratch, count, batch, h, wd, c, steps, device, s);
+    case 5: return launch_nhwc_grid<T, 5>(x, w, xs, out, scratch, count, batch, h, wd, c, steps, device, s);
+    case 7: return launch_nhwc_grid<T, 7>(x, w, xs, out, scratch, count, batch, h, wd, c, steps, device, s);
+    case 9: return launch_nhwc_grid<T, 9>(x, w, xs, out, scratch, count, batch, h, wd, c, steps, device, s);
+    case 11: return launch_nhwc_grid<T, 11>(x, w, xs, out, scratch, count, batch, h, wd, c, steps, device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_nhwc_plane_k(const void* x, const void* w, void* xs, void* out, int64_t batch, int h, int wd, int c,
+                          int k, int steps, int device, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch_nhwc_plane<T, 1>(x, w, xs, out, batch, h, wd, c, steps, device, s);
+    case 3: return launch_nhwc_plane<T, 3>(x, w, xs, out, batch, h, wd, c, steps, device, s);
+    case 5: return launch_nhwc_plane<T, 5>(x, w, xs, out, batch, h, wd, c, steps, device, s);
+    case 7: return launch_nhwc_plane<T, 7>(x, w, xs, out, batch, h, wd, c, steps, device, s);
+    case 9: return launch_nhwc_plane<T, 9>(x, w, xs, out, batch, h, wd, c, steps, device, s);
+    case 11: return launch_nhwc_plane<T, 11>(x, w, xs, out, batch, h, wd, c, steps, device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal of the tensors
@@ -567,8 +1005,54 @@ extern "C" int dgtd_diffusion_cluster_occupancy(int blocks, int rows, int wd, in
   return (int)launch_error(cudaOccupancyMaxActiveClusters(clusters, kern, &launch.cfg));
 }
 
-// NHWC entry: x and out (B, H, W, C), w (B, H, W, k*k*C) tap-major; dtype and
-// device as above. Returns cudaGetLastError() after the launch.
+// NHWC plane entry: all `steps` (>= 1) steps in one launch, for planes
+// whose nhwc_route is NHWC_PLANE (else cudaErrorInvalidValue). x and out
+// (B, H, W, C), w (B, H, W, k*k*C) tap-major; xs, when not null,
+// (steps, B, H, W, C) receives every step's input. dtype and device as
+// above. Returns the launch's error.
+extern "C" int dgtd_diffusion_nhwc_plane(const void* x, const void* w, void* xs, void* out, long long batch, int h,
+                                         int wd, int c, int k, int steps, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((dtype != 0 && dtype != 1) || steps < 1 || nhwc_route(h, wd, k, dtype == 0 ? 4 : 2) != NHWC_PLANE)
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || c <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_nhwc_plane_k<float>(x, w, xs, out, batch, h, wd, c, k, steps, device, s);
+  return (int)launch_nhwc_plane_k<__nv_bfloat16>(x, w, xs, out, batch, h, wd, c, k, steps, device, s);
+}
+
+// NHWC grid entry: all `steps` (>= 1) steps in one cooperative launch at an
+// odd k up to 11, every step's outputs stored in x's dtype and read back by
+// the next step after a grid barrier. x and out (B, H, W, C), w
+// (B, H, W, k*k*C) tap-major; xs, when not null, (steps, B, H, W, C)
+// receives every step's input, else scratch (min(steps - 1, 2) tensors
+// like x) holds the steps between; count: one zeroed-by-the-entry unsigned.
+extern "C" int dgtd_diffusion_nhwc_grid(const void* x, const void* w, void* xs, void* out, void* scratch,
+                                        unsigned* count, long long batch, int h, int wd, int c, int k, int steps,
+                                        int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((dtype != 0 && dtype != 1) || k < 1 || k % 2 == 0 || k > TILED_MAX_KERNEL || steps < 1 ||
+      (xs == nullptr && steps > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || c <= 0 || h <= 0 || wd <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_nhwc_grid_k<float>(x, w, xs, out, scratch, count, batch, h, wd, c, k, steps, device, s);
+  return (int)launch_nhwc_grid_k<__nv_bfloat16>(x, w, xs, out, scratch, count, batch, h, wd, c, k, steps, device, s);
+}
+
+// The NHWC route of an (h, wd) plane at kernel k and element size
+// elem_bytes, as the entries above decide it: 0 plane, 1 grid, 2 per-step;
+// the plane kernel's shared memory in bytes into *smem.
+extern "C" int dgtd_nhwc_route(int h, int wd, int k, int elem_bytes, long long* smem) {
+  *smem = h > 0 && wd > 0 && k > 0 && k % 2 == 1 && k <= TILED_MAX_KERNEL ? (long long)nhwc_plane_smem(h, wd, k, elem_bytes) : 0;
+  return nhwc_route(h, wd, k, elem_bytes);
+}
+
+// NHWC per-step entry: one step; x and out (B, H, W, C), w (B, H, W, k*k*C)
+// tap-major; dtype and device as above. Returns cudaGetLastError() after the
+// launch.
 extern "C" int dgtd_diffusion_step_nhwc(const void* x, const void* w, void* out, long long batch,
                                         int h, int wd, int c, int k, int dtype, int device,
                                         void* stream) {

@@ -3,11 +3,13 @@
 // loads. One copy, so that the forward and backward kernels take the same
 // floor at every sample.
 //
-// The forward and dLocation/dWeight kernels also share their plan and its
-// stage (ops/msda.py::msda_plan computes the plan; plan_smem and
-// plan_fits below check it): a block owns one (n, m) head and a chunk of
-// its queries, copies the head's rows of the levels the plan names into
-// shared memory, then gives each warp one (n, q, m) at a time. A lane loads
+// The three kernels also share the shape of their plan
+// (ops/msda.py::msda_plan computes it; plan_smem and plan_fits below check
+// it): a block owns one (n, m) head and a chunk of its queries, keeps the
+// head's rows of the levels the plan names in shared memory (the forward
+// and dLocation/dWeight copy value's rows there; dValue sums its gradient
+// rows there in fp32, so its plan counts 4 bytes an element), then gives
+// each warp one (n, q, m) at a time. A lane loads
 // `V` channels of a corner row at once: 16 bytes (4 fp32, 8 bf16) on the
 // vector route, one element on the scalar route; G lanes (the row's chunks
 // rounded up to a power of two, at most 32) cover a row, so a warp works on
@@ -169,6 +171,16 @@ __device__ __forceinline__ void load_chunk(const float* p, float (&v)[4]) {
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&v)[1]) {
   v[0] = __bfloat162float(*p);
 }
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 f = __bfloat1622float2(b[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&v)[8]) {
   const uint4 t = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&t);
@@ -194,14 +206,15 @@ __device__ __forceinline__ void load_or_zero(bool ok, const T* p, float (&v)[V])
 // corner (x0, y0), the fractions, and the level with the corners that lie
 // on it (bit 8 + c for corner c = 00, 01, 10, 11) packed in one int. The
 // lane that loaded the sample forms it once; the lanes that gather the
-// sample's rows take pix and lbits by shuffle.
+// sample's rows take pix and lbits by shuffle. Tab: any table with the
+// levels' h and w (LevelTab, or dValue's AccTab).
 struct Sample {
   int pix, lbits;
   float fx, fy;
 };
 
-template <typename T, typename Idx>
-__device__ __forceinline__ Sample locate(const LevelTab<T, Idx>& tab, int l, float x, float y) {
+template <typename Tab>
+__device__ __forceinline__ Sample locate(const Tab& tab, int l, float x, float y) {
   Sample s;
   const int h = tab.h[l], w = tab.w[l];
   const float xf = floorf(x), yf = floorf(y);

@@ -24,10 +24,16 @@ Unlike the JAX package, which keeps grids under 64 on fused XLA, the port
 launches kernels at every grid size on CUDA.
 
 NHWC is the counterpart of ``diffusion_pallas`` (x (B, H, W, C), weights
-(B, H, W, C, k²), tap-major inside): its forward kernel, another kernel in
-``csrc/diffusion_stencil.cu``, replaces the Pallas ``diffusion_step_pallas``;
-its backward moves g, the step inputs and w into plane layout and runs the
-plane backward kernels (the JAX backward is the VJP of the jnp stencil).
+(B, H, W, C, k²), tap-major inside): its forward kernels, in
+``csrc/diffusion_stencil.cu``, replace the Pallas ``diffusion_step_pallas``.
+The plane's shape and dtype choose them (``nhwc_route``): at an odd k up to
+11 all the steps of a call run in one launch, of the NHWC plane kernel
+where a block holds the whole plane and its w for one 16-byte channel group
+(the recipe's 12x12), else of the NHWC grid kernel (a cooperative launch
+with a grid barrier between steps); k >= 13 runs one launch of the
+per-step NHWC kernel a step. Its backward moves g, the step inputs and w
+into plane layout and runs the plane backward kernels (the JAX backward is
+the VJP of the jnp stencil).
 
 CPU tensors take the plain versions; a CUDA tensor gets the kernels or an
 exception, never a plain version.
@@ -37,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -61,8 +67,11 @@ TILED_BWD_LAUNCHES = 0
 #: no tile holds): one launch per step
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-#: the NHWC forward (one per step); its backward counts in the plane
-#: backward's counters
+#: the NHWC forward: the plane and grid kernels (one launch for all the
+#: steps of a call) and the per-step kernel (k >= 13: one launch a step);
+#: its backward counts in the plane backward's counters
+NHWC_PLANE_LAUNCHES = 0
+NHWC_GRID_LAUNCHES = 0
 NHWC_LAUNCHES = 0
 
 #: the fused kernels' limit, as ``csrc/stencil_common.cuh::fused_fits``
@@ -206,6 +215,27 @@ def tiled_plan(h: int, w: int, kernel: int, steps: int, dtype: torch.dtype,
     return plan
 
 
+def nhwc_plane_smem(h: int, w: int, kernel: int, dtype: torch.dtype) -> int:
+    """Shared memory of an NHWC plane-kernel block: the whole (H, W) plane
+    padded by r as two fp32 buffers and the plane's k² weight planes, for
+    one 16-byte channel group (4 fp32, 8 bf16 channels): a tiled plane tile
+    in ws mode (``tiled_smem``) times the group's channels."""
+    return tiled_smem(h, w, h, w, kernel, 1, dtype.itemsize, False, True) * (16 // dtype.itemsize)
+
+
+@functools.lru_cache(maxsize=4096)
+def nhwc_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> str:
+    """Which kernel runs the steps of a call on (H, W) NHWC planes on CUDA,
+    as ``csrc/diffusion_stencil.cu::nhwc_route`` decides it from shape and
+    dtype alone (not B, C or the step count): "plane" (a block holds the
+    plane and its w, all the steps in one launch) where its shared memory
+    fits a block, "grid" (all the steps in one cooperative launch) at every
+    other odd k up to TILED_MAX_KERNEL, else "per_step"."""
+    if h < 1 or w < 1 or kernel % 2 == 0 or not 1 <= kernel <= TILED_MAX_KERNEL:
+        return "per_step"
+    return "plane" if nhwc_plane_smem(h, w, kernel, dtype) <= FUSED_SMEM_LIMIT else "grid"
+
+
 def plane_route(h: int, w: int, kernel: int, dtype: torch.dtype, steps: int) -> str:
     """The route a call of ``steps`` steps takes: ``stencil_route``, but
     "per_step" for a tiled plane whose halo at this step count no tile
@@ -256,6 +286,13 @@ def _nhwc_fn():
     ])
 
 
+def _nhwc_plane_fn():
+    return _build.function("diffusion_stencil", "dgtd_diffusion_nhwc_plane", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ])
+
+
 _ROUTES = ("fused", "cluster", "per_step", "tiled")
 
 
@@ -284,6 +321,18 @@ def native_tiled_plan(h: int, w: int, kernel: int, steps: int, dtype: torch.dtyp
     th, tw, ws = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = fn(h, w, kernel, steps, dtype.itemsize, int(bwd), ctypes.byref(th), ctypes.byref(tw), ctypes.byref(ws))
     return ((th.value, tw.value, bool(ws.value)) if th.value else None), smem
+
+
+def native_nhwc_route(h: int, w: int, kernel: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """The NHWC route and the plane kernel's shared memory in bytes as the C
+    entries decide them, for holding ``nhwc_route`` and ``nhwc_plane_smem``
+    to them. Builds the library."""
+    fn = _build.function("diffusion_stencil", "dgtd_nhwc_route", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+    ])
+    smem = ctypes.c_longlong()
+    route = fn(h, w, kernel, dtype.itemsize, ctypes.byref(smem))
+    return ("plane", "grid", "per_step")[route], smem.value
 
 
 def cluster_occupancy(blocks: int, rows: int, w: int, backward: bool, device: int = 0) -> int:
@@ -637,59 +686,127 @@ def _check_nhwc(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> No
         raise ValueError("diffusion_nhwc needs contiguous x and w")
 
 
-def _nhwc_forward_steps(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> List[torch.Tensor]:
-    """Run the steps; returns [x, out_1, ..., out_steps]."""
-    global NHWC_LAUNCHES
+def _nhwc_forward_steps(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int,
+                        keep: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run the steps; returns (output, xs): xs holds every step's input as
+    one (steps, B, H, W, C) tensor when ``keep`` (saved for backward), else
+    it is None. The output is never x itself: 0 steps return a copy."""
     if x.device.type == "cpu" and w_tm.device.type == "cpu":
+        if steps == 0:
+            return x.clone(), x.new_empty((0, *x.shape)) if keep else None
         outs = [x]
         for _ in range(steps):
             outs.append(diffusion_step_nhwc_plain(outs[-1], w_tm, kernel))
-        return outs
+        return outs[-1], torch.stack(outs[:-1]) if keep else None
     _check_nhwc(x, w_tm, kernel, steps)
+    xs = torch.empty((steps, *x.shape), dtype=x.dtype, device=x.device) if keep else None
+    if steps == 0:
+        return x.clone(), xs
+    out = torch.empty_like(x)
+    route = nhwc_route(x.shape[1], x.shape[2], kernel, x.dtype)
+    if route == "plane":
+        _nhwc_plane_forward(x, w_tm, kernel, steps, xs, out)
+    elif route == "grid":
+        _nhwc_grid_forward(x, w_tm, kernel, steps, xs, out)
+    else:
+        _nhwc_per_step_forward(x, w_tm, kernel, steps, xs, out)
+    return out, xs
+
+
+def _nhwc_plane_forward(x, w_tm, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """All ``steps`` steps in one launch of the NHWC plane kernel into
+    ``out``, every step's input into ``xs`` unless it is None. A launch that
+    fails raises: nothing falls back."""
+    global NHWC_PLANE_LAUNCHES
+    b, h, wd, c = x.shape
+    dev, stream = _build.device_and_stream(x)
+    rc = _nhwc_plane_fn()(x.data_ptr(), w_tm.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+                          b, h, wd, c, kernel, steps, _build.DTYPE_CODES[x.dtype], dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"NHWC plane diffusion stencil launch failed: cudaError {rc}")
+    NHWC_PLANE_LAUNCHES += 1
+
+
+def _nhwc_grid_fn():
+    return _build.function("diffusion_stencil", "dgtd_diffusion_nhwc_grid", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ])
+
+
+def _nhwc_grid_forward(x, w_tm, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """All ``steps`` steps in one cooperative launch of the NHWC grid kernel
+    into ``out``, every step's input into ``xs`` unless it is None (then
+    the steps between go through scratch tensors like x)."""
+    global NHWC_GRID_LAUNCHES
+    b, h, wd, c = x.shape
+    dev, stream = _build.device_and_stream(x)
+    scratch = None if xs is not None or steps < 2 else torch.empty((min(steps - 1, 2), *x.shape), dtype=x.dtype,
+                                                                      device=x.device)
+    count = torch.empty(1, dtype=torch.int32, device=x.device)
+    rc = _nhwc_grid_fn()(x.data_ptr(), w_tm.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(), count.data_ptr(), b, h, wd, c, kernel, steps,
+                         _build.DTYPE_CODES[x.dtype], dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"NHWC grid diffusion stencil launch failed: cudaError {rc}")
+    NHWC_GRID_LAUNCHES += 1
+
+
+def _nhwc_per_step_forward(x, w_tm, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:
+    """One launch of the per-step NHWC kernel a step: the steps' inputs into
+    ``xs`` or, when it is None, into two ping-pong buffers; the last step
+    into ``out``."""
+    global NHWC_LAUNCHES
     fn = _nhwc_fn()
     b, h, wd, c = x.shape
     code = _build.DTYPE_CODES[x.dtype]
     dev, stream = _build.device_and_stream(x)
-    outs = [x]
-    for _ in range(steps):
-        dst = torch.empty_like(x)
-        rc = fn(outs[-1].data_ptr(), w_tm.data_ptr(), dst.data_ptr(), b, h, wd, c, kernel, code, dev, stream)
+    if xs is not None:
+        xs[0].copy_(x)
+    bufs = [torch.empty_like(x) for _ in range(min(steps - 1, 2))] if xs is None else None
+    src = x
+    for s in range(steps):
+        dst = out if s == steps - 1 else (bufs[s % 2] if xs is None else xs[s + 1])
+        rc = fn(src.data_ptr(), w_tm.data_ptr(), dst.data_ptr(), b, h, wd, c, kernel, code, dev, stream)
         if rc != 0:
             raise RuntimeError(f"NHWC diffusion stencil launch failed: cudaError {rc}")
         NHWC_LAUNCHES += 1
-        outs.append(dst)
-    return outs
+        src = dst
 
 
 def _nhwc_to_planes(t: torch.Tensor) -> torch.Tensor:
-    b, h, w, c = t.shape
-    return t.permute(0, 3, 1, 2).reshape(b * c, h, w)
+    """(..., B, H, W, C) -> (..., B·C, H, W)."""
+    *lead, b, h, w, c = t.shape
+    return t.movedim(-1, -3).reshape(*lead, b * c, h, w)
 
 
 class DiffusionNHWCFn(torch.autograd.Function):
     """``steps`` NHWC stencil steps on tap-major weights with their
-    backward: the plane backward (its kernels on CUDA, chosen by
-    ``stencil_route``; plain on the CPU) on g, the step inputs and w moved into
-    plane layout; dw returns tap-major."""
+    backward: forward saves w and every step's input (one
+    (steps, B, H, W, C) tensor); backward runs the plane backward (its
+    kernels on CUDA, chosen by ``plane_route``; plain on the CPU) on g, the
+    step inputs and w moved into plane layout; dw returns tap-major."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, x, w_tm, kernel, steps):
-        outs = _nhwc_forward_steps(x, w_tm, kernel, steps)
+        keep = any(ctx.needs_input_grad[:2])
+        out, xs = _nhwc_forward_steps(x, w_tm, kernel, steps, keep)
         ctx.kernel = kernel
-        if any(ctx.needs_input_grad[:2]):
-            ctx.save_for_backward(w_tm, *outs[:-1])
-        return outs[-1].clone() if outs[-1] is x else outs[-1]
+        if keep:
+            ctx.save_for_backward(w_tm, xs)
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        w_tm, *xs = ctx.saved_tensors
+        w_tm, xs = ctx.saved_tensors
         b, h, w, c = g.shape
         k = ctx.kernel
         kk = k * k
         wp = w_tm.view(b, h, w, kk, c).permute(0, 4, 3, 1, 2).reshape(b * c, kk, h, w)
-        dxp, dwp = diffusion_planes_bwd(_nhwc_to_planes(g), [_nhwc_to_planes(t) for t in xs], wp, k)
+        dxp, dwp = diffusion_planes_bwd(_nhwc_to_planes(g.contiguous()), _nhwc_to_planes(xs), wp, k)
         dx = dxp.view(b, c, h, w).permute(0, 2, 3, 1).contiguous()
         dw = dwp.view(b, c, kk, h, w).permute(0, 3, 4, 2, 1).reshape(b, h, w, kk * c)
         return dx, dw, None, None
@@ -697,11 +814,15 @@ class DiffusionNHWCFn(torch.autograd.Function):
 
 def diffusion_nhwc_tap_major(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:
     """``steps`` NHWC stencil steps on tap-major weights (B, H, W, k²·C),
-    with their gradient. On CUDA each step is one launch of the NHWC forward
-    kernel; the backward is the plane backward's (one fused, cluster or
-    tiled launch where ``plane_route`` says so). On the CPU the plain versions
-    run."""
-    return DiffusionNHWCFn.apply(x, w_tm, kernel, steps)
+    with their gradient. On CUDA the steps of a call are one launch of the
+    NHWC plane or grid kernel, as ``nhwc_route`` says, else (k >= 13) one
+    launch of the per-step NHWC kernel a step; the backward is the plane backward's
+    (one fused, cluster or tiled launch where ``plane_route`` says so). On
+    the CPU the plain versions run. Without a gradient to record the
+    forward runs without the autograd Function and writes no step inputs."""
+    if torch.is_grad_enabled() and (x.requires_grad or w_tm.requires_grad):
+        return DiffusionNHWCFn.apply(x, w_tm, kernel, steps)
+    return _nhwc_forward_steps(x, w_tm, kernel, steps, keep=False)[0]
 
 
 def diffusion_nhwc(x: torch.Tensor, norm_weight: torch.Tensor, kernel: int, steps: int) -> torch.Tensor:

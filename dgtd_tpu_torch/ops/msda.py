@@ -22,11 +22,13 @@ contribute zero. ``loc`` and ``aw`` are upcast to fp32 at the op's boundary
 and the gradients cast back to the caller's dtypes. CPU tensors take the
 plain versions; a CUDA tensor gets the kernels or an exception.
 
-The forward and dLocation/dWeight kernels run on one plan per call,
-:func:`msda_plan`, computed here from the shapes and passed to the C
-functions, which check it: the levels a block stages in shared memory, the
-channels a lane loads at once, 32- or 64-bit offsets, and the query chunks
-of a head.
+Each kernel runs on a plan per call, :func:`msda_plan`, computed here from
+the shapes and passed to the C functions, which check it: the levels a
+block keeps in shared memory, the channels a lane loads at once, 32- or
+64-bit offsets, and the query chunks of a head. The forward and
+dLocation/dWeight kernels share one plan (value's rows staged in its
+dtype); dValue has its own (``accumulate=True``: fp32 gradient rows summed
+in shared memory, so a bf16 call stages no more levels than an fp32 one).
 """
 
 from __future__ import annotations
@@ -55,8 +57,7 @@ _COMMON_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, 
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-#: the plan's arguments of the forward and dLocation/dWeight C functions:
-#: mask, vec, wide, chunks
+#: the plan's arguments of the three C functions: mask, vec, wide, chunks
 _PLAN_ARGS = [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
@@ -65,7 +66,7 @@ def _fwd_fn():
 
 
 def _dvalue_fn():
-    return _build.function("msda_bwd", "dgtd_msda_dvalue", [ctypes.c_void_p] * 4 + _COMMON_ARGS)
+    return _build.function("msda_bwd", "dgtd_msda_dvalue", [ctypes.c_void_p] * 4 + _COMMON_ARGS + _PLAN_ARGS)
 
 
 def _dlocw_fn():
@@ -164,14 +165,20 @@ INT32_MAX = 2 ** 31 - 1
 
 
 class Plan(NamedTuple):
-    """How the forward and dLocation/dWeight kernels run one call.
+    """How a kernel runs one call.
 
-    ``staged``: the levels a block copies into shared memory (its head's
-    rows of them), smallest first while they fit ``SMEM_MAX``; the kernels
-    gather the other levels' corners from L2. ``smem_bytes``: their size.
+    ``staged``: the levels a block keeps in shared memory (its head's rows
+    of them), smallest first while they fit ``SMEM_MAX``: value's rows,
+    which the forward and dLocation/dWeight kernels gather there, or
+    dValue's fp32 gradient rows, which it sums there; the other levels'
+    corners go through L2. ``smem_bytes``: their size.
     ``vec``: channels a lane loads at once, 16 bytes (4 fp32, 8 bf16) where
     a head row is a multiple of 16 bytes and the tensors are 16-byte
-    aligned, else 1. ``wide``: 64-bit offsets within a block, where a head's
+    aligned, else 1; dValue's: channels a lane adds at once into the fp32
+    gradient, 4 (16 bytes; from 16 bytes of fp32 g or 8 of bf16 g) where
+    D is a multiple of 4 and g and the gradient are 16-byte aligned, else
+    1 (a bf16 lane of 8 channels spilled at the 64 registers a thread of a
+    1024-thread block has). ``wide``: 64-bit offsets within a block, where a head's
     value or a chunk's queries reach past 2^31 elements. ``chunks``: query
     chunks per (n, m) head, a block each: with a stage, one wave of blocks
     over the card's SMs; without, one query a warp."""
@@ -184,20 +191,23 @@ class Plan(NamedTuple):
 
 
 def msda_plan(shapes, n: int, lq: int, m: int, d: int, n_points: int, dtype: torch.dtype,
-              aligned: bool = True, sm_count: int = SM_COUNT) -> Plan:
-    """The plan of a call from its shapes alone (no tensor is read).
-    ``aligned``: every tensor the kernel loads with 16-byte loads starts on
-    a 16-byte boundary. Raises for more than ``MAX_LEVELS`` levels."""
-    return _plan(_static_shapes(shapes), n, lq, m, d, n_points, dtype, aligned, sm_count)
+              aligned: bool = True, sm_count: int = SM_COUNT, accumulate: bool = False) -> Plan:
+    """The plan of a call from its shapes alone (no tensor is read): the
+    forward's and dLocation/dWeight's, or with ``accumulate`` dValue's,
+    whose staged rows are fp32 accumulators whatever ``dtype`` (g's) is.
+    ``aligned``: every tensor the kernel loads or stores with 16-byte
+    accesses starts on a 16-byte boundary. Raises for more than
+    ``MAX_LEVELS`` levels."""
+    return _plan(_static_shapes(shapes), n, lq, m, d, n_points, dtype, aligned, sm_count, accumulate)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(shapes: Shapes, n: int, lq: int, m: int, d: int, n_points: int, dtype: torch.dtype,
-          aligned: bool, sm_count: int) -> Plan:
+          aligned: bool, sm_count: int, accumulate: bool) -> Plan:
     if not 1 <= len(shapes) <= MAX_LEVELS:
         raise ValueError(f"ms_deform_attn takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
     item = torch.empty((), dtype=dtype).element_size()
-    row = d * item
+    row = d * (4 if accumulate else item)  # a staged row in shared memory
     staged, used = [], 0
     for lid in sorted(range(len(shapes)), key=lambda l: (shapes[l][0] * shapes[l][1], l)):
         size = shapes[lid][0] * shapes[lid][1] * row
@@ -206,7 +216,10 @@ def _plan(shapes: Shapes, n: int, lq: int, m: int, d: int, n_points: int, dtype:
         staged.append(lid)
         used += size
     staged.sort()
-    vec = 16 // item if aligned and row % 16 == 0 else 1
+    if accumulate:  # a lane adds 4 channels at once: 16 bytes of the fp32 gradient
+        vec = 4 if aligned and d % 4 == 0 else 1
+    else:
+        vec = 16 // item if aligned and d * item % 16 == 0 else 1
     s = sum(h * w for h, w in shapes)
     samples = len(shapes) * n_points
     wide = max(s * m * d, lq * m * samples * 2, lq * m * d) > INT32_MAX
@@ -268,13 +281,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _call_plan(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor, *loaded: torch.Tensor) -> Plan:
+def _call_plan(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor, *loaded: torch.Tensor,
+               accumulate: bool = False) -> Plan:
     """The plan for these tensors; ``loaded``: those read or written with
-    16-byte loads besides value (the output, or g)."""
+    16-byte accesses besides value (the output, or g), or with
+    ``accumulate`` (dValue's plan, which reads no value) instead of value
+    (g and dvalue)."""
     n, _, m, d = value.shape
     dev = value.device.index if value.device.index is not None else torch.cuda.current_device()
-    return msda_plan(shapes, n, loc.shape[1], m, d, loc.shape[4], value.dtype, aligned16(value, *loaded),
-                     _sm_count(dev))
+    aligned = aligned16(*loaded) if accumulate else aligned16(value, *loaded)
+    return msda_plan(shapes, n, loc.shape[1], m, d, loc.shape[4], value.dtype, aligned, _sm_count(dev),
+                     accumulate)
 
 
 def _plan_args(plan: Plan):
@@ -309,18 +326,26 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes, loc: torch.Tensor, a
 def ms_deform_attn_dvalue(g: torch.Tensor, value: torch.Tensor, spatial_shapes, loc: torch.Tensor,
                           aw: torch.Tensor) -> torch.Tensor:
     """dL/dvalue (N, S, M, D) in fp32 for the output gradient g (in value's
-    dtype). On CUDA one launch of the dValue kernel into a zeroed fp32
-    buffer; on the CPU the plain version."""
+    dtype). On CUDA one launch of the dValue kernel on :func:`msda_plan`'s
+    dValue plan into a zeroed fp32 buffer; on the CPU the plain version."""
     global DVALUE_LAUNCHES
     shapes = _static_shapes(spatial_shapes)
     if _on_cpu(g, value, loc, aw):
         return ms_deform_attn_dvalue_plain(g, value, shapes, loc, aw)
     _check(value, shapes, loc, aw, g)
     dv = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    rc = _dvalue_fn()(g.data_ptr(), loc.data_ptr(), aw.data_ptr(), dv.data_ptr(), *_launch_args(value, shapes, loc))
-    _raise_on(rc, "MSDA dValue")
+    _dvalue_launch(g, value, shapes, loc, aw, dv, _call_plan(value, shapes, loc, g, dv, accumulate=True))
     DVALUE_LAUNCHES += 1
     return dv
+
+
+def _dvalue_launch(g, value, shapes: Shapes, loc, aw, dv: torch.Tensor, plan: Plan) -> None:
+    """One launch of the dValue kernel on ``plan`` into the zeroed ``dv``
+    (``tools/profile_msda.py`` also times it on a plan that stages
+    nothing)."""
+    rc = _dvalue_fn()(g.data_ptr(), loc.data_ptr(), aw.data_ptr(), dv.data_ptr(), *_launch_args(value, shapes, loc),
+                      *_plan_args(plan))
+    _raise_on(rc, "MSDA dValue")
 
 
 def ms_deform_attn_dlocw(g: torch.Tensor, value: torch.Tensor, spatial_shapes, loc: torch.Tensor,

@@ -15,8 +15,13 @@ For each set it prints the bytes of in-range corner rows that the gather
 moves, split into the levels that the kernels' plan (``ops/msda.py::msda_plan``)
 stages in shared memory and the others, which come through L2; the bytes
 the blocks stage; and the mean number of distinct corner rows per
-(n, q, m). It also times the reference's per-level ``F.grid_sample``
-composition on the same fp32 tensors, a yardstick only.
+(n, q, m). For dValue it prints its own plan (fp32 accumulator rows) and
+its adds: element adds into shared memory on the staged levels, adds into
+the gradient through L2 on the others (16 bytes each on the vector route),
+and the adds of the blocks' flush; and it times dValue again on a plan
+that stages nothing (every add through L2; the zeroing of its buffer is
+in the CUDA-event time, not in the device time). It also times the reference's per-level
+``F.grid_sample`` composition on the same fp32 tensors, a yardstick only.
 
     python -m dgtd_tpu_torch.tools.profile_msda [--iters 100]
 """
@@ -37,7 +42,7 @@ from ..ops import msda as A
 ENC_SHAPES = ((64, 64), (32, 32), (16, 16), (8, 8))
 ENC_N, ENC_D_MODEL, ENC_HEADS, ENC_POINTS = 2, 256, 8, 4
 ENC_S = sum(h * w for h, w in ENC_SHAPES)
-KERNELS = ("msda_fwd", "msda_dvalue", "msda_dlocw")
+KERNELS = ("msda_fwd", "msda_dvalue", "msda_dlocw", "msda_dvalue_unstaged")
 
 
 def encoder_grid_refs(shapes, n: int) -> torch.Tensor:
@@ -100,6 +105,47 @@ def gather_counts(loc: torch.Tensor, shapes, d: int, itemsize: int, staged) -> d
     return {"corner_bytes_staged": on_chip * row_bytes,
             "corner_bytes_unstaged": (int(per_level.sum()) - on_chip) * row_bytes,
             "distinct_rows_per_query_head": float(distinct.float().mean())}
+
+
+def corner_weights(loc: torch.Tensor, shapes) -> torch.Tensor:
+    """(N, Lq, M, L, P, 4) each bilinear corner's x weight * y weight, the
+    coordinates rounded as the kernels round them; corner order as
+    :func:`corner_rows`."""
+    out = []
+    for lid, (h, w) in enumerate(shapes):
+        x = loc[:, :, :, lid, :, 0] * w - 0.5
+        y = loc[:, :, :, lid, :, 1] * h - 0.5
+        fx, fy = x - torch.floor(x), y - torch.floor(y)
+        out.append(torch.stack([(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy], -1))
+    return torch.stack(out, 3)
+
+
+def dvalue_counts(loc: torch.Tensor, aw: torch.Tensor, shapes, d: int, plan) -> dict:
+    """dValue's adds on these locations under its plan (``msda_plan(...,
+    accumulate=True)``): element adds into shared memory (the in-range
+    corners on the staged levels, d each); adds into the gradient through
+    L2 (the in-range corners on the other levels, d/4 16-byte adds each on
+    the vector route, else d element adds); and the flush's adds through L2
+    (each block's distinct staged rows with a nonzero corner weight, in
+    16-byte or element adds: the kernel skips the chunks no sample
+    touched). A block is one (n, m) head and a chunk of its queries."""
+    n, lq, m = loc.shape[:3]
+    rows = corner_rows(loc, shapes)
+    live = (corner_weights(loc, shapes) != 0) & (aw[..., None] != 0) & (rows >= 0)
+    staged = torch.zeros(len(shapes), dtype=torch.bool, device=loc.device)
+    staged[list(plan.staged)] = True
+    on_chip = staged[None, None, None, :, None, None].expand_as(rows)
+    per_row = d // 4 if plan.vec > 1 else d
+    inside = rows >= 0
+    per = -(-lq // plan.chunks)
+    block = ((torch.arange(n, device=loc.device)[:, None, None] * m + torch.arange(m, device=loc.device))
+             * plan.chunks + (torch.arange(lq, device=loc.device) // per)[None, :, None])  # (N, Lq, M)
+    s_len = sum(h * w for h, w in shapes)
+    keys = (block[:, :, :, None, None, None].expand_as(rows) * s_len + rows)[live & on_chip]
+    return {"shared_adds": int((inside & on_chip).sum()) * d,
+            "global_adds": int((inside & ~on_chip).sum()) * per_row,
+            "flush_adds": int(torch.unique(keys).numel()) * per_row,
+            "global_add_bytes": 16 if plan.vec > 1 else 4}
 
 
 def grid_sample_composition(value, shapes, loc, aw):
@@ -168,15 +214,23 @@ def profile_set(v, loc, aw, g, dtype, iters: int) -> dict:
     v, g = v.to(dtype), g.to(dtype)
     n, s, m, d = v.shape
     plan = A.msda_plan(ENC_SHAPES, n, loc.shape[1], m, d, ENC_POINTS, dtype)
+    dv_plan = A.msda_plan(ENC_SHAPES, n, loc.shape[1], m, d, ENC_POINTS, dtype, accumulate=True)
     row = {"plan": plan._asdict(), **gather_counts(loc, ENC_SHAPES, d, v.element_size(), plan.staged),
-           "staging_bytes": n * m * plan.chunks * plan.smem_bytes}
+           "staging_bytes": n * m * plan.chunks * plan.smem_bytes,
+           "dvalue_plan": dv_plan._asdict(), "dvalue_adds": dvalue_counts(loc, aw, ENC_SHAPES, d, dv_plan)}
     calls = {
         "msda_fwd": lambda: A.ms_deform_attn_fwd(v, ENC_SHAPES, loc, aw),
         "msda_dvalue": lambda: A.ms_deform_attn_dvalue(g, v, ENC_SHAPES, loc, aw),
         "msda_dlocw": lambda: A.ms_deform_attn_dlocw(g, v, ENC_SHAPES, loc, aw),
     }
+    # dValue on a plan that stages nothing: every add through L2, as 16-byte
+    # reductions (what its shared-memory accumulators save)
+    unstaged = dv_plan._replace(staged=(), smem_bytes=0, chunks=-(-loc.shape[1] // (A.THREADS // 32)))
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    calls["msda_dvalue_unstaged"] = lambda: A._dvalue_launch(g, v, ENC_SHAPES, loc, aw, dv.zero_(), unstaged)
     for name, fn in calls.items():
-        dev, launches = device_ms(fn, f"{name}_kernel", iters)
+        dev, launches = device_ms(fn, "msda_dvalue_kernel" if name == "msda_dvalue_unstaged" else f"{name}_kernel",
+                                  iters)
         row[name] = {"ms": cuda_ms(fn, iters), "device_ms": dev, "profiled_launches": launches}
     if dtype == torch.float32:  # grid_sample takes its grid in the input's dtype
         row["grid_sample_ms"] = cuda_ms(lambda: grid_sample_composition(v, ENC_SHAPES, loc, aw), 10, warmup=2)
@@ -206,6 +260,12 @@ def main(argv=None) -> dict:
                   f"({row['corner_bytes_staged'] / 1e6:.1f} MB staged levels, {row['corner_bytes_unstaged'] / 1e6:.1f} MB "
                   f"the others), staging {row['staging_bytes'] / 1e6:.1f} MB, "
                   f"{row['distinct_rows_per_query_head']:.2f} distinct rows per (n, q, m) [{card}]")
+            adds = row["dvalue_adds"]
+            print(f"  dValue plan: staged levels {row['dvalue_plan']['staged']} (fp32 rows, "
+                  f"{row['dvalue_plan']['smem_bytes']} bytes), {row['dvalue_plan']['vec']} channels a load, "
+                  f"{row['dvalue_plan']['chunks']} chunks a head; adds: {adds['shared_adds'] / 1e6:.2f}M into shared "
+                  f"memory, {adds['global_adds'] / 1e6:.2f}M through L2 ({adds['global_add_bytes']} bytes each), "
+                  f"flush {adds['flush_adds'] / 1e6:.3f}M")
             for name in KERNELS:
                 dev_ms = row[name]["device_ms"]
                 print(f"  {name}: {row[name]['ms']:.5f} ms, device {dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms "

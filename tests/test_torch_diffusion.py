@@ -215,13 +215,15 @@ def test_to_tap_major_matches_jax():
     assert tm[0, 2, 3, 3 * 1 + 2] == float(nw[0, 2, 3, 2, 1])
 
 
-def test_nhwc_step_matches_pallas_step():
-    """One NHWC step on tap-major weights vs the Pallas step itself."""
+@pytest.mark.parametrize("c", [6, 5])
+def test_nhwc_step_matches_pallas_step(c):
+    """One NHWC step on tap-major weights vs the Pallas step itself; C = 5
+    leaves the CUDA kernel's channel group a ragged tail."""
     from dgtd_tpu.ops.diffusion_pallas import diffusion_step_pallas
 
     rng = np.random.RandomState(4)
-    x, nw = _nhwc_inputs(rng, 2, 12, 12, 6, 7)
-    wtm = np.ascontiguousarray(nw.transpose(0, 1, 2, 4, 3).reshape(2, 12, 12, 49 * 6))
+    x, nw = _nhwc_inputs(rng, 2, 12, 12, c, 7)
+    wtm = np.ascontiguousarray(nw.transpose(0, 1, 2, 4, 3).reshape(2, 12, 12, 49 * c))
     ref = np.asarray(diffusion_step_pallas(jnp.asarray(x), jnp.asarray(wtm), 7, True))
     out = D.diffusion_nhwc_tap_major(torch.from_numpy(x), torch.from_numpy(wtm), 7, 1)
     np.testing.assert_allclose(out.numpy(), ref, **STENCIL_TOL)

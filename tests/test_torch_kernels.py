@@ -1,8 +1,9 @@
 """The port's CUDA stencil and LayerNorm wrappers: dispatch, refusals, the
 route predicate (fused, cluster, tiled, per-step) and the cluster kernels'
-strip split, and (on a card) the plane stencil's fused, cluster, tiled and
-per-step kernels forward and backward, the NHWC stencil kernel and the LayerNorm
-kernel against their plain versions, and the val pass's per-image metric
+strip split, the NHWC kernels' route and plan, and (on a card) the plane
+stencil's fused, cluster, tiled and per-step kernels forward and backward,
+the NHWC tiled and per-step kernels and the LayerNorm kernel against their
+plain versions, and the val pass's per-image metric
 statistics (``metrics/device.py::batch_statistics``, plain PyTorch) on the
 card against the CPU.
 
@@ -610,20 +611,72 @@ def test_nhwc_plain_matches_plane_plain():
     torch.testing.assert_close(out, ref, **FP32_TOL)
 
 
+def _nhwc_launches():
+    """the NHWC plane, grid and per-step kernels' counters"""
+    return D.NHWC_PLANE_LAUNCHES, D.NHWC_GRID_LAUNCHES, D.NHWC_LAUNCHES
+
+
 def test_nhwc_cpu_takes_plain_and_counts_no_launch():
     x, nw = _nhwc(1, 2, 5, 6, 4, 3)
-    before = (D.NHWC_LAUNCHES, *_plane_launches())
+    before = (*_nhwc_launches(), *_plane_launches())
     xa, wa = x.clone().requires_grad_(), nw.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), nw.clone().requires_grad_()
     out = D.diffusion_nhwc(xa, wa, 3, 3)
     g = torch.rand(out.shape, generator=torch.Generator().manual_seed(2))
     out.backward(g)
-    assert (D.NHWC_LAUNCHES, *_plane_launches()) == before
+    assert (*_nhwc_launches(), *_plane_launches()) == before
     ref = D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), 3, 3)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     ref.backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("steps", [0, 1, 4])
+def test_nhwc_cpu_forward_saves_the_plain_chains_step_inputs(dtype, steps):
+    x, nw = _nhwc(4, 2, 7, 9, 5, 3)
+    x, wt = x.to(dtype), D.to_tap_major(nw).to(dtype)
+    before = _nhwc_launches()
+    out, xs = D._nhwc_forward_steps(x, wt, 3, steps, keep=True)
+    assert _nhwc_launches() == before
+    assert xs.shape == (steps, *x.shape) and xs.dtype == dtype and out is not x
+    chain = [x]
+    for _ in range(steps):
+        chain.append(D.diffusion_step_nhwc_plain(chain[-1], wt, 3))
+    for s in range(steps):
+        torch.testing.assert_close(xs[s], chain[s], rtol=0, atol=0)
+    torch.testing.assert_close(out, chain[-1], rtol=0, atol=0)
+    assert D._nhwc_forward_steps(x, wt, 3, steps, keep=False)[1] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,k,route", [
+    ((12, 12), 7, "plane"), ((12, 12), 1, "plane"), ((12, 12), 9, "plane"), ((12, 12), 11, "grid"),
+    ((96, 96), 7, "grid"), ((512, 512), 7, "grid"), ((64, 64), 3, "grid"), ((23, 23), 1, "plane"),
+    ((12, 12), 13, "per_step"), ((96, 96), 13, "per_step"), ((1, 1), 15, "per_step"),
+])
+def test_nhwc_route(hw, k, route, dtype):
+    """The NHWC kernels' route from shape and dtype alone: the recipe's
+    12x12 is one plane-kernel block with its w on chip; 96² and 512² take
+    the grid kernel; k = 13 the per-step kernel."""
+    assert D.nhwc_route(*hw, k, dtype) == route
+    if route == "plane":
+        assert D.nhwc_plane_smem(*hw, k, dtype) <= D.FUSED_SMEM_LIMIT
+
+
+def test_nhwc_plane_smem_counts_the_group_and_the_padded_plane():
+    # 12x12 at k = 7: two fp32 buffers of 18x18 pixels and 49 taps of w a
+    # pixel, for 8 bf16 (16 bytes) or 4 fp32 channels
+    assert D.nhwc_plane_smem(12, 12, 7, torch.bfloat16) == 2 * 4 * 18 * 18 * 8 + 144 * 49 * 16
+    assert D.nhwc_plane_smem(12, 12, 7, torch.float32) == 2 * 4 * 18 * 18 * 4 + 144 * 49 * 16
+
+
+def test_nhwc_route_depends_on_dtype():
+    # a 13x20 plane's w at k = 7 fits beside the buffers in fp32 (4
+    # channels a block) but not in bf16 (8 channels)
+    assert D.nhwc_route(13, 20, 7, torch.float32) == "plane"
+    assert D.nhwc_route(13, 20, 7, torch.bfloat16) == "grid"
 
 
 def test_nhwc_gradcheck_float64():
@@ -641,34 +694,96 @@ def test_nhwc_non_cuda_device_raises():
         D.diffusion_nhwc_tap_major(x, w, 3, 2)
 
 
+def _nhwc_expected(before, h, w, k, dtype, steps):
+    """The NHWC counters after one call: one plane or grid launch for all
+    the steps, or one per-step launch a step."""
+    slot = {"plane": 0, "grid": 1, "per_step": 2}[D.nhwc_route(h, w, k, dtype)]
+    add = [0, 0, 0]
+    add[slot] = steps if slot == 2 else int(steps > 0)
+    return tuple(b + a for b, a in zip(before, add))
+
+
+NHWC_GRIDS = [(12, 12), (13, 20), (23, 23), (64, 64), (96, 96)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3, 7])
-@pytest.mark.parametrize("hw", [(12, 12), (13, 20), (64, 64)])
-def test_cuda_nhwc_kernel_matches_plain(cuda, k, hw):
-    x, nw = _nhwc(k, 8, *hw, 24, k, cuda)
+@pytest.mark.parametrize("c", [1, 5, 24, 64])
+@pytest.mark.parametrize("steps", [0, 1, 2, 4])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11, 13])
+@pytest.mark.parametrize("hw", NHWC_GRIDS)
+def test_cuda_nhwc_kernel_matches_plain(cuda, k, hw, steps, c):
+    """Every grid, k, step count and channel count (C = 1 and 5 leave the
+    channel group a masked tail and take the element route) in fp32 and
+    bf16, with the launches of the route the shape names."""
+    x, nw = _nhwc(k * 100 + c, 2, *hw, c, k, cuda)
     wt = D.to_tap_major(nw)
-    before = D.NHWC_LAUNCHES
-    out = D.diffusion_nhwc_tap_major(x, wt, k, 4)
-    torch.cuda.synchronize()
-    assert D.NHWC_LAUNCHES == before + 4
-    torch.testing.assert_close(out, D.diffusion_nhwc_plain(x, wt, k, 4), **FP32_TOL)
-    outb = D.diffusion_nhwc_tap_major(x.bfloat16(), wt.bfloat16(), k, 4)
-    assert outb.dtype == torch.bfloat16
-    torch.testing.assert_close(outb.float(), D.diffusion_nhwc_plain(x.bfloat16().float(), wt.bfloat16().float(), k, 4),
-                               rtol=0, atol=BF16_ATOL)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dt), wt.to(dt)
+        before = _nhwc_launches()
+        out = D.diffusion_nhwc_tap_major(xd, wd, k, steps)
+        torch.cuda.synchronize()
+        assert _nhwc_launches() == _nhwc_expected(before, *hw, k, dt, steps)
+        assert out.dtype == dt and out.shape == x.shape
+        ref = D.diffusion_nhwc_plain(xd.float(), wd.float(), k, steps)
+        tol = FP32_TOL if dt == torch.float32 else dict(rtol=0, atol=bf16_atol(steps))
+        torch.testing.assert_close(out.float(), ref, **tol)
 
 
 @pytest.mark.cuda
-def test_cuda_nhwc_gradients_go_through_both_kernels(cuda):
-    x, nw = _nhwc(5, 8, 12, 12, 24, 7, cuda)
-    g = torch.rand(8, 12, 12, 24, generator=torch.Generator().manual_seed(6)).to(cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,k", [((12, 12), 7), ((96, 96), 7), ((23, 23), 13)])
+def test_cuda_nhwc_forward_saves_step_inputs(cuda, hw, k, dtype):
+    """Each route (plane, grid, per-step) writes the chain's step inputs."""
+    x, nw = _nhwc(11, 2, *hw, 24, k, cuda)
+    x, wt = x.to(dtype), D.to_tap_major(nw).to(dtype)
+    out, xs = D._nhwc_forward_steps(x, wt, k, 4, keep=True)
+    torch.cuda.synchronize()
+    assert xs.shape == (4, *x.shape) and torch.equal(xs[0], x)
+    tol = FP32_TOL if dtype == torch.float32 else dict(rtol=0, atol=bf16_atol(4))
+    for s in range(1, 4):
+        torch.testing.assert_close(xs[s].float(), D.diffusion_nhwc_plain(x.float(), wt.float(), k, s), **tol)
+    out2, none = D._nhwc_forward_steps(x, wt, k, 4, keep=False)
+    assert none is None and torch.equal(out, out2)
+
+
+@pytest.mark.cuda
+def test_cuda_nhwc_route_is_the_c_entries_route(cuda):
+    for dt in (torch.float32, torch.bfloat16):
+        for hw in NHWC_GRIDS + [(512, 512), (1, 700), (300, 2), (40, 33), (12, 30)]:
+            for k in (1, 3, 5, 7, 9, 11, 13):
+                route, smem = D.native_nhwc_route(*hw, k, dt)
+                assert route == D.nhwc_route(*hw, k, dt), (hw, k, dt)
+                if route != "per_step":
+                    assert smem == D.nhwc_plane_smem(*hw, k, dt)
+
+
+@pytest.mark.cuda
+def test_cuda_nhwc_entries_refuse_planes_of_another_route(cuda):
+    x, nw = _nhwc(12, 1, 96, 96, 8, 7, cuda)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        D._nhwc_plane_forward(x, D.to_tap_major(nw), 7, 4, None, torch.empty_like(x))
+    x, nw = _nhwc(13, 1, 12, 12, 8, 13, cuda)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        D._nhwc_grid_forward(x, D.to_tap_major(nw), 13, 4, None, torch.empty_like(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(12, 12), (96, 96)])
+def test_cuda_nhwc_gradients_go_through_both_kernels(cuda, hw):
+    x, nw = _nhwc(5, 2 if hw == (96, 96) else 8, *hw, 24, 7, cuda)
+    g = torch.rand(x.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
     xa, wa = x.clone().requires_grad_(), nw.clone().requires_grad_()
     xb, wb = x.clone().requires_grad_(), nw.clone().requires_grad_()
-    before = (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.BWD_LAUNCHES)
+    before = (*_nhwc_launches(), *_plane_launches())
     D.diffusion_nhwc(xa, wa, 7, 4).backward(g)
     torch.cuda.synchronize()
-    # 4 NHWC forward launches; the 12x12 planes take the fused backward
-    assert (D.NHWC_LAUNCHES, D.FUSED_BWD_LAUNCHES, D.BWD_LAUNCHES) == (before[0] + 4, before[1] + 1, before[2])
+    # one NHWC launch forward (the plane kernel at 12x12, the grid kernel at
+    # 96x96); the planes take the plane backward of their route (fused at
+    # 12x12, tiled at 96x96), one launch
+    route = D.plane_route(*hw, 7, torch.float32, 4)
+    assert route == ("fused" if hw == (12, 12) else "tiled")
+    assert (*_nhwc_launches(), *_plane_launches()) == (
+        *_nhwc_expected(before[:3], *hw, 7, torch.float32, 4), *_expected_launches(before[3:], route, 4, bwd=True))
     D.diffusion_nhwc_plain(xb, D.to_tap_major(wb), 7, 4).backward(g)
     torch.testing.assert_close(xa.grad, xb.grad, **FP32_TOL)
     torch.testing.assert_close(wa.grad, wb.grad, **FP32_TOL)

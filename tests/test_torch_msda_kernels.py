@@ -1,6 +1,8 @@
 """The port's MSDA wrappers: plain versions against the ``grid_sample``
 oracle, dispatch and refusals on the CPU, and (on a card) the forward,
-dValue and dLocation/dWeight kernels against their plain versions.
+dValue and dLocation/dWeight kernels against their plain versions on
+every route of their plans (dValue's own plan of fp32 accumulators among
+them), and plans that do not fit refused by the C side.
 
 This file imports neither JAX nor ``dgtd_tpu``, so it also runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest
@@ -242,27 +244,31 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# (channels, shapes, dtype, the plan's staged levels and vector width): every
-# route of the forward and dLocation/dWeight kernels
+# (channels, shapes, dtype, the plan's staged levels and vector width, and
+# the levels dValue's plan stages as fp32 accumulators): every route of the
+# three kernels
 ROUTES = {
-    "all_staged_vector": (32, SHAPES4, torch.float32, (0, 1, 2, 3), 4),
-    "all_staged_vector_bf16": (32, SHAPES4, torch.bfloat16, (0, 1, 2, 3), 8),
-    "all_staged_scalar": (30, SHAPES4, torch.float32, (0, 1, 2, 3), 1),
-    "some_staged": (64, ((32, 32), (8, 8), (4, 4)), torch.float32, (1, 2), 4),
-    "some_staged_scalar_bf16": (71, ((40, 40), (8, 8), (4, 4)), torch.bfloat16, (1, 2), 1),
-    "none_staged": (3096, ((6, 4), (5, 4)), torch.float32, (), 4),
-    "none_staged_bf16": (3096, ((8, 6), (7, 6)), torch.bfloat16, (), 8),
+    "all_staged_vector": (32, SHAPES4, torch.float32, (0, 1, 2, 3), 4, (0, 1, 2, 3)),
+    "all_staged_vector_bf16": (32, SHAPES4, torch.bfloat16, (0, 1, 2, 3), 8, (0, 1, 2, 3)),
+    "all_staged_scalar": (30, SHAPES4, torch.float32, (0, 1, 2, 3), 1, (0, 1, 2, 3)),
+    "some_staged": (64, ((32, 32), (8, 8), (4, 4)), torch.float32, (1, 2), 4, (1, 2)),
+    "some_staged_scalar_bf16": (71, ((40, 40), (8, 8), (4, 4)), torch.bfloat16, (1, 2), 1, (1, 2)),
+    # a 32x32 level of 64 channels: 128 KiB of bf16 rows, 256 KiB of fp32 accumulators
+    "dvalue_stages_fewer_bf16": (64, ((32, 32), (8, 8)), torch.bfloat16, (0, 1), 8, (1,)),
+    "none_staged": (3096, ((6, 4), (5, 4)), torch.float32, (), 4, ()),
+    "none_staged_bf16": (3096, ((8, 6), (7, 6)), torch.bfloat16, (), 8, ()),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_cuda_kernel_routes(cuda, route):
-    channels, shapes, dtype, staged, vec = ROUTES[route]
+    channels, shapes, dtype, staged, vec, dv_staged = ROUTES[route]
     value, loc, aw, g = make_inputs(channels, seed=len(route), lq=45, shapes=shapes, m=3, p=2, device=cuda)
     value, g = value.to(dtype), g.to(dtype)
     plan = A.msda_plan(shapes, 2, 45, 3, channels, 2, dtype)
     assert (plan.staged, plan.vec) == (staged, vec)
+    assert A.msda_plan(shapes, 2, 45, 3, channels, 2, dtype, accumulate=True).staged == dv_staged
     _check_kernels(value, loc, aw, g, shapes)
 
 
@@ -274,6 +280,7 @@ def test_cuda_kernels_misaligned_base(cuda, dtype):
     value, loc, aw, g = make_inputs(32, seed=21, lq=60, shapes=SHAPES4, m=4, p=3, device=cuda)
     value, g = _misaligned(value.to(dtype)), _misaligned(g.to(dtype))
     assert A._call_plan(value, SHAPES4, loc, g).vec == 1
+    assert A._call_plan(value, SHAPES4, loc, g, torch.zeros(value.shape, device=cuda), accumulate=True).vec == 1
     _check_kernels(value, loc, aw, g, SHAPES4)
 
 
@@ -316,6 +323,8 @@ def test_cuda_kernels_encoder_shape(cuda, dtype):
     value, loc, aw, g = make_inputs(32, seed=24, lq=5440, shapes=shapes, m=8, p=4, device=cuda)
     value, g = value.to(dtype), g.to(dtype)
     assert A._call_plan(value, shapes, loc, g).staged == (1, 2, 3)
+    dv = torch.zeros(value.shape, device=cuda)
+    assert A._call_plan(value, shapes, loc, g, dv, accumulate=True).staged == (1, 2, 3)
     _check_kernels(value, loc, aw, g, shapes)
 
 
@@ -342,3 +351,5 @@ def test_cuda_refuses_plans_that_do_not_fit(cuda, monkeypatch, bad):
         A.ms_deform_attn_fwd(value, shapes, loc, aw)
     with pytest.raises(RuntimeError, match="cudaError 1"):
         A.ms_deform_attn_dlocw(g, value, shapes, loc, aw)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        A.ms_deform_attn_dvalue(g, value, shapes, loc, aw)
