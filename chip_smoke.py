@@ -47,7 +47,12 @@ Phases (any failure exits non-zero):
      step; 8 fused forwards and no backward around the val pass alone), two
      epoch checkpoints, the second served through ``predict.main``; one fp32
      first step held to the bf16 one; the backward kernel re-checked on the
-     stencil inputs and upstream gradient captured in a train step;
+     stencil inputs and upstream gradient captured in a train step; both
+     loaders decode on the recipe's 8 threads and prefetch;
+ 8b. a train CLI subprocess (tiny ``cod`` at grid 12, bf16) with
+     ``ProfilerHook`` on steps [2, 4) gets SIGTERM once its log shows step
+     3: it saves ``preempt_step_N`` and exits 0, its trace names the fused
+     stencil kernels, and ``--resume`` of the checkpoint finishes the epoch;
   9. time train steps back to back (bf16 and fp32), the CLI loop, peak
      memory, and the fused backward kernel (CUDA events and device time)
      against its bound, the per-step kernels and its plain version;
@@ -85,10 +90,17 @@ Phases (any failure exits non-zero):
      serving_check's (1,512,512,24) (the grid kernel), beside the per-step
      kernel called directly on the same tensors, and the per-step kernel
      on its own route (k = 13);
- 13. the LayerNorm kernel against its plain version (C in {64, 130, 1024,
-     2048}, fp32 and bf16, mean-0 and mean-100 rows), then forward and
-     backward at a PVTv2-b2 stage-1 and a ConvNeXt-B stage-1 shape of a
-     served batch, timed beside ``F.layer_norm`` (device time in phase 18);
+ 13. the LayerNorm kernel against its plain version on each of its routes
+     (``ops/layernorm.py::ln_route``, also asked of the built kernel): C in
+     {8, 24, 64, 128, 256, 512, 1024} on the lane-group route (16-byte
+     accesses, a row on 1 to 32 lanes), C = 130 and every C one element off
+     a 16-byte boundary (``x[1:]`` of a flat buffer) on the scalar route,
+     C = 2048 on the block route; fp32 and bf16, mean-0 and mean-100 rows;
+     then forward and backward at a PVTv2-b2 stage-1 and a ConvNeXt-B
+     stage-1 shape of a served batch (bf16), timed L2-warm (one input back
+     to back) and L2-cold (8 input/output pairs in turn, more bytes than the
+     L2), ``F.layer_norm`` timed both ways beside it (device times in phase
+     18);
  14. planes above the fused limit: the op forward and backward on
      (192, 64, 64) planes (the paper's grid-64 ablation), one cluster launch
      each way read from the counters, checked against the plain versions,
@@ -118,8 +130,12 @@ Phases (any failure exits non-zero):
      ``batch_statistics`` on the card against the host algorithms on a
      captured batch (histograms and counts equal), ``save_visualizations``
      on 4 images (five PNGs each, named from the files), one fused forward a
-     val batch and nothing else from the stencil, and one 704² image through
-     COD_TEST;
+     val batch and nothing else from the stencil, one 704² image through
+     COD_TEST; the serial loader (``num_workers: 0``, ``prefetch: 0``)
+     giving the same per-image statistics as the recipe's 8 decode threads
+     with prefetch, and ``pipeline: native`` (the fused C++ pixel pipeline:
+     its input equal to the library's on the host); images/s and ms an
+     image by part for each run;
  17. model variants: the model family at full width (PVTv2-b2, the
      ConvNeXt-B tower where there is one), 384², bf16: ``baseline``,
      ``DQnet``, ``cod -o model.use_prompts=false``, ``cod -o
@@ -164,6 +180,7 @@ non-zero before printing any result.
 """
 
 import functools
+import itertools
 import json
 import os
 import shutil
@@ -234,9 +251,16 @@ TINY = dict(variant="tiny", convnext_dims=(8, 16, 32, 64), convnext_depths=(1, 1
 TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 30, 10, 2
 TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
 TRAIN_VAL_N = 8  # val after epoch 2: 8 synthetic images at batch 1
+TRAIN_WORKERS = 8  # configs/cod.yml's train_dataloader.num_workers, in force in phase 8
+# phase 8b: tiny cod at the recipe's grid 12 through a train CLI subprocess,
+# one epoch of PREEMPT_N // PREEMPT_BATCH steps, SIGTERM after step 3
+PREEMPT_N, PREEMPT_BATCH, PREEMPT_SIZE, PREEMPT_TIMEOUT_S = 20, 2, 96, 300
+PREEMPT_MODEL = {"variant": "tiny", "convnext_dims": "[8,16,32,64]", "convnext_depths": "[1,1,1,1]",
+                 "channel": 8, "latent_dim": 8, "grid": 12}
 VAL_METRICS = ("Emeasure", "Fmeasure", "Smeasure", "MAE")
 # the val phase: a SOD_TEST tree of 16 images, sizes cycling through these
 VAL_N = 16
+VAL_WORKERS = 8  # configs/cod.yml's val_dataloader.num_workers
 VAL_SIZES = [(384, 384), (480, 640), (300, 420), (512, 512), (720, 540), (333, 500)]
 # device-stats route vs host route (tests/test_metrics.py:221); the card's
 # S-measure vs the host's float64 (tests/test_metrics.py:194)
@@ -316,6 +340,19 @@ LOC_PIN_ATOL = 1e-6
 LN_FP32_TOL = {0.0: dict(rtol=1e-4, atol=1e-5), 100.0: dict(rtol=1e-4, atol=1e-4)}
 LN_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 LN_SHAPES = {"pvt_b2_stage1": (8 * 96 * 96, 64), "convnext_b_stage1": (8 * 96 * 96, 128)}
+# phase 13's widths: the lane-group route at 1 to 32 lanes a row and 1 to 8
+# 16-byte vectors a lane, C = 130 (a row not a multiple of 16 bytes: the
+# scalar route) and 2048 (the block route); each also one element off a
+# 16-byte boundary (the scalar route below 1025), on a row count that no
+# block divides
+LN_ROUTE_CS = (8, 24, 64, 128, 256, 512, 1024, 130, 2048)
+LN_CHECK_ROWS = 1001
+# L2-cold timing: input/output pairs in turn, 151 MB at (73728, 64) bf16
+LN_ROTATION = 8
+L2_BYTES = 50e6
+# F.layer_norm's CUDA kernels (vectorized_layer_norm_kernel, or
+# RowwiseMomentsCUDAKernel and LayerNormForwardCUDAKernel)
+TORCH_LN_KERNELS = ("layer_norm", "LayerNorm", "RowwiseMoments")
 
 
 def say(*parts):
@@ -345,7 +382,8 @@ def cuda_time_ms(fn, iters, warmup=10):
 
 
 def device_ms(fn, iters, match, per_launch=False):
-    """Device time per call (ms) of the kernels whose name holds ``match``,
+    """Device time per call (ms) of the kernels whose name holds ``match`` (or
+    any of a tuple of names),
     summed from ``torch.profiler``'s ``key_averages()`` over ``iters`` calls;
     None if the profiler recorded no such kernel. ``per_launch``: the mean
     over the launches it recorded instead, for a kernel launched once a
@@ -359,7 +397,9 @@ def device_ms(fn, iters, match, per_launch=False):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if match in e.key]
+    # the kernels, not the aten ops above them (whose device time is theirs)
+    matches = (match,) if isinstance(match, str) else match
+    found = [e for e in prof.key_averages() if not e.key.startswith("aten::") and any(m in e.key for m in matches)]
     us = sum(getattr(e, "device_time_total", 0.0) for e in found)
     if per_launch:
         iters = sum(e.count for e in found)
@@ -622,6 +662,13 @@ def msda_bounds(value, loc, aw, shapes):
     return out
 
 
+def in_turn(fn):
+    """A call of ``fn(i)`` with i = 0, 1, ..., LN_ROTATION - 1, 0, ... in
+    turn: one input/output pair a call."""
+    turn = itertools.cycle(range(LN_ROTATION))
+    return lambda: fn(next(turn))
+
+
 def layer_norm_bound(x):
     """Least time (ms) of one LayerNorm on x: x read and the output written
     once, scale and bias (fp32) read once; ~8 flops per value on the fp32
@@ -688,10 +735,15 @@ def val_phase(D, val_ckpt, card):
     PNGs an image named from its file; (e) one fused stencil forward a val
     batch and nothing else from the stencil, read from the counters around
     each run; (f) one 704² batch through COD_TEST on the device-stats
-    route; then where a device-route image's time goes: the loader alone,
+    route; (g) the serial loader (``num_workers: 0``, ``prefetch: 0``): the
+    same per-image statistics as (a), which decodes on the recipe's 8
+    threads and prefetches 2 batches; (h) ``pipeline: native``: its first
+    input equal to the pixel library's on the host, its statistics finite;
+    then where a device-route image's time goes: each run's loader alone,
     the forward alone, the statistics alone and the host metrics alone.
     Returns the ``val`` line's fields."""
     import torch
+    from PIL import Image
 
     from dgtd_tpu_torch import test as T
     from dgtd_tpu_torch.core.registry import METRICS
@@ -703,37 +755,83 @@ def val_phase(D, val_ckpt, card):
         f"val_ckpt = phase 8's epoch_2.pth) on a SOD_TEST tree of {VAL_N} PNGs of mixed sizes at {SIZE}², batch 1")
     t_phase = time.perf_counter()
     recipe = os.path.join(ROOT, "configs", "cod.yml")
-    stats_unspied, val_unspied, grabbed = TL.batch_statistics, TL.Runner.val, {}
+    stats_unspied, to_host_unspied, val_unspied = TL.batch_statistics, TL.statistics_to_host, TL.Runner.val
+    predict_unspied, grabbed = TL.Runner._predict, {}
 
     def spy_stats(prob, label):
         grabbed.setdefault("batch", (prob.clone(), label.clone()))
         return stats_unspied(prob, label)
 
-    def spy_val(self, *args, **kwargs):
-        grabbed["runner"] = self
-        return val_unspied(self, *args, **kwargs)
-
     def run_val(tmp, tag, dataset, extra=()):
+        """One ``-m val`` run; its Runner, each batch's per-image statistics
+        and its first input batch land in grabbed[tag]."""
         ovs = [f"work_dir={os.path.join(tmp, tag)}", f"val_dataloader.dataset={dataset}", "val_dataloader.batch_size=1",
                f"custom_hooks.0.val_ckpt={val_ckpt}", *extra]
-        reset_plane_launches(D)
-        out = T.main([recipe] + [a for o in ovs for a in ("-o", o)])
-        torch.cuda.synchronize()
+        got = grabbed[tag] = {"stats": []}
+
+        def spy_val(self, *args, **kwargs):
+            got["runner"] = self
+            return val_unspied(self, *args, **kwargs)
+
+        def spy_to_host(stats):
+            got["stats"].append(to_host_unspied(stats))
+            return got["stats"][-1]
+
+        def spy_predict(self, image, depth):
+            got.setdefault("input", image.clone())
+            return predict_unspied(self, image, depth)
+
+        TL.Runner.val, TL.statistics_to_host, TL.Runner._predict = spy_val, spy_to_host, spy_predict
+        try:
+            reset_plane_launches(D)
+            out = T.main([recipe] + [a for o in ovs for a in ("-o", o)])
+            torch.cuda.synchronize()
+        finally:
+            TL.Runner.val, TL.statistics_to_host, TL.Runner._predict = val_unspied, to_host_unspied, predict_unspied
         return out, plane_launches(D)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as tmp:
         tree = os.path.join(tmp, "sod")
         write_sod_tree(tree, [VAL_SIZES[i % len(VAL_SIZES)] for i in range(VAL_N)], "RGB", seed=7)
         sod = f"{{'type': 'SOD_TEST', 'data_dir': '{tree}', 'depth_dir': 'Depth', 'split': 'val'}}"
-        TL.batch_statistics, TL.Runner.val = spy_stats, spy_val
+        TL.batch_statistics = spy_stats
         try:
             dev, dev_launches = run_val(tmp, "a", sod)
         finally:
-            TL.batch_statistics, TL.Runner.val = stats_unspied, val_unspied
+            TL.batch_statistics = stats_unspied
         host, host_launches = run_val(tmp, "b", sod, ["device_metrics=false"])
-        for name, launches in (("device stats", dev_launches), ("host", host_launches)):
+        # the serial loader (no decode pool, no prefetch thread), then the
+        # fused C++ pixel pipeline, both on the device-stats route
+        serial, serial_launches = run_val(tmp, "s", sod, ["val_dataloader.num_workers=0", "val_dataloader.prefetch=0"])
+        sod_native = sod[:-1] + ", 'pipeline': 'native'}"
+        native, native_launches = run_val(tmp, "n", sod_native)
+        for name, launches in (("device stats", dev_launches), ("host", host_launches), ("serial", serial_launches),
+                               ("native", native_launches)):
             check(launches == launch_tuple("fused", VAL_N),
-                  f"val {name} route: launches ({LAUNCH_NAMES}) {launches}, expected one fused forward a batch")
+                  f"val {name} run: launches ({LAUNCH_NAMES}) {launches}, expected one fused forward a batch")
+        loaders = {tag: grabbed[tag]["runner"].val_loader for tag in ("a", "s", "n")}
+        check(loaders["a"]._pool is not None and loaders["a"]._pool._max_workers == VAL_WORKERS
+              and loaders["a"].prefetch == 2, "the recipe's val loader: num_workers and prefetch not in force")
+        check(loaders["s"]._pool is None and loaders["s"].prefetch == 0, "the serial val loader has a pool or prefetch")
+        # the pool with prefetch gives the serial loader's per-image statistics
+        pool_stats, serial_stats = grabbed["a"]["stats"], grabbed["s"]["stats"]
+        check(len(pool_stats) == len(serial_stats) == VAL_N, (len(pool_stats), len(serial_stats)))
+        for i, (ps, ss) in enumerate(zip(pool_stats, serial_stats)):
+            check(sorted(ps) == sorted(ss) and all(np.array_equal(ps[k], ss[k]) for k in ps),
+                  f"val image {i}: per-image statistics of the pool with prefetch differ from the serial loader's")
+        check(all(serial[k] == dev[k] for k in dev if k.startswith("COD/")), "serial vs pool metrics")
+        # the native run's pixels are the library's on the host
+        from dgtd_tpu_torch.data.device_norm import IMAGENET_MEAN, IMAGENET_STD
+        from dgtd_tpu_torch.native import pixelops
+
+        with Image.open(os.path.join(tree, "RGB", "scene00.png")) as im:
+            want = pixelops.resize_normalize(np.asarray(im.convert("RGB")), (SIZE, SIZE), IMAGENET_MEAN, IMAGENET_STD)
+        got_native = grabbed["n"]["input"]
+        check(got_native.is_cuda and np.array_equal(got_native[0].cpu().numpy(), want),
+              "the native run's first input differs from pixelops on the host")
+        check(all(np.isfinite(native[f"COD/{m}"]) for m in VAL_METRICS), native)
+        check(all(np.isfinite(st["sm"]).all() for st in grabbed["n"]["stats"]), "native per-image statistics")
+        native_vs_pil = max(abs(native[f"COD/{m}"] - dev[f"COD/{m}"]) for m in VAL_METRICS)
         worst = (0.0, "")
         for k in dev:
             if k.startswith("COD/"):
@@ -744,6 +842,11 @@ def val_phase(D, val_ckpt, card):
             + f"; {dev['val_imgs_per_sec']:.3f} images/s [{card}]")
         say("  (b) host: " + ", ".join(f"{m} {host[f'COD/{m}']:.6f}" for m in VAL_METRICS)
             + f"; {host['val_imgs_per_sec']:.3f} images/s [{card}]")
+        say(f"  (g) serial loader (num_workers 0, prefetch 0): {serial['val_imgs_per_sec']:.3f} images/s, per-image "
+            f"statistics equal to (a)'s (num_workers {VAL_WORKERS}, prefetch 2) in all {VAL_N} images [{card}]")
+        say("  (h) pipeline: native: " + ", ".join(f"{m} {native[f'COD/{m}']:.6f}" for m in VAL_METRICS)
+            + f"; {native['val_imgs_per_sec']:.3f} images/s; first input equal to pixelops on the host; largest "
+              f"|metric - (a)'s| {native_vs_pil:.3e} (PIL's resample vs the half-pixel bilinear) [{card}]")
         say(f"  (a) vs (b): largest |diff| {worst[0]:.3e} ({worst[1]}), within rtol {VAL_ROUTE_TOL['rtol']} / atol "
             f"{VAL_ROUTE_TOL['atol']}; (e) launches ({LAUNCH_NAMES}) {dev_launches} and {host_launches} in "
             f"{VAL_N} batches each")
@@ -765,12 +868,15 @@ def val_phase(D, val_ckpt, card):
         say(f"  (c) batch_statistics on the card vs the host algorithms on a captured batch: histograms and counts "
             f"equal, |sm diff| {sm_err:.3e}")
 
-        # where a device-route image's time goes, each part alone (ms an image)
-        runner = grabbed.pop("runner")
-        t0 = time.perf_counter()
-        batches = list(runner.val_loader)
-        torch.cuda.synchronize()
-        parts = {"loader": (time.perf_counter() - t0) * 1e3 / len(batches)}
+        # where a device-route image's time goes, each part alone (ms an
+        # image): the loader of each run, then the shared parts
+        parts = {}
+        for tag, kind in (("s", "serial"), ("a", "pool_prefetch"), ("n", "native")):
+            t0 = time.perf_counter()
+            batches = list(grabbed[tag]["runner"].val_loader)
+            torch.cuda.synchronize()
+            parts[f"loader_{kind}"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+        runner = grabbed["a"]["runner"]
         first = batches[0]
         parts["forward"] = cuda_time_ms(lambda: runner._predict(first["input"], first["depth"]), 20, warmup=3)
         parts["statistics_and_copy"] = cuda_time_ms(lambda: statistics_to_host(batch_statistics(prob, label)), 20,
@@ -784,9 +890,12 @@ def val_phase(D, val_ckpt, card):
         parts["host_copy_and_metrics"] = (time.perf_counter() - t0) * 1e3 / 5
         parts["device_route_total"] = 1e3 / dev["val_imgs_per_sec"]
         parts["host_route_total"] = 1e3 / host["val_imgs_per_sec"]
+        parts["serial_total"] = 1e3 / serial["val_imgs_per_sec"]
+        parts["native_total"] = 1e3 / native["val_imgs_per_sec"]
         say("  where a val image's time goes, each part alone (ms an image): "
             + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" [{card}]")
         del runner, batches, first
+        grabbed.clear()
 
         # (d) visualizations on 4 images, named from their files
         vis_tree = os.path.join(tmp, "sod4")
@@ -798,8 +907,6 @@ def val_phase(D, val_ckpt, card):
         kinds = ("input", "label", "output", "depth", "diffusion")
         want = sorted(f"scene{i:02d}_{k}.png" for i in range(4) for k in kinds)
         check(sorted(os.listdir(vis_dir)) == want, sorted(os.listdir(vis_dir)))
-        from PIL import Image
-
         with Image.open(os.path.join(vis_dir, "scene03_output.png")) as im:
             check(im.size == (SIZE, SIZE) and im.mode == "L", (im.size, im.mode))
         say(f"  (d) save_visualizations: {len(want)} PNGs for 4 images, named from the files")
@@ -818,11 +925,15 @@ def val_phase(D, val_ckpt, card):
         "recipe": "configs/cod.yml -m val through dgtd_tpu_torch.test.main, bf16",
         "dataset": f"SOD_TEST tree of {VAL_N} PNGs of mixed sizes, resized to {SIZE}²",
         "images": VAL_N, "batch": 1,
-        "val_imgs_per_sec": {"device_stats": dev["val_imgs_per_sec"], "host": host["val_imgs_per_sec"]},
+        "val_imgs_per_sec": {"device_stats": dev["val_imgs_per_sec"], "host": host["val_imgs_per_sec"],
+                             "serial_loader": serial["val_imgs_per_sec"], "native": native["val_imgs_per_sec"]},
+        "loader": {"num_workers": VAL_WORKERS, "prefetch": 2, "serial_per_image_stats_equal": True},
+        "native_metrics": {k: v for k, v in native.items() if k.startswith("COD/")},
         "metrics": {"device_stats": {k: v for k, v in dev.items() if k.startswith("COD/")},
                     "host": {k: v for k, v in host.items() if k.startswith("COD/")}},
         "route_max_abs_diff": worst[0],
-        "launches": {"device_stats": dev_launches, "host": host_launches, "visualizations": vis_launches,
+        "launches": {"device_stats": dev_launches, "host": host_launches, "serial": serial_launches,
+                     "native": native_launches, "visualizations": vis_launches,
                      "cod_test_704": big_launches},
         "card_vs_host_sm_max_abs_diff": sm_err,
         "cod_test_704": {k: v for k, v in big.items() if k.startswith("COD/") or k == "val_imgs_per_sec"},
@@ -830,6 +941,89 @@ def val_phase(D, val_ckpt, card):
         "phase_s": time.perf_counter() - t_phase,
         "_fwd_launches": dev_launches[0], "_batches": VAL_N,
     }
+
+
+def preempt_phase(card):
+    """Phase 8b: the train CLI in a subprocess (``python -m
+    dgtd_tpu_torch.train configs/cod.yml``, bf16, the recipe's loader with
+    its num_workers) on tiny ``cod`` at grid 12, so that it starts fast and
+    still runs the fused stencil kernels, with ``ProfilerHook`` on steps
+    [2, 4). Once its log shows step 3 it gets SIGTERM: it must save a
+    ``preempt_step_N``, log it, leave a trace that names the fused forward and
+    backward kernels, and exit 0; ``--resume`` of the checkpoint must then
+    finish the epoch. Returns the ``trained`` line's ``preemption`` fields."""
+    import signal
+
+    say(f"phase 8b: SIGTERM to a train CLI subprocess (tiny cod, grid 12, {PREEMPT_N} images at {PREEMPT_SIZE}², "
+        f"batch {PREEMPT_BATCH}, ProfilerHook on steps [2, 4)), then --resume to the end of the epoch")
+    t_phase = time.perf_counter()
+    recipe = os.path.join(ROOT, "configs", "cod.yml")
+    steps = PREEMPT_N // PREEMPT_BATCH
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_preempt_") as tmp:
+        work = os.path.join(tmp, "run")
+        ovs = [f"work_dir={work}", "train_cfg.max_epochs=1", "train_cfg.val_interval=0",
+               f"train_dataloader.batch_size={PREEMPT_BATCH}",
+               f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {PREEMPT_N}, 'size': {PREEMPT_SIZE}}}",
+               "default_hooks.logger.interval=1", "default_hooks.checkpoint.interval=1",
+               "custom_hooks.1={'type': 'ProfilerHook', 'start_step': 2, 'num_steps': 2}",
+               *(f"model.{k}={v}" for k, v in PREEMPT_MODEL.items())]
+        argv = [sys.executable, "-m", "dgtd_tpu_torch.train", recipe] + [a for o in ovs for a in ("-o", o)]
+        log_path = os.path.join(work, "log.jsonl")
+
+        def records():
+            if not os.path.exists(log_path):
+                return []
+            with open(log_path) as f:
+                return [json.loads(line) for line in f if line.endswith("\n")]
+
+        def run(args, out_name, signal_at=None):
+            with open(os.path.join(tmp, out_name), "w") as out:
+                proc = subprocess.Popen(args, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+                try:
+                    if signal_at is not None:
+                        deadline = time.monotonic() + PREEMPT_TIMEOUT_S
+                        while not any(r.get("step") == signal_at and "loss" in r for r in records()):
+                            check(proc.poll() is None, f"the train CLI ended before step {signal_at}")
+                            check(time.monotonic() < deadline, f"no step {signal_at} in {PREEMPT_TIMEOUT_S} s")
+                            time.sleep(0.05)
+                        proc.send_signal(signal.SIGTERM)
+                    rc = proc.wait(timeout=PREEMPT_TIMEOUT_S)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            with open(os.path.join(tmp, out_name)) as f:
+                text = f.read()
+            check(rc == 0, f"train CLI exited {rc}:\n{text[-3000:]}")
+
+        run(argv, "cut.log", signal_at=3)
+        first = records()
+        pre = [r for r in first if r.get("preempted")]
+        check(len(pre) == 1, f"preemption records {pre}")
+        ckpt = pre[0]["checkpoint"]
+        cut_step = max(r["step"] for r in first if "loss" in r)
+        check(os.path.basename(ckpt) == f"preempt_step_{cut_step}.pth" and os.path.exists(ckpt) and cut_step < steps,
+              f"checkpoint {ckpt} after step {cut_step} of {steps}")
+        prof = [r for r in first if "profile" in r]
+        check(len(prof) == 1 and os.path.exists(prof[0]["profile"]), f"profile records {prof}")
+        with open(prof[0]["profile"]) as f:
+            trace = f.read()
+        kernels = ("stencil_fused_fwd_kernel", "stencil_fused_bwd_kernel")
+        check(all(k in trace for k in kernels), f"the trace names none or one of {kernels}")
+        run(argv + ["--resume", ckpt], "resume.log")
+        second = records()[len(first):]
+        check(second[0] == {"resumed_at_epoch": 0, "step": cut_step, "skip_batches": cut_step},
+              f"resume record {second[0]}")
+        resumed = [r["step"] for r in second if "loss" in r]
+        check(resumed == list(range(cut_step + 1, steps + 1)), f"resumed steps {resumed}")
+        check(os.path.exists(os.path.join(work, "epoch_1.pth")), "no epoch_1.pth after the resumed epoch")
+    row = {"signal_after_step": 3, "checkpoint_step": cut_step, "epoch_steps": steps,
+           "profile_truncated": bool(prof[0].get("truncated", False)), "trace_bytes": len(trace),
+           "trace_names": list(kernels), "resumed_steps": len(resumed), "phase_s": time.perf_counter() - t_phase}
+    say(f"  SIGTERM after step 3: preempt_step_{cut_step}.pth saved, exit 0; trace of {len(trace)} bytes names "
+        f"{', '.join(kernels)} (truncated: {row['profile_truncated']}); --resume trained steps {cut_step + 1}-{steps} "
+        f"and saved epoch_1.pth; {row['phase_s']:.1f} s [{card}]")
+    return row
 
 
 def variant_launches(D, model_type, overrides, n_fwd, n_bwd):
@@ -1459,10 +1653,12 @@ def run(keep):
             out.register_hook(lambda gr: grab.setdefault("g", gr.detach().clone()))
         return out
 
-    val_unspied, val_launches, val_seconds = Runner.val, [], []
+    val_unspied, val_launches, val_seconds, loader_workers = Runner.val, [], [], []
 
     def spy_val(self, *args, **kwargs):
-        # the stencil's launches and the seconds of the val pass alone
+        # the stencil's launches and the seconds of the val pass alone; the
+        # decode threads of the train and val loaders
+        loader_workers.extend(ld._pool._max_workers if ld._pool else 0 for ld in (self.train_loader, self.val_loader))
         before, t0 = plane_launches(D), time.perf_counter()
         out = val_unspied(self, *args, **kwargs)
         torch.cuda.synchronize()
@@ -1493,6 +1689,7 @@ def run(keep):
             MD.diffusion_planes = planes_unspied
             Runner.val = val_unspied
         check(len(val_launches) == 1, f"{len(val_launches)} val passes in {TRAIN_EPOCHS} epochs (val_interval {TRAIN_EPOCHS})")
+        check(loader_workers == [TRAIN_WORKERS, TRAIN_WORKERS], f"loader decode threads {loader_workers}")
         train_val_launches = val_launches[0]
         fwd_launches = train_launches[0] - train_val_launches[0]
         bwd_launches = train_launches[1]
@@ -1560,6 +1757,9 @@ def run(keep):
     train_err = check_bwd(D, gg, gxs, gw, KERNEL, f"trained bf16, {STEPS} steps")
     train_err32 = check_bwd(D, gg.float(), [t.float() for t in gxs], gw.float(), KERNEL,
                             f"trained, as fp32, {STEPS} steps")
+
+    # ---- 8b. preemption and the profiler hook, through a train CLI subprocess ----
+    preempt_row = preempt_phase(card)
 
     # ---- 9. timings ----
     say("phase 9: train-step and backward-kernel timings (CUDA events)")
@@ -1896,18 +2096,31 @@ def run(keep):
     del ref
 
     # ---- 13. LayerNorm ----
-    say("phase 13: LayerNorm kernel vs plain; forward+backward at served stage-1 shapes")
-    for c in (64, 130, 1024, 2048):
+    say("phase 13: LayerNorm kernel vs plain on each route (lane-group, scalar, block); forward+backward and times "
+        "(L2-warm and L2-cold) at served stage-1 shapes")
+    ln_routes = {}
+    for c in LN_ROUTE_CS:
         for mean in (0.0, 100.0):
-            xl = torch.randn(1000, c, generator=g, device=dev) * 3 + mean
+            xl = torch.randn(LN_CHECK_ROWS, c, generator=g, device=dev) * 3 + mean
             sc, bi = torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
             for name, dt, tol in (("fp32", torch.float32, LN_FP32_TOL[mean]), ("bf16", torch.bfloat16, LN_BF16_TOL)):
-                out = L.layer_norm_fwd(xl.to(dt), sc, bi, 1e-6)
-                torch.cuda.synchronize()
-                ref = L.layer_norm_plain(xl.to(dt), sc, bi, 1e-6)
-                check(out.dtype == dt, f"LayerNorm output dtype {out.dtype}")
-                torch.testing.assert_close(out.float(), ref.float(), **tol, msg=lambda m: f"LayerNorm {name} C={c} mean {mean}: {m}")
-            say(f"  C={c}, mean {mean:g}: fp32 and bf16 within tolerance")
+                for aligned in (True, False):
+                    xin = xl.to(dt) if aligned else off_16_bytes(xl.to(dt))
+                    out = torch.empty_like(xin)
+                    route = L.ln_route(c, dt, xin.data_ptr(), out.data_ptr())
+                    check(route == L.kernel_route(c, dt, xin.data_ptr(), out.data_ptr()),
+                          f"LayerNorm C={c} {name}: ln_route {route} differs from the kernel's")
+                    want = "block" if c > L.WARP_MAX_C else "group" if aligned and c != 130 else "scalar"
+                    check(route == want, f"LayerNorm C={c} {name} aligned={aligned}: route {route}, expected {want}")
+                    L.launch(xin, sc, bi, out, 1e-6)
+                    torch.cuda.synchronize()
+                    ref = L.layer_norm_plain(xin, sc, bi, 1e-6)
+                    torch.testing.assert_close(out.float(), ref.float(), **tol,
+                                               msg=lambda m: f"LayerNorm {name} C={c} mean {mean} {route}: {m}")
+                    ln_routes.setdefault(route, set()).add(c)
+        say(f"  C={c}: fp32 and bf16, mean 0 and 100, 16-byte aligned and one element off: within tolerance")
+    check(set(ln_routes) == {"group", "scalar", "block"}, f"LayerNorm routes driven: {sorted(ln_routes)}")
+    say("  routes: " + "; ".join(f"{r} C {sorted(cs)}" for r, cs in sorted(ln_routes.items())))
     ln_rows, ln_launches = {}, 0
     for shape_name, (rows_n, c) in LN_SHAPES.items():
         xl = (torch.randn(rows_n, c, generator=g, device=dev) * 3 + 1).bfloat16()
@@ -1923,6 +2136,7 @@ def run(keep):
               f"LayerNorm {shape_name}: {L.LAUNCHES} launches")
         ln_launches += L.LAUNCHES
         out = L.layer_norm_fwd(xl, sc, bi, 1e-6)
+        route = L.ln_route(c, xl.dtype, xl.data_ptr(), out.data_ptr())
         err = float((out.float() - L.layer_norm_plain(xl, sc, bi, 1e-6).float()).abs().max())
         ms = cuda_time_ms(lambda: L.layer_norm_fwd(xl, sc, bi, 1e-6), 200)
         plain_ms = cuda_time_ms(lambda: L.layer_norm_plain(xl, sc, bi, 1e-6), 100)
@@ -1936,13 +2150,36 @@ def run(keep):
         torch.testing.assert_close(F.layer_norm(xl, (c,), sl, bl, 1e-6).float(), out.float(), **LN_BF16_TOL,
                                    msg=lambda m: f"F.layer_norm vs the kernel, {shape_name}: {m}")
         library_ms = cuda_time_ms(lambda: F.layer_norm(xl, (c,), sl, bl, 1e-6), 200)
+        # L2-cold: LN_ROTATION input/output pairs (more bytes than the 50 MB
+        # L2), one pair a call in turn, so that each call reads x from HBM
+        xs = [xl] + [(torch.randn(rows_n, c, generator=g, device=dev) * 3 + 1).bfloat16()
+                     for _ in range(LN_ROTATION - 1)]
+        outs = [torch.empty_like(t) for t in xs]
+        rotation_mb = sum(t.numel() * t.element_size() for t in xs + outs) / 1e6
+        check(rotation_mb > 2 * L2_BYTES / 1e6, f"LayerNorm rotation of {rotation_mb:.0f} MB does not exceed L2")
+        cold = in_turn(lambda i, xs=xs, outs=outs, sc=sc, bi=bi: L.launch(xs[i], sc, bi, outs[i], 1e-6))
+        cold_ms = cuda_time_ms(cold, 200)
+        launch_ms = cuda_time_ms(functools.partial(L.launch, xl, sc, bi, outs[0], 1e-6), 200)
+        library_cold = in_turn(lambda i, xs=xs, c=c, sl=sl, bl=bl: F.layer_norm(xs[i], (c,), sl, bl, 1e-6))
+        library_cold_ms = cuda_time_ms(library_cold, 200)
         bound_ms, bound_by = layer_norm_bound(xl)
-        ln_rows[shape_name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, err=err, shape=[rows_n, c], dtype="bfloat16")
-        device_calls.append((f"LayerNorm {shape_name} ({rows_n}, {c}) bf16", ln_rows[shape_name], "device_ms",
-                             functools.partial(L.layer_norm_fwd, xl, sc, bi, 1e-6), "ln_", 200))
-        say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-            f"F.layer_norm {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
+        ln_rows[shape_name] = dict(ms=ms, cold_ms=cold_ms, launch_ms=launch_ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, library_cold_ms=library_cold_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, err=err, shape=[rows_n, c], dtype="bfloat16", route=route,
+                                   group_shape=list(L.ln_group_shape(c, xl.dtype)), rotation_mb=rotation_mb)
+        device_calls += [
+            (f"LayerNorm {shape_name} ({rows_n}, {c}) bf16, L2-warm", ln_rows[shape_name], "device_ms",
+             functools.partial(L.layer_norm_fwd, xl, sc, bi, 1e-6), "ln_", 200),
+            (f"LayerNorm {shape_name} ({rows_n}, {c}) bf16, L2-cold", ln_rows[shape_name], "cold_device_ms", cold,
+             "ln_", 200),
+            (f"F.layer_norm {shape_name} L2-warm", ln_rows[shape_name], "library_device_ms",
+             functools.partial(F.layer_norm, xl, (c,), sl, bl, 1e-6), TORCH_LN_KERNELS, 200),
+            (f"F.layer_norm {shape_name} L2-cold", ln_rows[shape_name], "library_cold_device_ms", library_cold,
+             TORCH_LN_KERNELS, 200)]
+        say(f"  LayerNorm {shape_name} ({rows_n}, {c}) bf16, route {route} {L.ln_group_shape(c, xl.dtype)}: kernel "
+            f"{ms:.5f} ms L2-warm, {cold_ms:.5f} ms L2-cold ({LN_ROTATION} pairs, {rotation_mb:.0f} MB), launch "
+            f"alone {launch_ms:.5f}; plain {plain_ms:.5f} ms; F.layer_norm {library_ms:.5f} ms L2-warm, "
+            f"{library_cold_ms:.5f} L2-cold; bound {bound_ms:.6f} ms ({bound_by}), max_abs_err {err:.3e} [{card}]")
 
     # ---- 14. planes above the fused limit: the cluster kernels, then the tiled kernels ----
     gh, gw = GRID64
@@ -2493,7 +2730,10 @@ def run(keep):
         "bound_ms": ln_rows["pvt_b2_stage1"]["bound_ms"],
         "bound_by": ln_rows["pvt_b2_stage1"]["bound_by"],
         "library_ms": ln_rows["pvt_b2_stage1"]["library_ms"],
-        "device_ms": ln_rows["pvt_b2_stage1"]["device_ms"],
+        **{k: ln_rows["pvt_b2_stage1"][k] for k in ("device_ms", "cold_ms", "cold_device_ms", "launch_ms",
+                                                    "library_cold_ms", "library_device_ms", "library_cold_device_ms",
+                                                    "route", "group_shape", "rotation_mb")},
+        "routes_checked": {r: sorted(cs) for r, cs in ln_routes.items()},
         "dtype": "bfloat16",
         "shape": "x (8*96*96, 64)",
         "convnext_b_stage1": ln_rows["convnext_b_stage1"],
@@ -2530,6 +2770,8 @@ def run(keep):
         "cli_s_per_step": (trained["loop_s"] - val_seconds[0]) / trained["steps"],
         "cli_val_s": val_seconds[0],
         "cli_peak_memory_bytes": cli_peak,
+        "cli_num_workers": TRAIN_WORKERS,
+        "preemption": preempt_row,
         "first_step_loss": {"bf16": loss16, "fp32": loss32},
         "card": card,
     }}))

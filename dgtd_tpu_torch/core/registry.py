@@ -38,3 +38,4 @@ DATASETS = Registry("datasets")
 HOOKS = Registry("hooks")
 METRICS = Registry("metrics")
 VIS_BACKENDS = Registry("vis_backends")
+OPTIM_CONSTRUCTORS = Registry("optim_constructors")

@@ -9,9 +9,12 @@ name, directory layout, sorted listings, the COD10K test partition
 per-index flip stream the loader hands it (a train split flips when it
 draws < 0.5).
 
-Decoding and the bilinear resize are PIL's (``pipeline: pil``). The JAX
-package's fused C++ pipeline (``pipeline: native``) is not ported yet and
-raises.
+Decoding is PIL's. The resize is PIL's bilinear (``pipeline: pil``, the
+default) or the fused C++ half-pixel bilinear resize, normalize and flip of
+``native/pixelops.cpp`` (``pipeline: native``), which gives the JAX
+package's native pixels bit for bit. Where the JAX package falls back to PIL
+when its library cannot build, the port raises: PIL's resample gives other
+pixels.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 from PIL import Image
 
 from ..core.registry import DATASETS
+from ..native import pixelops
 from .device_norm import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -50,11 +54,11 @@ class FolderSODDataset:
     def __init__(self, data_dir: str, depth_dir: str, split: str,
                  image_size: Optional[Union[int, tuple, list]] = None, filter_size_mismatch: bool = True,
                  pipeline: str = "pil", uint8_io: bool = False):
-        if pipeline == "native":
-            raise NotImplementedError(
-                "pipeline: native (the fused C++ pixel pipeline) is not ported yet (ROADMAP A10); use pipeline: pil")
-        if pipeline != "pil":
+        if pipeline not in ("pil", "native"):
             raise ValueError(f"unknown pipeline {pipeline!r}")
+        if pipeline == "native":
+            pixelops.load()  # builds the library now, or raises
+        self.pipeline = pipeline
         #: ship the resized uint8 planes and normalize on the device
         self.uint8_io = bool(uint8_io)
         self._check_split(split)
@@ -104,12 +108,20 @@ class FolderSODDataset:
             arr = np.asarray(im.convert(mode).resize((self.size, self.size), Image.BILINEAR), np.uint8)
         return arr[:, :, None] if arr.ndim == 2 else arr
 
+    def _decode(self, path: str, mode: str) -> np.ndarray:
+        """The file decoded in ``mode``, HWC uint8 at its own size."""
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert(mode), np.uint8)
+        return arr[:, :, None] if arr.ndim == 2 else arr
+
     def get(self, index: int, rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
         """Item ``index``; a train split flips every plane (and ``raw``)
         together when ``rng`` draws < 0.5."""
         flip = bool(self.train_mode and rng is not None and rng.random() < 0.5)
-        planes = [self._load_u8(path, mode) for path, mode in
-                  ((self.images[index], "RGB"), (self.gts[index], "L"), (self.depths[index], "L"))]
+        files = ((self.images[index], "RGB"), (self.gts[index], "L"), (self.depths[index], "L"))
+        if self.pipeline == "native":
+            return self._get_native(index, [self._decode(path, mode) for path, mode in files], flip)
+        planes = [self._load_u8(path, mode) for path, mode in files]
         if flip:
             planes = [p[:, ::-1].copy() for p in planes]
         image, label, depth = planes if self.uint8_io else [p.astype(np.float32) / 255.0 for p in planes]
@@ -119,6 +131,23 @@ class FolderSODDataset:
         if self.uint8_io:  # normalized on the device
             return {"raw": raw, "input": image, "label": label, "depth": depth}
         return {"raw": raw, "input": (image - IMAGENET_MEAN) / IMAGENET_STD, "label": label, "depth": depth}
+
+    def _get_native(self, index: int, decoded, flip: bool) -> Dict[str, np.ndarray]:
+        """The item through the fused pipeline, as the JAX package's native
+        route makes it: the image normalized in the same pass (or, with
+        ``uint8_io``, every plane resized to uint8), ``raw`` the resized
+        unnormalized image flipped with the input."""
+        size = (self.size, self.size)
+        img, gt, dep = decoded
+        if self.uint8_io:
+            image, label, depth = (pixelops.resize_u8(p, size, flip) for p in decoded)
+            raw = image
+        else:
+            image = pixelops.resize_normalize(img, size, IMAGENET_MEAN, IMAGENET_STD, flip)
+            label, depth = (pixelops.resize_normalize(p, size, flip=flip) for p in (gt, dep))
+            raw = None if self.raw_as_path else pixelops.resize_normalize(img, size, flip=flip)
+        return {"raw": self.images[index] if self.raw_as_path else raw, "input": image, "label": label,
+                "depth": depth}
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         return self.get(index, None)

@@ -3,12 +3,16 @@ no sharding).
 
 The order and the augmentation are those of the JAX package for the same
 seed (``default_rng`` streams keyed by seed, epoch and index), so a resumed
-run can re-enter an epoch exactly. Batches are assembled on the host and
-copied to ``device``.
+run can re-enter an epoch exactly. Batches are assembled on the host, on a
+decode pool and a prefetch thread as the JAX package's are, and copied to
+``device``.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
@@ -31,17 +35,31 @@ def collate(samples) -> Dict[str, Any]:
 class DataLoader:
     """Epoch loader with seeded shuffling and per-index flip streams.
     ``device`` None keeps numpy batches; otherwise array fields (not ``raw``)
-    become tensors on it. ``epoch`` counts the epochs iterated so far."""
+    become tensors on it. ``epoch`` counts the epochs iterated so far.
+
+    ``num_workers`` > 0 runs ``dataset.get`` over a batch's indices on a
+    thread pool (PIL's decode and the native pixel pipeline release the
+    GIL); each index keeps its own flip stream, so the batches do not depend
+    on the pool. ``prefetch`` > 0 makes the batches on a producer thread
+    (``dgtd-prefetch``), at most ``prefetch`` ahead of the consumer: it
+    decodes, collates and, for a CUDA device, pins the host arrays; the
+    consumer's thread issues the copies to the device (non-blocking, on its
+    current stream), so the producer launches no CUDA work. An exception in
+    the producer is raised in the consumer; an iterator that is closed or
+    dropped early releases the producer."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False, device: Optional[Union[str, torch.device]] = None):
+                 drop_last: bool = False, device: Optional[Union[str, torch.device]] = None,
+                 num_workers: int = 0, prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.device = None if device is None else torch.device(device)
+        self.prefetch = int(prefetch)
         self.epoch = 0
+        self._pool = ThreadPoolExecutor(max_workers=int(num_workers)) if num_workers and num_workers > 0 else None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -55,24 +73,84 @@ class DataLoader:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
         return idx
 
-    def _make_batch(self, indices) -> Dict[str, Any]:
+    def _host_batch(self, indices, epoch: int) -> Dict[str, Any]:
+        """The batch of these indices on the host: numpy arrays, or pinned
+        CPU tensors when the loader's device is CUDA."""
         train = getattr(self.dataset, "train_mode", False)
-        samples = [
-            self.dataset.get(int(i), np.random.default_rng((self.seed, self.epoch, int(i))) if train else None)
-            for i in indices
-        ]
+
+        def fetch(i):
+            return self.dataset.get(int(i), np.random.default_rng((self.seed, epoch, int(i))) if train else None)
+
+        samples = list(self._pool.map(fetch, indices)) if self._pool is not None else [fetch(i) for i in indices]
         batch = collate(samples)
         if self.device is not None:
-            batch = {
-                k: torch.from_numpy(v).to(self.device) if isinstance(v, np.ndarray) and k != "raw" else v
-                for k, v in batch.items()
-            }
+            pin = self.device.type == "cuda"
+            batch = {k: (torch.from_numpy(v).pin_memory() if pin else torch.from_numpy(v))
+                     if isinstance(v, np.ndarray) and k != "raw" else v
+                     for k, v in batch.items()}
         return batch
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        if self.device is None:
+            return batch
+        return {k: v.to(self.device, non_blocking=True) if isinstance(v, torch.Tensor) else v
+                for k, v in batch.items()}
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         idx = self._epoch_indices()
+        chunks = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
         # as in the JAX package, the counter moves on before the first batch
         # is made: epoch e shuffles with (seed, e) and flips with (seed, e + 1)
         self.epoch += 1
-        for i in range(len(self)):
-            yield self._make_batch(idx[i * self.batch_size : (i + 1) * self.batch_size])
+        epoch = self.epoch
+        if self.prefetch <= 0:
+            for c in chunks:
+                yield self._to_device(self._host_batch(c, epoch))
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # bounded put that gives up once the consumer has left the epoch
+            # (an exception in the step, the preemption return, a break): a
+            # producer blocked in q.put would keep its thread and its batches
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for c in chunks:
+                    if stop.is_set() or not put(self._host_batch(c, epoch)):
+                        return
+                put(sentinel)
+            except BaseException as e:  # noqa: BLE001
+                # raised in the consumer: swallowing it would cut the epoch short
+                put(e)
+
+        t = threading.Thread(target=producer, daemon=True, name="dgtd-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield self._to_device(item)
+        finally:
+            # on exhaustion and on GeneratorExit (close(), or the iterator
+            # dropped): release the producer and drop the queued batches
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=5.0)

@@ -6,7 +6,9 @@ forward kernel replaces the Pallas kernel, the backward is autograd through
 the plain version (the JAX backward is the VJP of ``_ln_reference``). Like
 the JAX kernel it is standalone: no model of the port calls it (the models
 use ``models/layers.py::LayerNorm``). CPU tensors take the plain version; a
-CUDA tensor gets the kernel or an exception.
+CUDA tensor gets the kernel or an exception. The kernel has three routes,
+picked by :func:`ln_route` (the lane-group route with 16-byte accesses, the
+scalar warp route, the block route).
 """
 
 from __future__ import annotations
@@ -30,6 +32,49 @@ def _fn():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
+
+
+#: the longest row the scalar and lane-group routes take; longer rows go to
+#: the block route
+WARP_MAX_C = 1024
+ROUTES = ("group", "scalar", "block")
+
+
+def ln_route(c: int, dtype: torch.dtype, x_addr: int = 0, out_addr: int = 0) -> str:
+    """Which kernel a call takes on CUDA, as ``csrc/layernorm.cu::ln_route``
+    decides it from C, the element size and the addresses of x and the
+    output: "group" (a row on a group of lanes with 16-byte accesses) where
+    C <= 1024, a row is a multiple of 16 bytes and both addresses are on a
+    16-byte boundary; "scalar" (a warp a row, scalar accesses) for the other
+    rows up to 1024; "block" (a block a row) beyond."""
+    if c > WARP_MAX_C:
+        return "block"
+    if c * (torch.finfo(dtype).bits // 8) % 16 or x_addr % 16 or out_addr % 16:
+        return "scalar"
+    return "group"
+
+
+def ln_group_shape(c: int, dtype: torch.dtype) -> tuple:
+    """(G, VPL) of the group route: the lanes a row takes (its 16-byte
+    vectors rounded up to a power of two, at most 32) and the vectors a lane
+    holds (rounded up to a power of two), as the kernel's template
+    instantiations take them."""
+    nvec = c * (torch.finfo(dtype).bits // 8) // 16
+    lanes = 1
+    while lanes < min(nvec, 32):
+        lanes *= 2
+    vpl = 1
+    while lanes * vpl < nvec:
+        vpl *= 2
+    return lanes, vpl
+
+
+def kernel_route(c: int, dtype: torch.dtype, x_addr: int, out_addr: int) -> str:
+    """The route the built kernel reports for these arguments (the card's
+    machine only: it builds the library)."""
+    fn = _build.function("layernorm", "dgtd_layer_norm_route",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    return ROUTES[fn(c, _build.DTYPE_CODES[dtype], x_addr, out_addr)]
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -57,22 +102,35 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
         raise ValueError("layer_norm needs a contiguous x")
 
 
-def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """The forward without autograd. On CUDA one launch of the kernel; on the
-    CPU the plain version."""
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernel reads scale and bias: fp32 and contiguous, converted
+    only when it is not already."""
+    t = t.detach()
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, out: torch.Tensor, eps: float) -> None:
+    """One launch of the kernel into ``out`` (x's shape and dtype, contiguous):
+    x, scale and bias as :func:`layer_norm_fwd` checks them, scale and bias
+    fp32 and contiguous."""
     global LAUNCHES
-    if x.device.type == "cpu" and scale.device.type == "cpu" and bias.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    _check(x, scale, bias)
-    out = torch.empty_like(x)
     c = x.shape[-1]
     dev, stream = _build.device_and_stream(x)
-    sf, bf = scale.detach().float().contiguous(), bias.detach().float().contiguous()
-    rc = _fn()(x.data_ptr(), sf.data_ptr(), bf.data_ptr(), out.data_ptr(), x.numel() // c, c, eps,
+    rc = _fn()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // c, c, eps,
                _build.DTYPE_CODES[x.dtype], dev, stream)
     if rc != 0:
         raise RuntimeError(f"layer_norm launch failed: cudaError {rc}")
     LAUNCHES += 1
+
+
+def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The forward without autograd. On CUDA one launch of the kernel; on the
+    CPU the plain version."""
+    if x.device.type == "cpu" and scale.device.type == "cpu" and bias.device.type == "cpu":
+        return layer_norm_plain(x, scale, bias, eps)
+    _check(x, scale, bias)
+    out = torch.empty_like(x)
+    launch(x, _fp32(scale), _fp32(bias), out, eps)
     return out
 
 

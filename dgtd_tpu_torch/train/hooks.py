@@ -1,7 +1,7 @@
-"""Runner hooks: logging, checkpointing, the models' pretrained-weight init
-(``our_init``, ``baseline_init``, ``PretrainInitHook``) and the val
-checkpoint (counterpart of ``dgtd_tpu/train/hooks.py``). ``ProfilerHook``
-waits for a later slice.
+"""Runner hooks: logging, checkpointing, a profiler trace of a window of
+steps, the models' pretrained-weight init (``our_init``, ``baseline_init``,
+``PretrainInitHook``) and the val checkpoint (counterpart of
+``dgtd_tpu/train/hooks.py``).
 """
 
 from __future__ import annotations
@@ -79,6 +79,66 @@ class LoggerHook(Hook):
         if not self.ignore_last and step != self._last_logged and self._pending is not None:
             self._emit(runner, step, self._pending)
         self._pending = None
+
+
+@HOOKS.register
+class ProfilerHook(Hook):
+    """A ``torch.profiler`` trace of train steps ``[start_step, start_step +
+    num_steps)`` (0-based; CPU activity, and CUDA activity on a card) into
+    ``work_dir/profile`` (or ``out_dir``) as a Chrome trace
+    (``trace_steps_<first>-<end>.json``, for Perfetto or chrome://tracing).
+    It starts at the first step boundary at or after ``start_step`` (a resumed
+    run past it logs ``profile_started_late``) and synchronizes the device
+    before it starts and before it stops; a trace still open when training
+    ends (a preemption, an exception) is closed then and logged with
+    ``truncated: true``."""
+
+    def __init__(self, start_step: int = 10, num_steps: int = 3, out_dir: Optional[str] = None):
+        self.start_step = start_step
+        self.num_steps = num_steps
+        self.out_dir = out_dir
+        self._prof = None
+        self._done = False
+        self._started_at = None
+
+    @staticmethod
+    def _sync(runner):
+        if runner.device.type == "cuda":
+            torch.cuda.synchronize(runner.device)
+
+    def after_train_iter(self, runner, metrics):
+        if self._done:
+            return
+        step = runner.host_step
+        if self._prof is None and step >= self.start_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if runner.device.type == "cuda" else [])
+            self._sync(runner)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+            self._started_at = step
+            if step != self.start_step:
+                runner.log({"profile_started_late": step, "configured": self.start_step})
+        elif self._prof is not None and step >= self._started_at + self.num_steps:
+            self._stop(runner, truncated=False)
+
+    def _stop(self, runner, truncated: bool) -> None:
+        self._sync(runner)
+        self._prof.stop()
+        out = self.out_dir or os.path.join(runner.work_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace_steps_{self._started_at}-{runner.host_step}.json")
+        self._prof.export_chrome_trace(path)
+        self._prof, self._done = None, True
+        rec = {"profile": path, "step": runner.host_step}
+        if truncated:
+            rec["truncated"] = True
+        runner.log(rec)
+
+    def after_train(self, runner):
+        if self._prof is not None:
+            self._stop(runner, truncated=True)
 
 
 @HOOKS.register

@@ -5,7 +5,11 @@ Builds the model, the loaders, the optimizer, the hooks, the evaluators and
 the visualization backends from a reference-schema recipe. ``train()`` runs
 the epoch loop with per-step lr, interval logging to ``work_dir/log.jsonl``,
 epoch checkpoints and validation every ``train_cfg.val_interval`` epochs, and
-resumes exactly, also from the middle of an epoch. ``val()`` runs the val
+resumes exactly, also from the middle of an epoch. SIGTERM or SIGINT during
+``train()`` saves ``preempt_step_N`` at the next step boundary and returns;
+the previous handlers are back when ``train()`` returns. Each loader decodes
+on the recipe's ``num_workers`` threads and prefetches ``prefetch`` batches
+(2 unless the loader's block says otherwise). ``val()`` runs the val
 pass: one forward a batch, the E/F/S/MAE statistics computed on the model's
 device (``metrics/device.py``) and the full maps only for host-only metrics
 or visualizations. One process: the gather of val metrics across ranks waits
@@ -16,7 +20,10 @@ from __future__ import annotations
 
 import json
 import os
+import signal
+import threading
 import time
+from contextlib import closing
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -49,6 +56,19 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _loader(cfg: dict, train: bool, seed: int, device: torch.device) -> DataLoader:
+    """A loader block's loader: shuffled and without a ragged last batch
+    when it trains; in order, every image, when it validates (the parity
+    reduction depends on the order). ``num_workers`` decode threads and
+    ``prefetch`` batches ahead, as the block says."""
+    sampler = cfg.get("sampler", {}) or {}
+    return DataLoader(
+        DATASETS.build(cfg["dataset"]), int(cfg.get("batch_size", 1)),
+        shuffle=bool(sampler.get("shuffle", train)), seed=seed, drop_last=train, device=device,
+        num_workers=int(cfg.get("num_workers", 0)), prefetch=int(cfg.get("prefetch", 2)),
+    )
+
+
 def _host_plane(x) -> np.ndarray:
     """A label or depth batch on the host as float32 in [0, 1]."""
     a = _host(x)
@@ -75,11 +95,7 @@ class Runner:
         if mode == "train":
             if "dataset" not in loader_cfg:
                 raise ValueError("the recipe has no train_dataloader.dataset")
-            sampler = loader_cfg.get("sampler", {}) or {}
-            self.train_loader = DataLoader(
-                DATASETS.build(loader_cfg["dataset"]), self.batch_size,
-                shuffle=bool(sampler.get("shuffle", True)), seed=seed, drop_last=True, device=self.device,
-            )
+            self.train_loader = _loader(loader_cfg, True, seed, self.device)
         # built now when training will validate, so that a missing val folder
         # fails before the first step; a recipe with no val data trains
         # without; otherwise built by the first val()
@@ -92,7 +108,7 @@ class Runner:
         self.model = MODELS.build(dict(cfg["model"]), dtype=dtype, seed=seed).to(self.device)
         self.optimizer = Optimizer(self.model.named_parameters(), cfg.get("optim_wrapper", {}) or {},
                                    self.max_epochs, self.steps_per_epoch,
-                                   frozen_prefixes=self.model.frozen_param_prefixes)
+                                   frozen_prefixes=self.model.frozen_param_prefixes, model_cfg=cfg["model"])
         self.hooks = [HOOKS.build(h) for h in (cfg.get("default_hooks") or {}).values()]
         self.hooks += [HOOKS.build(h) for h in cfg.get("custom_hooks") or []]
         self.hooks.sort(key=lambda h: h.priority)
@@ -112,13 +128,7 @@ class Runner:
         loader_cfg = self.cfg.get("val_dataloader") or {}
         if "dataset" not in loader_cfg:
             raise ValueError("the recipe has no val_dataloader.dataset")
-        sampler = loader_cfg.get("sampler", {}) or {}
-        # in order, every image: the parity reduction depends on the order,
-        # and a ragged last batch is evaluated
-        return DataLoader(
-            DATASETS.build(loader_cfg["dataset"]), int(loader_cfg.get("batch_size", 1)),
-            shuffle=bool(sampler.get("shuffle", False)), seed=self.seed, drop_last=False, device=self.device,
-        )
+        return _loader(loader_cfg, False, self.seed, self.device)
 
     def log(self, record: Dict[str, Any]) -> None:
         line = json.dumps(record)
@@ -176,21 +186,54 @@ class Runner:
         self.resumed = True
         self.log({"resumed_at_epoch": self.epoch, "step": self.host_step, "skip_batches": self._resume_skip})
 
+    def _install_preemption_handler(self) -> Dict[int, Any]:
+        """SIGTERM and SIGINT request a checkpoint at the next step boundary
+        (main thread only: a signal handler cannot be set elsewhere).
+        Returns the handlers they replace."""
+        self._stop_requested = False
+        if threading.current_thread() is not threading.main_thread():
+            return {}
+
+        def handler(signum, frame):
+            self._stop_requested = True
+
+        return {sig: signal.signal(sig, handler) for sig in (signal.SIGTERM, signal.SIGINT)}
+
     def train(self) -> Dict[str, Any]:
         """Run the epochs left; returns {"steps", "loop_s"}: the steps this
-        call took and the seconds from the first hook to the last."""
+        call took and the seconds from the first hook to the last, and
+        "preempted" (the checkpoint's path) when a signal ended the run."""
         if self.train_loader is None:
             raise ValueError("a val-only Runner (mode='val') has no train loader")
         t0, first = time.perf_counter(), self.host_step
+        previous = self._install_preemption_handler()
         try:
             for h in self.hooks:
                 h.before_train(self)
-            while self.epoch < self.max_epochs:
-                self.epoch += 1
-                for h in self.hooks:
-                    h.before_train_epoch(self)
-                skip, self._resume_skip = self._resume_skip, 0
-                for i, batch in enumerate(self.train_loader):
+            preempted = self._epochs()
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, h)
+            for h in self.hooks:
+                h.after_train(self)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out = {"steps": self.host_step - first, "loop_s": time.perf_counter() - t0}
+        if preempted:
+            out["preempted"] = preempted
+        return out
+
+    def _epochs(self) -> Optional[str]:
+        """The epoch loop; returns the preemption checkpoint's path if a
+        signal ended it, else None. The loader's iterator is closed on every
+        way out of an epoch, so its prefetch thread never outlives it."""
+        while self.epoch < self.max_epochs:
+            self.epoch += 1
+            for h in self.hooks:
+                h.before_train_epoch(self)
+            skip, self._resume_skip = self._resume_skip, 0
+            with closing(iter(self.train_loader)) as batches:
+                for i, batch in enumerate(batches):
                     if i < skip:
                         continue
                     arrays = {k: batch[k] for k in ("input", "label", "depth")}
@@ -198,16 +241,15 @@ class Runner:
                     self.host_step += 1
                     for h in self.hooks:
                         h.after_train_iter(self, aux)
-                for h in self.hooks:
-                    h.after_train_epoch(self)
-                if self.val_loader is not None and self.val_interval and self.epoch % self.val_interval == 0:
-                    self.val(during_train=True)
-        finally:
+                    if self._stop_requested:
+                        path = self.save_checkpoint(f"preempt_step_{self.host_step}")
+                        self.log({"preempted": True, "checkpoint": path})
+                        return path
             for h in self.hooks:
-                h.after_train(self)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return {"steps": self.host_step - first, "loop_s": time.perf_counter() - t0}
+                h.after_train_epoch(self)
+            if self.val_loader is not None and self.val_interval and self.epoch % self.val_interval == 0:
+                self.val(during_train=True)
+        return None
 
     # ---------------------------------------------------------------- val
 
@@ -241,19 +283,20 @@ class Runner:
         host_metrics = [m for m in self.metrics if m not in stats_metrics]
         n_images = 0
         t0 = time.perf_counter()
-        for batch in self.val_loader:
-            prob, extras = self._predict(batch["input"], batch["depth"])
-            n_images += prob.shape[0]
-            if stats_metrics:
-                stats = statistics_to_host(batch_statistics(prob, scale_plane(batch["label"])))
-                for m in stats_metrics:
-                    m.process_stats(stats)
-            if host_metrics or save_visualizations:
-                prob_np, label_np = _host(prob), _host_plane(batch["label"])
-                for m in host_metrics:
-                    m.process(prob_np, label_np)
-                if save_visualizations:
-                    self._dump_visualizations(vis_dir, batch, prob_np, extras)
+        with closing(iter(self.val_loader)) as batches:
+            for batch in batches:
+                prob, extras = self._predict(batch["input"], batch["depth"])
+                n_images += prob.shape[0]
+                if stats_metrics:
+                    stats = statistics_to_host(batch_statistics(prob, scale_plane(batch["label"])))
+                    for m in stats_metrics:
+                        m.process_stats(stats)
+                if host_metrics or save_visualizations:
+                    prob_np, label_np = _host(prob), _host_plane(batch["label"])
+                    for m in host_metrics:
+                        m.process(prob_np, label_np)
+                    if save_visualizations:
+                        self._dump_visualizations(vis_dir, batch, prob_np, extras)
         results: Dict[str, float] = {}
         for m in self.metrics:
             results.update(m.compute())

@@ -848,6 +848,76 @@ def test_cuda_layer_norm_matches_plain(cuda, c):
         torch.testing.assert_close(outb.float(), L.layer_norm_plain(xb, s, b, 1e-5).float(), **LN_BF16_TOL)
 
 
+# the LayerNorm widths chip_smoke.py's phase 13 drives: the lane-group
+# route's lane counts 1..32 and 1, 2, 4, 8 vectors a lane, C = 130 (a row
+# not a multiple of 16 bytes: the scalar route) and C = 2048 (the block route)
+LN_ROUTE_CS = (8, 24, 64, 128, 256, 512, 1024, 130, 2048)
+LN_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _ln_expected_route(c, aligned):
+    if c > L.WARP_MAX_C:
+        return "block"
+    return "group" if aligned and c != 130 else "scalar"
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("c", LN_ROUTE_CS)
+def test_layer_norm_route_chooser(c, dtype):
+    """The route for each (C, dtype, alignment) of phase 13: a view one
+    element off a 16-byte boundary (x[1:] of a flat buffer) leaves the
+    lane-group route for the scalar one."""
+    dt = LN_DTYPES[dtype]
+    esize = torch.finfo(dt).bits // 8
+    assert L.ln_route(c, dt, 4096, 8192) == _ln_expected_route(c, True)
+    assert L.ln_route(c, dt, 4096 + esize, 8192) == _ln_expected_route(c, False)
+    assert L.ln_route(c, dt, 4096, 8192 + esize) == _ln_expected_route(c, False)
+
+
+def test_layer_norm_group_shape():
+    """G lanes a row (its 16-byte vectors rounded up to a power of two) and
+    the vectors a lane holds: C = 64 bf16 is 8 lanes (4 rows a warp); 24
+    bf16 is 3 vectors on 4 lanes, 24 fp32 6 on 8; past 32 vectors a lane
+    holds several."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert L.ln_group_shape(64, bf) == (8, 1) and L.ln_group_shape(64, f32) == (16, 1)
+    assert L.ln_group_shape(128, bf) == (16, 1) and L.ln_group_shape(256, bf) == (32, 1)
+    assert L.ln_group_shape(24, bf) == (4, 1) and L.ln_group_shape(24, f32) == (8, 1)
+    assert L.ln_group_shape(8, bf) == (1, 1) and L.ln_group_shape(8, f32) == (2, 1)
+    assert L.ln_group_shape(512, bf) == (32, 2) and L.ln_group_shape(1024, bf) == (32, 4)
+    assert L.ln_group_shape(1024, f32) == (32, 8)
+
+
+def _ln_misaligned(t):
+    """A contiguous copy of t one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("c", LN_ROUTE_CS)
+def test_cuda_layer_norm_routes_match_plain(cuda, c, dtype, aligned):
+    """Each route against the plain version at phase 13's widths, on a row
+    count that no block or warp divides, mean-0 and mean-100 rows; the
+    kernel reports the route ln_route predicts."""
+    dt = LN_DTYPES[dtype]
+    for mean in (0.0, 100.0):
+        x, s, b = _ln_inputs(c + int(mean), 1001, c, mean, cuda)
+        x = x.to(dt) if aligned else _ln_misaligned(x.to(dt))
+        out = torch.empty_like(x)
+        route = L.ln_route(c, dt, x.data_ptr(), out.data_ptr())
+        assert route == _ln_expected_route(c, aligned)
+        assert L.kernel_route(c, dt, x.data_ptr(), out.data_ptr()) == route
+        before = L.LAUNCHES
+        L.launch(x, s, b, out, 1e-5)
+        torch.cuda.synchronize()
+        assert L.LAUNCHES == before + 1
+        tol = LN_FP32_TOL[mean] if dt == torch.float32 else LN_BF16_TOL
+        torch.testing.assert_close(out.float(), L.layer_norm_plain(x, s, b, 1e-5).float(), **tol)
+
+
 @pytest.mark.cuda
 def test_cuda_layer_norm_refuses_bad_inputs(cuda):
     x, s, b = _ln_inputs(0, 8, 16, device=cuda)

@@ -112,17 +112,19 @@ def _assert_items_equal(got, ref, label):
             np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{label} {k}")
 
 
+@pytest.mark.parametrize("pipeline", ["pil", "native"])
 @pytest.mark.parametrize("uint8_io", [False, True], ids=["float", "uint8_io"])
 @pytest.mark.parametrize("name", FOLDER_NAMES)
-def test_folder_dataset_matches_jax(trees, name, uint8_io):
+def test_folder_dataset_matches_jax(trees, name, uint8_io, pipeline):
     port_cls, jax_cls = getattr(PD, name), getattr(JD, name)
     assert PD.DATASETS.get(name) is port_cls
     for attr in CLASS_ATTRS:
         assert getattr(port_cls, attr) == getattr(jax_cls, attr), attr
     root = trees["cod10k" if name == "COD10K_TEST" else "plain"]
     kw = dict(data_dir=root, depth_dir="Depth", split="train" if port_cls.train_mode else "val",
-              image_size=None if uint8_io else 48, uint8_io=uint8_io)
+              image_size=None if uint8_io else 48, uint8_io=uint8_io, pipeline=pipeline)
     port, ref = port_cls(**kw), jax_cls(**kw)
+    assert ref.pipeline == pipeline  # the JAX package did not fall back to PIL
     assert (port.images, port.gts, port.depths) == (ref.images, ref.gts, ref.depths)
     assert len(port) == len(SIZES) - 1 and not any(f"item{MISMATCH}" in p for p in port.images)
     assert port.size == ref.size
@@ -143,8 +145,8 @@ def test_folder_dataset_refusals(trees, tmp_path):
         PD.SOD_TEST(root, "Depth", "train")
     with pytest.raises(NotImplementedError, match="Unsupported split"):
         PD.SOD_TEST(root, "Depth", "holdout")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        PD.SOD_TEST(root, "Depth", "val", pipeline="native")
+    with pytest.raises(ValueError, match="unknown pipeline"):
+        PD.SOD_TEST(root, "Depth", "val", pipeline="opencv")
     # a depth directory that does not pair 1:1 raises, in both packages
     part = tmp_path / "partial"
     _make_tree(str(part))
