@@ -160,8 +160,29 @@ Phases (any failure exits non-zero):
      baseline and DQnet, fp32 on the card against the CPU;
  18. the device time per call of every stencil kernel timed in phases 5, 9,
      12, 14 and 17, of every MSDA kernel timed in phase 11 and of the
-     LayerNorm kernel timed in phase 13, from ``torch.profiler`` (last, so
-     that its tracing cannot slow the host-bound timings).
+     LayerNorm kernel timed in phase 13, from ``torch.profiler`` (after
+     the in-process phases, so that its tracing cannot slow their
+     host-bound timings);
+ 19. data parallelism, in processes of their own: full-width ``cod`` at the
+     recipe (384², global batch 10, ``configs/cod.yml``'s optimizer), fp32
+     with TF32 off, 3 train steps in one process and on 2 gloo ranks of the
+     card (5 rows each; NCCL refuses two ranks on one GPU) from the same
+     seed and synthetic batches: each step's loss, the parameters and the
+     BatchNorm statistics after step 3 held to the one-process run, the
+     ranks bit-equal, one fused stencil forward and one backward a step on
+     each rank; then 3 bf16 steps on the ranks, ms a step and the seconds
+     of the gradient all-reduce;
+ 20. the train CLI under ``torchrun --standalone --nproc_per_node=1`` (one
+     NCCL rank, ``configs/cod.yml``, 2 steps at batch 10 on synthetic
+     data): its ``log.jsonl`` (the ``dist`` record, finite losses), its
+     ``epoch_1.pth`` loaded into the model; ``-o dist.space=2`` exits with
+     the NotImplementedError;
+ 21. ``parallel/spatial.py::spatial_diffusion`` on 2 gloo ranks of the card
+     (k = 7, 4 steps, fp32 and bf16) against the unsharded
+     ``diffusion_planes`` on the same tensors: x (1,512,512,24), whose
+     halo'd shards take the tiled kernel, (8,64,64,24) the cluster kernel
+     and (8,12,12,24) the fused kernel, one launch a step a shard; the halo
+     exchange's and one stencil step's ms apart.
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
@@ -172,8 +193,10 @@ plan, bf16 and encoder-grid times; the NHWC rows are the plane kernel
 and the grid kernel, each with its device ms and the per-step kernel's ms
 on the same tensors, and the per-step kernel on its own route), a
 served-throughput line, a ``trained``, a ``grid64``,
-a ``val``, a ``variants`` and an ``msda`` JSON line, each with the card's
-name and power limit; the last line is
+a ``val``, a ``variants``, an ``msda``, a ``data_parallel`` and a
+``spatial`` JSON line, each with the card's name and power limit (the
+fused rows of ``kernels`` also carry phase 19's launches, the fused,
+cluster and tiled forward rows phase 21's); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -297,6 +320,26 @@ VARIANT_LR_KEYS = {"DQnet": "{'backbone': {'lr_mult': 0.2}}", "pure_hitnet": "{'
 # nondeterministic) sum in another order each run, so two runs without
 # remat differ too (the ``variants`` line prints both spreads)
 REMAT_NOISE_FACTOR = 1.5
+# phase 19: data parallelism at full width, DP_RANKS gloo ranks on the one
+# card (NCCL refuses two ranks on one GPU) against one process, DP_STEPS
+# steps at the recipe's global batch, fp32 with TF32 off
+# (tests/test_torch_train.py's bar for 3 AdamW steps): the loss to 1e-4
+# relative, the BatchNorm statistics and the parameters to rtol 1e-4 / atol
+# 1e-5, except a share of at most DP_FAR_SHARE of the parameters' entries that
+# Adam's first steps move by up to lr a step the other way on a near-zero
+# gradient (within 3·2·lr); then DP_STEPS bf16 steps on the ranks, timed
+DP_RANKS, DP_STEPS = 2, 3
+DP_LOSS_RTOL, DP_TOL, DP_FAR_SHARE = 1e-4, dict(rtol=1e-4, atol=1e-5), 1e-3
+DP_BN_KEYS = ("running_mean", "running_var", "num_batches_tracked")
+# phase 20: the train CLI under torchrun, one rank on NCCL, 2 steps
+TORCHRUN_N, TORCHRUN_TIMEOUT_S = 2 * TRAIN_BATCH, 600
+# phase 21: spatial_diffusion on SPATIAL_RANKS gloo ranks of the card against
+# the unsharded op: docs/SERVING.md's diffusion block (the halo'd 262x512
+# shard takes the tiled kernel at one step), a grid-64 batch (38x64: the
+# cluster kernel) and the recipe's grid-12 batch (12x12: the fused kernel);
+# k = 7, 4 steps, C = 24, fp32 and bf16 at PERF.md §2's stencil bars
+SPATIAL_RANKS = 2
+SPATIAL_CASES = (((1, 512, 512, 24), "tiled"), ((8, 64, 64, 24), "cluster"), ((8, 12, 12, 24), "fused"))
 # H100 SXM peaks: HBM bytes/s; fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 SOURCES = ["diffusion_stencil", "diffusion_stencil_bwd", "msda_fwd", "msda_bwd", "layernorm"]
@@ -1362,6 +1405,326 @@ def variants_phase(D, MD, P, card):
         "_kernel13": {"fwd": k13_row["launches_train"][4] + k13_row["launches_served"][4],
                       "bwd": k13_row["launches_train"][5], "rows": k13_rows},
     }
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def dp_rank(rank, world, init_file, out_dir, dtype_names):
+    """One process of phase 19: rank ``rank`` of ``world`` gloo ranks on the
+    card (``world`` 1: one process, no group). For each dtype it builds
+    full-width ``cod`` from seed 0 and takes DP_STEPS train steps of the
+    recipe's optimizer on its rows of the same synthetic global batches
+    (``DataLoader(rank=, world=)``), with each step's loss (the global
+    batch's), ms, stencil launches and the seconds of the gradient
+    all-reduce; then checks that every rank holds the same parameters and
+    statistics bit for bit. The fp32 run's rank 0 saves its state for the
+    comparison with one process."""
+    import torch
+    import torch.distributed as dist
+
+    from dgtd_tpu_torch.core.config import load_config
+    from dgtd_tpu_torch.data.datasets import SyntheticSODDataset
+    from dgtd_tpu_torch.data.loader import DataLoader
+    from dgtd_tpu_torch.models.cod import cod
+    from dgtd_tpu_torch.ops import diffusion as D
+    from dgtd_tpu_torch.train import state as S
+    from dgtd_tpu_torch.train.optim import Optimizer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if world > 1:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    dev = torch.device("cuda", 0)
+    cfg = load_config(os.path.join(ROOT, "configs", "cod.yml"))
+    reduce_s = []
+    reduce_grads = S.all_mean_
+
+    def timed_reduce(tensors, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_grads(tensors, group)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    S.all_mean_ = timed_reduce
+    out = {}
+    for name in dtype_names:
+        reduce_s.clear()
+        model = cod(dtype=getattr(torch, name), seed=0).to(dev)
+        loader = DataLoader(SyntheticSODDataset(n=DP_STEPS * TRAIN_BATCH, size=SIZE), TRAIN_BATCH, shuffle=True,
+                            seed=0, drop_last=True, device=dev, rank=rank, world=world)
+        opt = Optimizer(model.named_parameters(), cfg["optim_wrapper"], int(cfg["train_cfg"]["max_epochs"]),
+                        len(loader), frozen_prefixes=model.frozen_param_prefixes, model_cfg=cfg["model"])
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for step, batch in enumerate(loader):
+            reset_plane_launches(D)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = S.train_step(model, opt, {k: batch[k] for k in ("input", "label", "depth")}, step, seed=1)
+            loss = float(aux["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3, "rows": int(batch["input"].shape[0]),
+                          "launches": plane_launches(D)})
+        state = model.state_dict()
+        equal = True
+        if world > 1:
+            flat = torch.cat([v.contiguous().reshape(-1).view(torch.uint8) for v in state.values()])
+            theirs = flat.clone()
+            dist.broadcast(theirs, src=0)
+            flag = torch.tensor([int(torch.equal(flat, theirs))])
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            equal = bool(flag.item())
+            del flat, theirs
+        if name == "float32" and rank == 0:
+            torch.save({k: v.cpu() for k, v in state.items()}, os.path.join(out_dir, f"dp_state_{world}.pt"))
+        out[name] = {"steps": steps, "reduce_s": list(reduce_s), "bit_equal": equal,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(), "lr": opt.base_lr}
+        del model, opt, state
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"dp_{world}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if world > 1:
+        dist.destroy_process_group()
+
+
+def dp_phase(card):
+    """Phase 19: full-width ``cod`` trained DP_STEPS steps in one process
+    and on DP_RANKS gloo ranks of the card from the same seed and batches,
+    then DP_STEPS bf16 steps on the ranks (``dp_rank``)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    say(f"phase 19: data parallelism: full-width cod, {DP_STEPS} train steps at a global batch of {TRAIN_BATCH} "
+        f"({SIZE}², configs/cod.yml's optimizer), fp32 (TF32 off) in one process and on {DP_RANKS} gloo ranks of "
+        f"the card ({TRAIN_BATCH // DP_RANKS} rows each); then {DP_STEPS} bf16 steps on the ranks")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        mp.spawn(dp_rank, args=(1, None, tmp, ("float32",)), nprocs=1)
+        mp.spawn(dp_rank, args=(DP_RANKS, os.path.join(tmp, "init"), tmp, ("float32", "bfloat16")), nprocs=DP_RANKS)
+        single = read_json(os.path.join(tmp, "dp_1_0.json"))["float32"]
+        ranks = [read_json(os.path.join(tmp, f"dp_{DP_RANKS}_{r}.json")) for r in range(DP_RANKS)]
+        ref = torch.load(os.path.join(tmp, "dp_state_1.pt"))
+        got = torch.load(os.path.join(tmp, f"dp_state_{DP_RANKS}.pt"))
+    lr = single["lr"]
+    for i, s in enumerate(single["steps"]):
+        for r in ranks:
+            d = r["float32"]["steps"][i]
+            check(abs(d["loss"] - s["loss"]) <= DP_LOSS_RTOL * abs(s["loss"]),
+                  f"step {i}: loss {d['loss']} on {DP_RANKS} ranks vs {s['loss']} in one process")
+    for r, res in enumerate(ranks):
+        for name, run in res.items():
+            check(run["bit_equal"], f"{name}: the ranks' parameters and statistics differ")
+            check(all(st["rows"] == TRAIN_BATCH // DP_RANKS for st in run["steps"]), f"rank {r} rows {run['steps']}")
+            check(all(tuple(st["launches"]) == launch_tuple("fused", 1, 1) for st in run["steps"]),
+                  f"rank {r} {name}: stencil launches a step {[st['launches'] for st in run['steps']]}")
+    check(all(tuple(st["launches"]) == launch_tuple("fused", 1, 1) for st in single["steps"]), single["steps"])
+    far = total = 0
+    worst_bn = worst_param = 0.0
+    for k, v in ref.items():
+        g = got[k]
+        if k.endswith(DP_BN_KEYS):
+            torch.testing.assert_close(g, v, **DP_TOL, msg=lambda m, k=k: f"{k} on {DP_RANKS} ranks vs one process: {m}")
+            worst_bn = max(worst_bn, float((g.double() - v.double()).abs().max()))
+            continue
+        diff = (g - v).abs()
+        worst_param = max(worst_param, float(diff.max()))
+        check(float(diff.max()) <= 3 * 2 * lr, f"{k}: {float(diff.max())} > 3·2·lr")
+        far += int((diff > DP_TOL["atol"] + DP_TOL["rtol"] * v.abs()).sum())
+        total += v.numel()
+    check(far <= DP_FAR_SHARE * total, f"{far} of {total} parameter entries outside rtol/atol")
+    del ref, got
+    row = {
+        "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seed 0", "size": SIZE, "global_batch": TRAIN_BATCH,
+        "ranks": DP_RANKS, "backend": "gloo (two ranks on one card; NCCL refuses that)", "steps": DP_STEPS,
+        "fp32_one_process": single["steps"],
+        "fp32_ranks": [r["float32"] for r in ranks], "bf16_ranks": [r["bfloat16"] for r in ranks],
+        "params_outside_tol": far, "param_entries": total, "max_param_diff": worst_param,
+        "max_bn_stat_diff": worst_bn, "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    for i, s in enumerate(single["steps"]):
+        say(f"  step {i + 1} fp32: loss one process {s['loss']:.7f}, {DP_RANKS} ranks "
+            f"{', '.join(format(r['float32']['steps'][i]['loss'], '.7f') for r in ranks)}; ms one process "
+            f"{s['ms']:.1f}, ranks {', '.join(format(r['float32']['steps'][i]['ms'], '.1f') for r in ranks)}")
+    say(f"  after {DP_STEPS} steps: {far} of {total} parameter entries outside rtol 1e-4 / atol 1e-5 (limit "
+        f"{DP_FAR_SHARE:g} of them), largest parameter difference {worst_param:.3e} (limit {3 * 2 * lr:g}), "
+        f"BatchNorm statistics within tolerance (largest difference {worst_bn:.3e}); the ranks bit-equal; one "
+        f"fused forward and one fused backward a step on each rank")
+    for r, res in enumerate(ranks):
+        b16 = res["bfloat16"]
+        say(f"  rank {r} bf16: ms a step {[round(st['ms'], 1) for st in b16['steps']]}, of which the gradient "
+            f"all-reduce (gloo, through the host) {[round(t * 1e3, 1) for t in b16['reduce_s']]}; peak memory "
+            f"{b16['peak_memory_bytes'] / 2**30:.2f} GiB [{card}]")
+    return row
+
+
+def torchrun_phase(card):
+    """Phase 20: ``torchrun --standalone --nproc_per_node=1 -m
+    dgtd_tpu_torch.train configs/cod.yml`` (one rank, NCCL) for 2 steps on
+    synthetic data: its log, a checkpoint that loads into the model; then
+    ``-o dist.space=2`` under torchrun fails with the NotImplementedError."""
+    import torch
+
+    from dgtd_tpu_torch.models.cod import cod
+
+    steps = TORCHRUN_N // TRAIN_BATCH
+    say(f"phase 20: the train CLI under torchrun --standalone --nproc_per_node=1 (NCCL): configs/cod.yml, "
+        f"{steps} steps at batch {TRAIN_BATCH}, {SIZE}², bf16; then -o dist.space=2")
+    t_phase = time.perf_counter()
+    recipe = os.path.join(ROOT, "configs", "cod.yml")
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+                "-m", "dgtd_tpu_torch.train", recipe]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_torchrun_") as tmp:
+        work = os.path.join(tmp, "run")
+        ovs = [f"work_dir={work}", "train_cfg.max_epochs=1", "train_cfg.val_interval=0",
+               f"train_dataloader.batch_size={TRAIN_BATCH}",
+               f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {TORCHRUN_N}, 'size': {SIZE}}}",
+               "default_hooks.logger.interval=1", "default_hooks.checkpoint.interval=1"]
+        argv = launcher + [a for o in ovs for a in ("-o", o)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=TORCHRUN_TIMEOUT_S)
+        run_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"torchrun exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(work, "log.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        check(records[0] == {"dist": {"backend": "nccl", "world": 1}}, f"first record {records[0]}")
+        losses = [r["loss"] for r in records if "loss" in r]
+        check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+        ckpt = os.path.join(work, "epoch_1.pth")
+        check(any(r.get("checkpoint") == ckpt for r in records), f"no checkpoint record for {ckpt}")
+        state = torch.load(ckpt, map_location="cpu", weights_only=True)
+        check(state["meta"] == {"epoch": 1, "iter": steps}, state["meta"])
+        cod(seed=None).load_state_dict(state["state_dict"])
+        del state
+        refused = subprocess.run(argv + ["-o", "dist.space=2"], cwd=ROOT, capture_output=True, text=True,
+                                 timeout=TORCHRUN_TIMEOUT_S)
+        check(refused.returncode != 0 and "NotImplementedError" in refused.stderr and "A13b" in refused.stderr,
+              f"dist.space=2 exited {refused.returncode}:\n{refused.stderr[-3000:]}")
+    row = {"launcher": "torchrun --standalone --nproc_per_node=1", "backend": "nccl", "steps": steps,
+           "losses": losses, "run_s": run_s, "checkpoint_loaded": True, "dist_space_2": "NotImplementedError",
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    say(f"  {steps} steps on one NCCL rank, losses {losses}, {run_s:.1f} s with the launcher; epoch_1.pth loads "
+        f"into cod; -o dist.space=2 exits {refused.returncode} with NotImplementedError (ROADMAP A13b) [{card}]")
+    return row
+
+
+def spatial_inputs(shape, dtype, seed):
+    """The x (B, H, W, C) and normalized w (B, H, W, C, k²) of a spatial
+    case, the same in every process from ``seed``."""
+    import torch
+
+    from dgtd_tpu_torch.models import diffusion as MD
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=g, device="cuda")
+    w = MD.normalize_affinity(torch.rand(*shape, KERNEL * KERNEL, generator=g, device="cuda"), dim=-1)
+    return x.to(dtype), w.to(dtype)
+
+
+def spatial_rank(rank, world, init_file, out_dir):
+    """One rank of phase 21: ``spatial_diffusion`` on its rows of every
+    SPATIAL_CASES case, fp32 and bf16; the launches by route; one step's
+    exchange and stencil timed apart. Saves its shards and timings."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from dgtd_tpu_torch.ops import diffusion as D
+    from dgtd_tpu_torch.parallel import spatial as SP
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    r = KERNEL // 2
+    out = {}
+    for i, (shape, _) in enumerate(SPATIAL_CASES):
+        for name in ("float32", "bfloat16"):
+            x, w = spatial_inputs(shape, getattr(torch, name), i)
+            xs, ws = SP.shard_rows(x).contiguous(), SP.shard_rows(w).contiguous()
+            del x, w
+            SP.spatial_diffusion(xs, ws, KERNEL, STEPS)  # warm-up
+            reset_plane_launches(D)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = SP.spatial_diffusion(xs, ws, KERNEL, STEPS)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+            launches = plane_launches(D)
+            # one step's two parts apart: the halo exchange, then the stencil
+            b, hs, wd, c = xs.shape
+            planes = xs.permute(0, 3, 1, 2).reshape(b * c, hs, wd).contiguous()
+            wp = F.pad(ws.permute(0, 3, 4, 1, 2).reshape(b * c, KERNEL ** 2, hs, wd), (0, 0, r, r)).contiguous()
+            ex = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                halo = SP.exchange_halos(planes, r)
+                torch.cuda.synchronize()
+                ex.append((time.perf_counter() - t0) * 1e3)
+            stencil_ms = cuda_time_ms(lambda: D.diffusion_planes(halo, wp, KERNEL, 1), 20, warmup=3)
+            out[f"{i}_{name}"] = {"shard": list(xs.shape), "halo_plane": [hs + 2 * r, wd],
+                                  "route": D.plane_route(hs + 2 * r, wd, KERNEL, xs.dtype, 1),
+                                  "launches": launches, "call_ms": call_ms, "exchange_ms": sorted(ex)[len(ex) // 2],
+                                  "stencil_ms": stencil_ms}
+            torch.save(res.cpu(), os.path.join(out_dir, f"spatial_{i}_{name}_{rank}.pt"))
+            del xs, ws, res, planes, wp, halo
+            torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"spatial_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def spatial_phase(D, card):
+    """Phase 21: ``parallel/spatial.py::spatial_diffusion`` on SPATIAL_RANKS
+    gloo ranks of the card (``spatial_rank``), its shards joined and held to
+    the unsharded ``diffusion_planes`` on the same tensors."""
+    import torch
+    import torch.multiprocessing as mp
+
+    say(f"phase 21: spatial_diffusion on {SPATIAL_RANKS} gloo ranks of the card (H sharded, {KERNEL // 2}-row halos "
+        f"through the host), k={KERNEL}, {STEPS} steps, against the unsharded diffusion_planes: "
+        + ", ".join(f"x {shape} ({route})" for shape, route in SPATIAL_CASES))
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        mp.spawn(spatial_rank, args=(SPATIAL_RANKS, os.path.join(tmp, "init"), tmp), nprocs=SPATIAL_RANKS)
+        per_rank = [read_json(os.path.join(tmp, f"spatial_{r}.json")) for r in range(SPATIAL_RANKS)]
+        for i, (shape, route) in enumerate(SPATIAL_CASES):
+            for name in ("float32", "bfloat16"):
+                dt = getattr(torch, name)
+                key = f"{i}_{name}"
+                x, w = spatial_inputs(shape, dt, i)
+                b, h, wd, c = shape
+                ref = D.diffusion_planes(x.permute(0, 3, 1, 2).reshape(b * c, h, wd).contiguous(),
+                                         w.permute(0, 3, 4, 1, 2).reshape(b * c, KERNEL ** 2, h, wd).contiguous(),
+                                         KERNEL, STEPS).reshape(b, c, h, wd).permute(0, 2, 3, 1).float().cpu()
+                del x, w
+                got = torch.cat([torch.load(os.path.join(tmp, f"spatial_{i}_{name}_{r}.pt"))
+                                 for r in range(SPATIAL_RANKS)], dim=1).float()
+                tol = FP32_TOL if dt == torch.float32 else dict(rtol=0, atol=BF16_ATOL)
+                torch.testing.assert_close(got, ref, **tol, msg=lambda m: f"spatial {shape} {name}: {m}")
+                err = float((got - ref).abs().max())
+                for r, res in enumerate(per_rank):
+                    row = res[key]
+                    check(row["route"] == route and tuple(row["launches"]) == launch_tuple(route, STEPS),
+                          f"spatial {shape} {name} rank {r}: route {row['route']}, launches {row['launches']}")
+                rows[key] = {"shape": list(shape), "dtype": name, "route": route, "max_abs_err": err,
+                             "ranks": [res[key] for res in per_rank]}
+                say(f"  x {shape} {name}: shards {per_rank[0][key]['shard']}, halo'd planes "
+                    f"{per_rank[0][key]['halo_plane']} on the {route} kernel, {STEPS} launches a shard "
+                    f"({LAUNCH_NAMES}: {per_rank[0][key]['launches']}); max_abs_err {err:.3e}; a step: exchange "
+                    f"{', '.join(format(res[key]['exchange_ms'], '.3f') for res in per_rank)} ms, stencil "
+                    f"{', '.join(format(res[key]['stencil_ms'], '.4f') for res in per_rank)} ms; a call "
+                    f"{', '.join(format(res[key]['call_ms'], '.2f') for res in per_rank)} ms [{card}]")
+                del ref, got
+    return {"ranks": SPATIAL_RANKS, "kernel": KERNEL, "steps": STEPS, "backend": "gloo", "cases": rows,
+            "phase_s": time.perf_counter() - t_phase, "card": card}
 
 
 def main():
@@ -2534,11 +2897,18 @@ def run(keep):
     del device_calls
     torch.cuda.empty_cache()
 
+    # ---- 19-21. data parallelism, the CLI under torchrun, spatial diffusion ----
+    # in processes of their own (two ranks share the card), after the
+    # profiler phase, which cannot touch their timings
+    dp_row = dp_phase(card)
+    torchrun_row = torchrun_phase(card)
+    spatial_row = spatial_phase(D, card)
+
     b = rows["bf16"]
     bb = bwd_rows["bf16"]
     n_batches = summaries["bf16"]["batches"]
     large_shape = f"({P_MAIN},{lh},{lw}), w ({P_MAIN},{KERNEL * KERNEL},{lh},{lw}), {STEPS} steps"
-    say(json.dumps({"kernels": [{
+    kernel_rows = [{
         "name": "diffusion_stencil_fused",
         "route": "cuda",
         "source": "dgtd_tpu_torch/csrc/diffusion_stencil.cu",
@@ -2759,7 +3129,23 @@ def run(keep):
         "encoder_grid": {dt: msda_sets[("encoder_grid", dt)][name] for dt in ("fp32", "bf16")},
         "card": card,
     } for name, replaces in (("msda_fwd", "dgtd_tpu/ops/msda.py:165"), ("msda_dvalue", "dgtd_tpu/ops/msda.py:255"),
-                             ("msda_dlocw", "dgtd_tpu/ops/msda.py:353"))]}))
+                             ("msda_dlocw", "dgtd_tpu/ops/msda.py:353"))]
+    # the launches of phases 19 and 21: each rank's fused forward and
+    # backward a step; the spatial shards' launches by route (STEPS a call)
+    by_name = {row["name"]: row for row in kernel_rows}
+    for name, slot in (("diffusion_stencil_fused", 0), ("diffusion_stencil_fused_bwd", 1)):
+        by_name[name]["data_parallel_launches"] = {
+            "one_process": sum(st["launches"][slot] for st in dp_row["fp32_one_process"]),
+            "per_rank": [sum(st["launches"][slot] for run in (r_fp32, r_bf16) for st in run["steps"])
+                         for r_fp32, r_bf16 in zip(dp_row["fp32_ranks"], dp_row["bf16_ranks"])],
+            "main_path": f"{DP_STEPS} fp32 steps in one process; {DP_STEPS} fp32 and {DP_STEPS} bf16 steps on each of "
+                         f"{DP_RANKS} ranks"}
+    for name, slot in (("diffusion_stencil_fused", 0), ("diffusion_stencil_cluster", 2),
+                       ("diffusion_stencil_tiled", 6)):
+        by_name[name]["spatial_launches"] = {
+            f"{tuple(case['shape'])} {case['dtype']}": [rk["launches"][slot] for rk in case["ranks"]]
+            for case in spatial_row["cases"].values() if case["ranks"][0]["launches"][slot]}
+    say(json.dumps({"kernels": kernel_rows}))
     say(json.dumps({"trained": {
         "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",
         "size": SIZE, "batch": TRAIN_BATCH,
@@ -2791,6 +3177,8 @@ def run(keep):
         "images": TRAIN_VAL_N, "batch": 1, "launches": train_val_launches,
         **{k: train_val[k] for k in train_val if k.startswith("COD/") or k == "val_imgs_per_sec"}}, "card": card}}))
     say(json.dumps({"variants": variants_row}))
+    say(json.dumps({"data_parallel": {**dp_row, "torchrun": torchrun_row}}))
+    say(json.dumps({"spatial": spatial_row}))
     say(json.dumps({"msda": {
         "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
                  f"n_points={ENC_POINTS}), seeded weights",

@@ -1,11 +1,11 @@
-"""Epoch batching (counterpart of ``dgtd_tpu/data/loader.py``, one process,
-no sharding).
+"""Epoch batching (counterpart of ``dgtd_tpu/data/loader.py``).
 
 The order and the augmentation are those of the JAX package for the same
 seed (``default_rng`` streams keyed by seed, epoch and index), so a resumed
 run can re-enter an epoch exactly. Batches are assembled on the host, on a
 decode pool and a prefetch thread as the JAX package's are, and copied to
-``device``.
+``device``. Under data parallelism each rank decodes only its rows of every
+global batch, as each process of the JAX package's multi-host loader does.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from ..parallel.dist import row_slice
 
 
 def collate(samples) -> Dict[str, Any]:
@@ -46,11 +48,20 @@ class DataLoader:
     consumer's thread issues the copies to the device (non-blocking, on its
     current stream), so the producer launches no CUDA work. An exception in
     the producer is raised in the consumer; an iterator that is closed or
-    dropped early releases the producer."""
+    dropped early releases the producer.
+
+    ``rank`` and ``world`` split every global batch of ``batch_size`` over
+    the ranks of a data-parallel run: every rank shuffles the same order and
+    takes rows ``parallel/dist.py::row_slice`` of each batch (``raw`` holds
+    this rank's rows); ``len`` counts global batches. A batch that the
+    ranks do not divide raises, and so does a ragged last batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, device: Optional[Union[str, torch.device]] = None,
-                 num_workers: int = 0, prefetch: int = 2):
+                 num_workers: int = 0, prefetch: int = 2, rank: int = 0, world: int = 1):
+        if world > 1 and not drop_last:
+            raise ValueError("a loader split over ranks needs drop_last: a ragged last batch does not split evenly")
+        self.rows = row_slice(batch_size, rank, world)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -98,7 +109,7 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         idx = self._epoch_indices()
-        chunks = [idx[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+        chunks = [idx[i * self.batch_size : (i + 1) * self.batch_size][self.rows] for i in range(len(self))]
         # as in the JAX package, the counter moves on before the first batch
         # is made: epoch e shuffles with (seed, e) and flips with (seed, e + 1)
         self.epoch += 1

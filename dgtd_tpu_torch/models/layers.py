@@ -17,6 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..parallel.dist import all_reduce_sum, data_group, rank_world
+
 
 def conv2d(cin, cout, kernel, stride=1, padding=0, groups=1, bias=True, init="torch"):
     """``nn.Conv2d`` tagged with its init scheme: "torch" (U(±1/sqrt(fan_in))
@@ -105,7 +107,10 @@ class DropPath(nn.Module):
 
     The mask is drawn from ``self.generator``, which the caller sets
     explicitly (:func:`set_drop_path_generator`); with none set, nothing is
-    dropped. ``cod.loss`` refuses to run without one when a rate is not 0."""
+    dropped. ``cod.loss`` refuses to run without one when a rate is not 0.
+    Under data parallelism (``parallel/dist.py::data_group``) every rank
+    draws the global batch's mask from the same generator and takes its own
+    rows, so the ranks drop the samples that one process would."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -116,8 +121,10 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0 or self.generator is None:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        b = x.shape[0]
+        rank, world = rank_world(data_group())
+        shape = (b * world,) + (1,) * (x.dim() - 1)
+        mask = (torch.rand(shape, generator=self.generator, device=x.device) < keep)[rank * b:(rank + 1) * b]
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -186,7 +193,13 @@ class BasicConv2d(nn.Module):
     **biased** batch variance. The reference's ``nn.BatchNorm2d`` folds the
     unbiased variance into ``running_var``, a factor n/(n−1) larger (n = B·H·W
     per channel); the port follows the JAX package, so its running variance
-    is that much smaller than the reference's after the same batches."""
+    is that much smaller than the reference's after the same batches.
+
+    Under data parallelism (``parallel/dist.py::data_group``) the statistics
+    are the global batch's, as XLA reduces them across the JAX package's
+    mesh: the ranks sum their counts and sums, then their squared deviations
+    from the global mean, by all-reduces whose backward all-reduces the
+    gradient; every rank then writes the same running statistics."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0):
         super().__init__()
@@ -199,13 +212,32 @@ class BasicConv2d(nn.Module):
             return self.bn(y)
         bn = self.bn
         yf = y.float()
-        out = F.batch_norm(yf, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        group = data_group()
+        if group is None:
+            out = F.batch_norm(yf, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(yf, dim=(0, 2, 3), unbiased=False)
+        else:
+            out, mean, var = _global_batch_norm(yf, bn, group)
         with torch.no_grad():
-            var, mean = torch.var_mean(yf, dim=(0, 2, 3), unbiased=False)
             bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
             bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
             bn.num_batches_tracked.add_(1)
         return out.to(y.dtype)
+
+
+def _global_batch_norm(yf: torch.Tensor, bn: nn.BatchNorm2d, group):
+    """Train-mode BatchNorm of an NCHW fp32 ``yf`` with the statistics of the
+    global batch over ``group``: (output, mean, biased variance), the
+    statistics detached."""
+    c = yf.shape[1]
+    sums = all_reduce_sum(torch.cat([yf.sum((0, 2, 3)), yf.new_full((1,), yf.numel() // c)]), group)
+    n = sums[c]
+    mean = (sums[:c] / n).view(1, c, 1, 1)
+    dev = yf - mean
+    var = (all_reduce_sum((dev * dev).sum((0, 2, 3)), group) / n).view(1, c, 1, 1)
+    out = dev * torch.rsqrt(var + bn.eps) * bn.weight.view(1, c, 1, 1) + bn.bias.view(1, c, 1, 1)
+    return out, mean.detach().view(c), var.detach().view(c)
 
 
 class CALayer(nn.Module):

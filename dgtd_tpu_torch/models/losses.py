@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import data_group, global_extrema
 from ..utils.image import avg_pool, normalize_01, reflect_pad
 
 
@@ -58,5 +59,10 @@ def staged_losses(stage_logits: Sequence[torch.Tensor], pred2_logits: torch.Tens
 
 
 def texture_ssim_loss(texture: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
-    """SSIM between the batch-normalized texture map and the input image."""
-    return ssim_loss(normalize_01(texture), image)
+    """SSIM between the batch-normalized texture map and the input image.
+    Under data parallelism the min and max are the global batch's."""
+    group = data_group()
+    if group is None:
+        return ssim_loss(normalize_01(texture), image)
+    lo, hi = global_extrema(texture.min(), texture.max(), group)
+    return ssim_loss((texture - lo) / (hi - lo + 1e-8), image)

@@ -6,7 +6,8 @@
 
 Prints one JSON metrics line (E/F/S/MAE, parity and strict, and
 ``val_imgs_per_sec``). Runs on CUDA unless ``--device`` names another
-device; a missing card raises.
+device; a missing card raises. Under ``torchrun`` every rank scores the
+whole val set and rank 0 prints the ranks' mean (``train/cli.py``).
 """
 
 from __future__ import annotations

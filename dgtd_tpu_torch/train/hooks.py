@@ -1,7 +1,8 @@
 """Runner hooks: logging, checkpointing, a profiler trace of a window of
 steps, the models' pretrained-weight init (``our_init``, ``baseline_init``,
 ``PretrainInitHook``) and the val checkpoint (counterpart of
-``dgtd_tpu/train/hooks.py``).
+``dgtd_tpu/train/hooks.py``). Under data parallelism rank 0 writes the
+files: the log records, the checkpoints and the trace.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ class ProfilerHook(Hook):
     run past it logs ``profile_started_late``) and synchronizes the device
     before it starts and before it stops; a trace still open when training
     ends (a preemption, an exception) is closed then and logged with
-    ``truncated: true``."""
+    ``truncated: true``. Under data parallelism rank 0 alone traces."""
 
     def __init__(self, start_step: int = 10, num_steps: int = 3, out_dir: Optional[str] = None):
         self.start_step = start_step
@@ -107,7 +108,7 @@ class ProfilerHook(Hook):
             torch.cuda.synchronize(runner.device)
 
     def after_train_iter(self, runner, metrics):
-        if self._done:
+        if self._done or not runner.is_main:
             return
         step = runner.host_step
         if self._prof is None and step >= self.start_step:
@@ -158,7 +159,7 @@ class CheckpointHook(Hook):
             self._saved.append(runner.save_checkpoint(f"epoch_{runner.epoch}"))
             while self.max_keep and len(self._saved) > self.max_keep:
                 old = self._saved.pop(0)
-                if os.path.exists(old):
+                if runner.is_main and os.path.exists(old):
                     os.remove(old)
                 runner.log({"checkpoint_evicted": old})
 

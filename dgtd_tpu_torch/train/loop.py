@@ -12,8 +12,18 @@ on the recipe's ``num_workers`` threads and prefetches ``prefetch`` batches
 (2 unless the loader's block says otherwise). ``val()`` runs the val
 pass: one forward a batch, the E/F/S/MAE statistics computed on the model's
 device (``metrics/device.py``) and the full maps only for host-only metrics
-or visualizations. One process: the gather of val metrics across ranks waits
-for data parallelism (ROADMAP A13).
+or visualizations.
+
+Under data parallelism (``parallel/dist.py``; ``torchrun --nproc_per_node=N
+-m dgtd_tpu_torch.train``) the recipe's ``batch_size`` is the global batch:
+each rank loads its rows of it and the train step averages the gradients.
+Rank 0 writes the files (``log.jsonl``, checkpoints, visualizations, the
+visualization backends' files, ``ProfilerHook``'s trace), and every rank
+waits for a checkpoint to be written before it goes on. A signal stops
+every rank at the same step boundary: the ranks agree on the stop flag
+there. Every rank walks the whole val set in order (the ``parity``
+reduction depends on the order) and the ranks' results are averaged, as
+the JAX package's multi-host val pass does.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.registry import DATASETS, HOOKS, METRICS, MODELS
 from ..data import datasets as _datasets  # noqa: F401  (registers the datasets)
@@ -35,6 +46,7 @@ from ..data.device_norm import IMAGENET_MEAN, IMAGENET_STD, normalize_image, sca
 from ..data.loader import DataLoader
 from ..metrics import evaluators as _evaluators  # noqa: F401  (registers the metrics)
 from ..metrics.device import batch_statistics, statistics_to_host
+from ..parallel import dist as pdist
 from .. import models as _models  # noqa: F401  (registers the models)
 from ..predict import load_checkpoint
 from ..utils.visualizer import build_visualizer
@@ -56,16 +68,17 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _loader(cfg: dict, train: bool, seed: int, device: torch.device) -> DataLoader:
+def _loader(cfg: dict, train: bool, seed: int, device: torch.device, rank: int = 0, world: int = 1) -> DataLoader:
     """A loader block's loader: shuffled and without a ragged last batch
-    when it trains; in order, every image, when it validates (the parity
-    reduction depends on the order). ``num_workers`` decode threads and
-    ``prefetch`` batches ahead, as the block says."""
+    when it trains, this rank's rows of each global batch; in order, every
+    image, when it validates (the parity reduction depends on the order).
+    ``num_workers`` decode threads and ``prefetch`` batches ahead, as the
+    block says."""
     sampler = cfg.get("sampler", {}) or {}
     return DataLoader(
         DATASETS.build(cfg["dataset"]), int(cfg.get("batch_size", 1)),
         shuffle=bool(sampler.get("shuffle", train)), seed=seed, drop_last=train, device=device,
-        num_workers=int(cfg.get("num_workers", 0)), prefetch=int(cfg.get("prefetch", 2)),
+        num_workers=int(cfg.get("num_workers", 0)), prefetch=int(cfg.get("prefetch", 2)), rank=rank, world=world,
     )
 
 
@@ -85,6 +98,7 @@ class Runner:
         self.work_dir = work_dir
         self.seed = seed
         self.device = torch.device("cuda") if device is None else torch.device(device)
+        self.rank, self.world, self.is_main = pdist.rank(), pdist.world(), pdist.is_main()
         tc = cfg.get("train_cfg", {}) or {}
         self.max_epochs = int(tc.get("max_epochs", 1))
         self.val_interval = int(tc.get("val_interval", self.max_epochs))
@@ -95,7 +109,7 @@ class Runner:
         if mode == "train":
             if "dataset" not in loader_cfg:
                 raise ValueError("the recipe has no train_dataloader.dataset")
-            self.train_loader = _loader(loader_cfg, True, seed, self.device)
+            self.train_loader = _loader(loader_cfg, True, seed, self.device, self.rank, self.world)
         # built now when training will validate, so that a missing val folder
         # fails before the first step; a recipe with no val data trains
         # without; otherwise built by the first val()
@@ -122,7 +136,9 @@ class Runner:
         self._resume_skip = 0
         os.makedirs(work_dir, exist_ok=True)
         self._log_path = os.path.join(work_dir, "log.jsonl")
-        self.vis_backends = build_visualizer(cfg.get("visualizer"), work_dir)
+        self.vis_backends = build_visualizer(cfg.get("visualizer"), work_dir) if self.is_main else []
+        if pdist.started():
+            self.log({"dist": {"backend": dist.get_backend(), "world": self.world}})
 
     def _build_val_loader(self) -> DataLoader:
         loader_cfg = self.cfg.get("val_dataloader") or {}
@@ -131,6 +147,10 @@ class Runner:
         return _loader(loader_cfg, False, self.seed, self.device)
 
     def log(self, record: Dict[str, Any]) -> None:
+        """Print the record and append it to ``log.jsonl`` and the
+        visualization backends (rank 0 only)."""
+        if not self.is_main:
+            return
         line = json.dumps(record)
         print(line, flush=True)
         with open(self._log_path, "a") as f:
@@ -142,14 +162,17 @@ class Runner:
 
     def save_checkpoint(self, name: str) -> str:
         """``work_dir/<name>.pth`` in MMEngine's layout: ``state_dict`` (the
-        reference's key schema), ``optimizer``, ``meta`` (epoch, iter)."""
+        reference's key schema), ``optimizer``, ``meta`` (epoch, iter).
+        Rank 0 writes it; every rank returns once it is written."""
         path = os.path.abspath(os.path.join(self.work_dir, f"{name}.pth"))
-        torch.save({
-            "state_dict": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "meta": {"epoch": self.epoch, "iter": self.host_step},
-        }, path)
-        self.log({"checkpoint": path})
+        if self.is_main:
+            torch.save({
+                "state_dict": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "meta": {"epoch": self.epoch, "iter": self.host_step},
+            }, path)
+            self.log({"checkpoint": path})
+        pdist.barrier()
         return path
 
     def restore_checkpoint(self, path: str) -> None:
@@ -241,7 +264,7 @@ class Runner:
                     self.host_step += 1
                     for h in self.hooks:
                         h.after_train_iter(self, aux)
-                    if self._stop_requested:
+                    if pdist.any_rank(self._stop_requested):
                         path = self.save_checkpoint(f"preempt_step_{self.host_step}")
                         self.log({"preempted": True, "checkpoint": path})
                         return path
@@ -295,11 +318,12 @@ class Runner:
                     prob_np, label_np = _host(prob), _host_plane(batch["label"])
                     for m in host_metrics:
                         m.process(prob_np, label_np)
-                    if save_visualizations:
+                    if save_visualizations and self.is_main:
                         self._dump_visualizations(vis_dir, batch, prob_np, extras)
         results: Dict[str, float] = {}
         for m in self.metrics:
             results.update(m.compute())
+        results = pdist.all_mean(results)
         results["val_imgs_per_sec"] = n_images / max(time.perf_counter() - t0, 1e-9)
         self.log({"epoch": self.epoch, "step": self.host_step, **{k: round(v, 5) for k, v in results.items()}})
         return results

@@ -5,6 +5,14 @@ fp32; parameters stay fp32) -> ``loss.backward()`` -> clip, AdamW step, clear
 the gradients. DropPath draws from a generator seeded from ``(seed, step)``
 alone, like the JAX package's ``fold_in(train_rng, step)``: a resumed run
 needs no generator state.
+
+Under data parallelism the batch is this rank's rows of the global batch.
+After the backward the gradients and the loss terms are averaged over the
+ranks (one all-reduce), so every rank clips and steps the global batch's
+gradient, as the JAX step's XLA all-reduce gives it, and the parameters
+stay bit-equal across ranks. Only the gradients that exist are averaged:
+those of the modules the forward never runs (the dead and frozen prefixes)
+stay None on every rank.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.device_norm import normalize_batch
+from ..parallel.dist import all_mean_, data_group
 
 
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
@@ -32,5 +41,10 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor], step: int, seed
     gen = step_generator(seed, step, batch["input"].device)
     loss, aux = model.loss(batch["input"], batch["depth"], batch["label"], generator=gen)
     loss.backward()
+    aux = {k: v.detach() for k, v in aux.items()}
+    group = data_group()
+    if group is not None:
+        aux = {k: v.clone() for k, v in aux.items()}
+        all_mean_([p.grad for p in model.parameters() if p.grad is not None] + list(aux.values()), group)
     optimizer.step(step)
-    return {k: v.detach() for k, v in aux.items()}
+    return aux
