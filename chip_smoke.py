@@ -182,7 +182,25 @@ Phases (any failure exits non-zero):
      ``diffusion_planes`` on the same tensors: x (1,512,512,24), whose
      halo'd shards take the tiled kernel, (8,64,64,24) the cluster kernel
      and (8,12,12,24) the fused kernel, one launch a step a shard; the halo
-     exchange's and one stencil step's ms apart.
+     exchange's and one stencil step's ms apart;
+ 22. the offline depther at full width: DINOv2 ViT-L/14 + the DPT head's
+     classify head (256 bins), seeded weights written as the release's two
+     ``.pth`` files (the backbone's official keys with ``mask_token``, the
+     head under ``state_dict`` with ``decode_head.`` keys) and loaded back
+     strictly; fp32 on the card (TF32 off) against the CPU on a 100x130
+     input (centre padding, pos-embed interpolation) within 1e-3 of the
+     depth's range; bf16 against fp32 at 518² within 5% (largest) and 1%
+     (mean) of the fp32 depth's range; ``python -m
+     dgtd_tpu_torch.tools.depth_gen --estimator dinov2 --arch vitl14
+     --long-side 518 --render gray`` (``main()``, bf16, on the card) twice
+     over 8 written PNGs of mixed sizes: 8 maps of their sources' sizes,
+     images/s, ms an image by part (decode, backbone, head, write) and peak
+     memory of the second run;
+ 23. ``dgtd_tpu_torch/tools/serving_check.py`` with its defaults: full-width
+     ``cod`` at 704² and 1024² (bf16, batch 1; the fused kernel) and the
+     512² diffusion block's plain, NHWC-wrapper and planes legs (the tiled
+     kernel), each kernel leg within the stencil's bf16 bar of the plain
+     one; the launch counters reset just before and read just after.
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
@@ -193,10 +211,11 @@ plan, bf16 and encoder-grid times; the NHWC rows are the plane kernel
 and the grid kernel, each with its device ms and the per-step kernel's ms
 on the same tensors, and the per-step kernel on its own route), a
 served-throughput line, a ``trained``, a ``grid64``,
-a ``val``, a ``variants``, an ``msda``, a ``data_parallel`` and a
-``spatial`` JSON line, each with the card's name and power limit (the
-fused rows of ``kernels`` also carry phase 19's launches, the fused,
-cluster and tiled forward rows phase 21's); the last line is
+a ``val``, a ``variants``, an ``msda``, a ``data_parallel``, a
+``spatial``, a ``depther`` and a ``serving_check`` JSON line, each with the
+card's name and power limit (the fused rows of ``kernels`` also carry phase
+19's launches, the fused, cluster and tiled forward rows phase 21's, the
+fused and tiled forward rows phase 23's); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -396,6 +415,20 @@ L2_BYTES = 50e6
 # F.layer_norm's CUDA kernels (vectorized_layer_norm_kernel, or
 # RowwiseMomentsCUDAKernel and LayerNormForwardCUDAKernel)
 TORCH_LN_KERNELS = ("layer_norm", "LayerNorm", "RowwiseMoments")
+# phase 22: the offline depther at full width (DINOv2 ViT-L/14 + the DPT
+# head's classify head, 256 bins), seeded weights, through depth_gen at
+# --long-side 518 over DEPTHER_SIZES (mixed sizes and aspects)
+DEPTHER_ARCH, DEPTHER_BINS, DEPTHER_SIDE = "vitl14", 256, 518
+DEPTHER_SIZES = [(480, 640), (640, 480), (518, 518), (375, 500), (720, 1280), (300, 300), (600, 800), (427, 640)]
+# fp32 on the card (TF32 off) against fp32 on the CPU on a small input that
+# takes centre padding (100x130 -> 112x140) and pos-embed interpolation
+# (8x10 patches on the 37x37 grid): within this share of the depth's range
+DEPTHER_CPU_HW, DEPTHER_CPU_REL = (100, 130), 1e-3
+# bf16 autocast against fp32 at 518x518 (PERF.md §2): the largest
+# difference within 5% of the fp32 depth's range and the mean within 1%
+DEPTHER_BF16_MAX_REL, DEPTHER_BF16_MEAN_REL = 5e-2, 1e-2
+# phase 23: dgtd_tpu_torch/tools/serving_check.py with its defaults
+SERVING_SIZES, SERVING_CHECK_GRID = (704, 1024), 512
 
 
 def say(*parts):
@@ -1727,6 +1760,203 @@ def spatial_phase(D, card):
             "phase_s": time.perf_counter() - t_phase, "card": card}
 
 
+def seeded_depther(seed):
+    """The full-width depther on the CPU with seeded weights: every linear
+    and conv N(0, 1/fan_in) with zero bias (activations keep their scale
+    through the 24 blocks and the head, so the 256 bins' logits are O(1)),
+    pos_embed and cls_token N(0, 0.02²), LayerScale gammas 0.1, LayerNorms
+    at 1 and 0."""
+    import torch
+    import torch.nn as nn
+
+    from dgtd_tpu_torch.models.dpt import DinoDPTDepther
+
+    model = DinoDPTDepther(arch=DEPTHER_ARCH, n_bins=DEPTHER_BINS)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                # a stride-k ConvTranspose2d of kernel k sums its I inputs once
+                fan_in = m.weight.shape[0] if isinstance(m, nn.ConvTranspose2d) else m.weight[0].numel()
+                m.weight.normal_(0.0, fan_in ** -0.5, generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith(("pos_embed", "cls_token")):
+                p.normal_(0.0, 0.02, generator=g)
+            elif name.endswith(".gamma"):
+                p.fill_(0.1)
+    return model.eval()
+
+
+def write_scenes(root, sizes, seed):
+    """Smooth random RGB scenes (coarse noise upsampled, plus fine noise)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i, (h, w) in enumerate(sizes):
+        coarse = (rng.rand(5, 7, 3) * 255).astype(np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC), np.float32)
+        img = np.clip(img + rng.randn(h, w, 3) * 12, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(root, f"scene{i:02d}.png"))
+
+
+def depther_phase(card):
+    """Phase 22: the offline depther at full width. Seeded ViT-L/14 + DPT
+    head written as the release's two files (the backbone's official keys
+    with ``mask_token``; the head under ``state_dict`` with ``decode_head.``
+    keys); fp32 card vs CPU on a small input; bf16 vs fp32 at 518²; then
+    ``python -m dgtd_tpu_torch.tools.depth_gen --estimator dinov2`` (bf16,
+    ``main()``) twice over DEPTHER_SIZES, the second run timed."""
+    import torch
+    from PIL import Image
+
+    from dgtd_tpu_torch.convert import depther_part_state, load_depther_part
+    from dgtd_tpu_torch.models.dpt import DinoDPTDepther
+    from dgtd_tpu_torch.tools import depth_gen as DG
+
+    say(f"phase 22: the offline depther: DINOv2 {DEPTHER_ARCH} + DPT head ({DEPTHER_BINS} bins), seeded weights, "
+        f"through depth_gen --estimator dinov2 --long-side {DEPTHER_SIDE} on {len(DEPTHER_SIZES)} PNGs")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    model = seeded_depther(0)
+    n_backbone = sum(p.numel() for p in model.backbone.parameters())
+    n_head = sum(p.numel() for p in model.decode_head.parameters())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_depther_") as tmp:
+        backbone = {**model.backbone.state_dict(), "mask_token": torch.zeros(1, model.backbone.embed_dim)}
+        torch.save(backbone, os.path.join(tmp, "dinov2_vitl14_pretrain.pth"))
+        torch.save({"state_dict": {f"decode_head.{k}": v for k, v in model.decode_head.state_dict().items()}},
+                   os.path.join(tmp, "dinov2_vitl14_nyu_dpt_head.pth"))
+        del backbone
+        # the files load back strictly, the mask token the one key unused
+        loaded = DinoDPTDepther(arch=DEPTHER_ARCH, n_bins=DEPTHER_BINS)
+        skipped = load_depther_part(loaded.backbone, depther_part_state(
+            os.path.join(tmp, "dinov2_vitl14_pretrain.pth"), "dinov2"), "dinov2")
+        load_depther_part(loaded.decode_head, depther_part_state(
+            os.path.join(tmp, "dinov2_vitl14_nyu_dpt_head.pth"), "dpt_head"), "dpt_head")
+        check(skipped == ["mask_token"], f"unused backbone keys {skipped}")
+        del loaded
+
+        # fp32, card vs CPU, on an input that takes centre padding and pos-embed interpolation
+        g = torch.Generator().manual_seed(1)
+        small = torch.randn(1, 3, *DEPTHER_CPU_HW, generator=g)
+        with torch.inference_mode():
+            ref = model(small)
+        model.to(dev)
+        with torch.inference_mode():
+            got = model(small.to(dev)).cpu()
+        span = float(ref.max() - ref.min())
+        cpu_rel = float((got - ref).abs().max()) / span
+        check(tuple(got.shape) == (1, 1, *DEPTHER_CPU_HW) and bool(torch.isfinite(got).all()), f"shape {got.shape}")
+        check(cpu_rel <= DEPTHER_CPU_REL, f"depther fp32 card vs CPU: {cpu_rel:.3e} of the range > {DEPTHER_CPU_REL}")
+        say(f"  fp32 card vs CPU at {DEPTHER_CPU_HW}: max |diff| {cpu_rel:.3e} of the depth's range "
+            f"{span:.4f} (limit {DEPTHER_CPU_REL}) [{card}]")
+
+        # bf16 autocast vs fp32 at 518x518
+        x = torch.randn(1, 3, DEPTHER_SIDE, DEPTHER_SIDE, generator=g).to(dev)
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            model.dtype = dt
+            with torch.inference_mode():
+                out[dt] = model(x).float()
+        model.dtype = torch.float32
+        d32, d16 = out[torch.float32], out[torch.bfloat16]
+        span = float(d32.max() - d32.min())
+        bf16_max_rel = float((d16 - d32).abs().max()) / span
+        bf16_mean_rel = float((d16 - d32).abs().mean()) / span
+        check(bool(torch.isfinite(d16).all()) and bf16_max_rel <= DEPTHER_BF16_MAX_REL
+              and bf16_mean_rel <= DEPTHER_BF16_MEAN_REL,
+              f"depther bf16 vs fp32 at {DEPTHER_SIDE}²: max {bf16_max_rel:.3e}, mean {bf16_mean_rel:.3e} of the range")
+        say(f"  bf16 vs fp32 at {DEPTHER_SIDE}²: max |diff| {bf16_max_rel:.3e}, mean {bf16_mean_rel:.3e} of the "
+            f"depth's range {span:.4f} (limits {DEPTHER_BF16_MAX_REL}, {DEPTHER_BF16_MEAN_REL}); depth "
+            f"{float(d32.min()):.4f}..{float(d32.max()):.4f} [{card}]")
+        del model, x, out, d32, d16
+        torch.cuda.empty_cache()
+
+        # the CLI over the PNGs, bf16, on the card: a cold run, then a timed one
+        write_scenes(os.path.join(tmp, "img"), DEPTHER_SIZES, seed=2)
+        argv = ["--image-dir", os.path.join(tmp, "img"), "--estimator", "dinov2", "--arch", DEPTHER_ARCH,
+                "--backbone-ckpt", os.path.join(tmp, "dinov2_vitl14_pretrain.pth"),
+                "--head-ckpt", os.path.join(tmp, "dinov2_vitl14_nyu_dpt_head.pth"),
+                "--long-side", str(DEPTHER_SIDE), "--render", "gray"]
+        runs = []
+        for i in range(2):
+            # the CLI's own peak: above what the earlier phases still hold
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary = DG.main(argv + ["--out-dir", os.path.join(tmp, f"depth{i}")])
+            summary["cli_s"] = time.perf_counter() - t0
+            summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - base
+            runs.append(summary)
+            torch.cuda.empty_cache()
+        n = len(DEPTHER_SIZES)
+        for i in range(2):
+            names = sorted(os.listdir(os.path.join(tmp, f"depth{i}")))
+            check(runs[i]["written"] == n and names == [f"scene{j:02d}_depth.png" for j in range(n)],
+                  f"depth_gen run {i}: wrote {runs[i]['written']}, files {names}")
+            for j, (h, w) in enumerate(DEPTHER_SIZES):
+                with Image.open(os.path.join(tmp, f"depth{i}", names[j])) as im:
+                    arr = np.asarray(im)
+                check(im.mode == "L" and arr.shape == (h, w) and arr.min() == 0 and arr.max() == 255,
+                      f"{names[j]}: mode {im.mode}, shape {arr.shape}, range {arr.min()}..{arr.max()}")
+        with Image.open(os.path.join(tmp, "depth0", "scene00_depth.png")) as a, \
+                Image.open(os.path.join(tmp, "depth1", "scene00_depth.png")) as b:
+            repeat_max = int(np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16)).max())
+    timed = runs[1]
+    ms_by_part = {k: v * 1e3 / n for k, v in timed["parts_s"].items()}
+    row = {"model": f"DINOv2 {DEPTHER_ARCH} + DPT head, classify, {DEPTHER_BINS} UD bins, seeded weights",
+           "parameters": {"backbone": n_backbone, "head": n_head}, "long_side": DEPTHER_SIDE, "images": n,
+           "sizes": DEPTHER_SIZES, "dtype": "bfloat16", "images_per_s": n / timed["seconds"],
+           "ms_per_image_by_part": ms_by_part, "loop_s": timed["seconds"], "cli_s": timed["cli_s"],
+           "peak_memory_bytes": timed["peak_memory_bytes"],
+           "cold_run": {"images_per_s": n / runs[0]["seconds"], "cli_s": runs[0]["cli_s"],
+                        "ms_per_image_by_part": {k: v * 1e3 / n for k, v in runs[0]["parts_s"].items()}},
+           "repeat_max_grey_diff": repeat_max,
+           "fp32_card_vs_cpu": {"hw": list(DEPTHER_CPU_HW), "max_rel_to_range": cpu_rel, "limit": DEPTHER_CPU_REL},
+           "bf16_vs_fp32": {"hw": [DEPTHER_SIDE, DEPTHER_SIDE], "max_rel_to_range": bf16_max_rel,
+                            "mean_rel_to_range": bf16_mean_rel,
+                            "limits": [DEPTHER_BF16_MAX_REL, DEPTHER_BF16_MEAN_REL]},
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    say(f"  depth_gen: {n} maps in {timed['seconds']:.2f} s ({row['images_per_s']:.2f} images/s); ms an image: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms_by_part.items())
+        + f"; peak {timed['peak_memory_bytes'] / 2**30:.2f} GiB; cold run {row['cold_run']['images_per_s']:.2f} "
+          f"images/s [{card}]")
+    return row
+
+
+def serving_check_phase(D, card):
+    """Phase 23: ``dgtd_tpu_torch/tools/serving_check.py`` with its defaults
+    (``cod`` predict at 704² and 1024², the 512² diffusion block's three
+    legs), its JSON lines reprinted; the stencil launch counters reset just
+    before it and read just after."""
+    import torch
+
+    from dgtd_tpu_torch.tools import serving_check as SC
+
+    say(f"phase 23: serving_check --sizes {' '.join(map(str, SERVING_SIZES))} --grid {SERVING_CHECK_GRID}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_plane_launches(D)
+    results = SC.run(SERVING_SIZES, SERVING_CHECK_GRID)
+    launches = plane_launches(D)
+    for res in results:
+        check(res["ok"], f"serving_check {res['check']}: {res}")
+    by_check = {res["check"]: res for res in results}
+    block = by_check[f"diffusion_{SERVING_CHECK_GRID}sq_c24_k{KERNEL}_s{STEPS}"]
+    check(D.plane_route(SERVING_CHECK_GRID, SERVING_CHECK_GRID, KERNEL, torch.bfloat16, STEPS) == "tiled"
+          and all(block["stencil_launches"][leg]["TILED_LAUNCHES"] > 0 for leg in ("nhwc_wrapper", "planes")),
+          f"the {SERVING_CHECK_GRID}² block's kernel legs: {block['stencil_launches']}")
+    for size in SERVING_SIZES:
+        check(by_check[f"predict_{size}sq_bs1"]["stencil_launches"]["FUSED_LAUNCHES"] > 0,
+              f"predict at {size}²: {by_check[f'predict_{size}sq_bs1']['stencil_launches']}")
+    check(launches[0] > 0 and launches[6] > 0, f"serving_check launches ({LAUNCH_NAMES}) {launches}")
+    say(f"  launches ({LAUNCH_NAMES}): {launches} [{card}]")
+    return {"results": results, "launches": launches, "launch_order": LAUNCH_NAMES,
+            "phase_s": time.perf_counter() - t_phase, "card": card}
+
+
 def main():
     import torch
 
@@ -2904,6 +3134,10 @@ def run(keep):
     torchrun_row = torchrun_phase(card)
     spatial_row = spatial_phase(D, card)
 
+    # ---- 22-23. the offline depther, serving_check ----
+    depther_row = depther_phase(card)
+    serving_row = serving_check_phase(D, card)
+
     b = rows["bf16"]
     bb = bwd_rows["bf16"]
     n_batches = summaries["bf16"]["batches"]
@@ -3145,6 +3379,14 @@ def run(keep):
         by_name[name]["spatial_launches"] = {
             f"{tuple(case['shape'])} {case['dtype']}": [rk["launches"][slot] for rk in case["ranks"]]
             for case in spatial_row["cases"].values() if case["ranks"][0]["launches"][slot]}
+    # phase 23's launches: the fused forward under cod at 704² and 1024²,
+    # the tiled forward in the 512² block's two kernel legs
+    for name, slot in (("diffusion_stencil_fused", 0), ("diffusion_stencil_tiled", 6)):
+        by_name[name]["serving_check_launches"] = {
+            "launches": serving_row["launches"][slot],
+            "main_path": "serving_check: cod predict at " + " and ".join(f"{s}²" for s in SERVING_SIZES)
+                         + f" (bf16, batch 1) and the {SERVING_CHECK_GRID}² diffusion block's nhwc_wrapper and "
+                           "planes legs (warm-up and 3 timed runs of 4 calls each)"}
     say(json.dumps({"kernels": kernel_rows}))
     say(json.dumps({"trained": {
         "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",
@@ -3179,6 +3421,8 @@ def run(keep):
     say(json.dumps({"variants": variants_row}))
     say(json.dumps({"data_parallel": {**dp_row, "torchrun": torchrun_row}}))
     say(json.dumps({"spatial": spatial_row}))
+    say(json.dumps({"depther": depther_row}))
+    say(json.dumps({"serving_check": serving_row}))
     say(json.dumps({"msda": {
         "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
                  f"n_points={ENC_POINTS}), seeded weights",

@@ -5,7 +5,11 @@
 mapping of numpy arrays (the layout ``predict.py`` and ``export_state_dict``
 accept; a bare key means ``params/``) and returns the port's
 ``state_dict``: the reference's ``hitnet.*`` schema for ``cod`` and
-``baseline``, the JAX tree's names for ``DQnet`` (``_dqnet_rules``).
+``baseline``, the JAX tree's names for ``DQnet`` (``_dqnet_rules``). Its
+kinds ``dinov2`` and ``dpt_head`` carry the offline depther's two parts to
+the official DINOv2 and mmseg head keys; ``depther_part_state`` reads a
+part from a ``.npz`` or a released ``.pth``, ``load_depther_part`` loads it
+strictly.
 
 The port keeps its own copy of the key tables of
 ``dgtd_tpu/tools/convert_ckpt.py`` (``map_full_key``), written as
@@ -163,15 +167,58 @@ def _pattern(template: str) -> re.Pattern:
     return re.compile("".join(out) + "$")
 
 
-#: one table for every model: the JAX paths of ``cod`` (under ``hitnet/``)
-#: and of ``DQnet`` (top level) never collide
-_RULES = _cod_rules() + _dqnet_rules()
-_FLAX_SIDE = [(_pattern(fx), ref, coll, tf) for ref, fx, coll, tf in _RULES]
+def _convT_to_torch(a):
+    """The JAX non-overlapping transposed conv's (k, k, I, O) -> torch
+    ``ConvTranspose2d``'s (I, O, k, k)."""
+    return np.transpose(a, (2, 3, 0, 1))
 
 
-def map_flax_key(path: str, collection: str = "params") -> Optional[Tuple[str, Callable]]:
+def _dinov2_rules() -> List[Rule]:
+    """The DINOv2 backbone: official keys, the JAX ``DinoViT`` paths."""
+    r: List[Rule] = [("cls_token", "cls_token", "params", _ident), ("pos_embed", "pos_embed", "params", _ident)]
+    r += _conv("patch_embed.proj", "patch_embed/Conv_0")
+    r += _ln("norm", "norm/LayerNorm_0")
+    blk, fblk = "blocks.{i}", "blocks_{i}"
+    r += _ln(f"{blk}.norm1", f"{fblk}/norm1/LayerNorm_0")
+    r += _ln(f"{blk}.norm2", f"{fblk}/norm2/LayerNorm_0")
+    r += _lin(f"{blk}.attn.qkv", f"{fblk}/attn/qkv/Dense_0")
+    r += _lin(f"{blk}.attn.proj", f"{fblk}/attn/proj/Dense_0")
+    r += [(f"{blk}.ls1.gamma", f"{fblk}/ls1/gamma", "params", _ident),
+          (f"{blk}.ls2.gamma", f"{fblk}/ls2/gamma", "params", _ident)]
+    for name in ("fc1", "fc2", "w12", "w3"):  # mlp, or ViT-g/14's fused SwiGLU
+        r += _lin(f"{blk}.mlp.{name}", f"{fblk}/mlp_{name}/Dense_0")
+    return r
+
+
+def _dpt_head_rules() -> List[Rule]:
+    """The DPT head: mmseg keys, the JAX ``DPTHead`` paths."""
+    rb = "reassemble_blocks"
+    r = _lin(f"{rb}.readout_projects.{{i}}.0", f"{rb}/readout_projects_{{i}}/Dense_0")
+    r += _conv(f"{rb}.projects.{{i}}.conv", f"{rb}/projects_{{i}}/Conv_0")
+    for i in (0, 1):  # ConvTranspose2d x4 and x2
+        r += [(f"{rb}.resize_layers.{i}.weight", f"{rb}/resize_layers_{i}/kernel", "params", _convT_to_torch),
+              (f"{rb}.resize_layers.{i}.bias", f"{rb}/resize_layers_{i}/bias", "params", _ident)]
+    r += _conv(f"{rb}.resize_layers.3", f"{rb}/resize_layers_3/Conv_0")
+    r += _conv("convs.{i}.conv", "convs_{i}/Conv_0", bias=False)
+    r += _conv("fusion_blocks.{i}.res_conv_unit{u}.conv{c}.conv", "fusion_blocks_{i}/res_conv_unit{u}/conv{c}/Conv_0")
+    r += _conv("fusion_blocks.{i}.project.conv", "fusion_blocks_{i}/project/Conv_0")
+    r += _conv("project.conv", "project/Conv_0")
+    return r + _conv("conv_depth", "conv_depth/Conv_0")
+
+
+#: the kinds of JAX checkpoint: their key tables and the prefix of their
+#: paths in a depther's tree. "full": one table for every model (the JAX
+#: paths of ``cod``, under ``hitnet/``, and of ``DQnet``, top level, never
+#: collide)
+_KINDS = {"full": (_cod_rules() + _dqnet_rules(), ""), "dinov2": (_dinov2_rules(), "backbone/"),
+          "dpt_head": (_dpt_head_rules(), "decode_head/")}
+_FLAX_SIDE = {kind: [(_pattern(fx), ref, coll, tf) for ref, fx, coll, tf in rules]
+              for kind, (rules, _) in _KINDS.items()}
+
+
+def map_flax_key(path: str, collection: str = "params", kind: str = "full") -> Optional[Tuple[str, Callable]]:
     """JAX variable path (under its collection) -> (port key, transform)."""
-    for pat, ref, coll, tf in _FLAX_SIDE:
+    for pat, ref, coll, tf in _FLAX_SIDE[kind]:
         if coll != collection:
             continue
         m = pat.match(path)
@@ -187,14 +234,26 @@ def _split(key: str) -> Tuple[str, str]:
     return "params", key
 
 
-def state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(flat: Dict[str, np.ndarray], kind: str = "full") -> Dict[str, torch.Tensor]:
     """The port's state_dict from a flat JAX variables mapping. Raises on a
-    JAX leaf the key table does not map."""
+    JAX leaf the key table does not map.
+
+    ``kind`` "full" is a segmentation model's. "dinov2" and "dpt_head" are
+    the depther's parts, as ``dgtd_tpu/tools/convert_ckpt.py`` writes them
+    (bare paths) or as a depther's tree holds them (under ``backbone/`` and
+    ``decode_head/``; the other part's leaves are left out): the official
+    DINOv2 keys and the mmseg head keys, without a prefix."""
+    prefix = _KINDS[kind][1]
+    other = {"backbone/": "decode_head/", "decode_head/": "backbone/"}.get(prefix)
     out: Dict[str, torch.Tensor] = {}
     unmapped = []
     for key, val in flat.items():
         coll, path = _split(key)
-        hit = map_flax_key(path, coll)
+        if prefix and path.startswith(prefix):
+            path = path[len(prefix):]
+        elif other and path.startswith(other):
+            continue
+        hit = map_flax_key(path, coll, kind)
         if hit is None:
             unmapped.append(key)
             continue
@@ -232,3 +291,54 @@ def msda_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
         tf = _lin_to_torch if leaf == "kernel" else _ident
         out[f"{name}.{'weight' if leaf == 'kernel' else 'bias'}"] = torch.from_numpy(np.array(tf(val), order="C"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the offline depther's checkpoints
+# ---------------------------------------------------------------------------
+
+#: each depther part's key prefix in a whole depther's state dict
+DEPTHER_PREFIXES = {"dinov2": "backbone.", "dpt_head": "decode_head."}
+
+
+def depther_part_state(path: str, kind: str) -> Dict[str, torch.Tensor]:
+    """The port's state dict of one depther part (``kind`` "dinov2" or
+    "dpt_head") from a file: a JAX flat ``.npz`` (``convert_ckpt``'s bare
+    paths, or a depther's tree), or a ``.pth``: the official release (the
+    head's keys with or without ``decode_head.``, in ``model`` or
+    ``state_dict`` wrappers), a whole depther's state dict (the other part's
+    keys left out) or this package's ``tools/convert_ckpt`` output."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return state_dict_from_flax({k: z[k] for k in z.files}, kind)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for wrap in ("model", "state_dict"):
+        if isinstance(state, dict) and wrap in state:
+            state = state[wrap]
+    prefix = DEPTHER_PREFIXES[kind]
+    other = DEPTHER_PREFIXES["dpt_head" if kind == "dinov2" else "dinov2"]
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in state.items():
+        if key.startswith(prefix):
+            key = key[len(prefix):]
+        elif key.startswith(other):
+            continue
+        out[key] = val
+    return out
+
+
+def load_depther_part(module: torch.nn.Module, state: Dict[str, torch.Tensor], kind: str) -> List[str]:
+    """Load ``state`` into a depther part strictly: a parameter the state
+    lacks, a key the module lacks or a shape that differs raises. Only the
+    backbone's inference-unused keys (``mask_token``, ``register_tokens``)
+    may go unused; returns those it skipped."""
+    from .models.dinov2 import UNUSED_KEYS
+
+    skipped = sorted(k for k in state if kind == "dinov2" and k in UNUSED_KEYS)
+    result = module.load_state_dict({k: v for k, v in state.items() if k not in skipped}, strict=False)
+    if result.missing_keys or result.unexpected_keys:
+        raise ValueError(
+            f"{kind} checkpoint and model do not pair: {len(result.missing_keys)} parameters missing (first: "
+            f"{result.missing_keys[:5]}), {len(result.unexpected_keys)} keys unused (first: "
+            f"{result.unexpected_keys[:5]}); wrong --arch or file for this part?")
+    return skipped
