@@ -145,7 +145,7 @@ Phases (any failure exits non-zero):
      per-step kernels, 4 + 4 launches a step), ``cod -o model.diffusion_kernel=3 -o
      model.diffusion_steps=6`` (the fused kernels at k = 3) and ``cod -o
      model.fft_at_grid=true -o model.use_ssim=false``, each trained 2 steps at
-     batch 10 through the Runner and served 2 batches of 8 through
+     batch 10 through the Runner and served 1 batch of 8 through
      ``dgtd_tpu_torch.predict.main --model``, the stencil launches of each
      run read from the counters (none for baseline, DQnet and
      use_prompts=false), with its parameter count, ms per served batch and
@@ -200,7 +200,24 @@ Phases (any failure exits non-zero):
      ``cod`` at 704² and 1024² (bf16, batch 1; the fused kernel) and the
      512² diffusion block's plain, NHWC-wrapper and planes legs (the tiled
      kernel), each kernel leg within the stencil's bf16 bar of the plain
-     one; the launch counters reset just before and read just after.
+     one; the launch counters reset just before and read just after;
+ 24. ``tools/export_serving.py``: bundles of full-width ``cod`` at 384²
+     (bf16, then fp32) exported with ``torch.export`` (the stencil a
+     ``dgtd_torch::`` custom op), loaded by ``ServingModel`` and served at
+     384² and at 352x480 (resized to the bucket and back): each within
+     BF16_ATOL (fp32: FP32_TOL, TF32 off) of eager ``predict`` on the same
+     inputs, one fused forward a call; eager predict and the bundle's
+     program timed at batch 1; export seconds and bytes on disk;
+ 25. a ``DQnet`` bundle (PVT b1, b2's widths at a cut depth) within
+     BF16_ATOL of eager; the ``MSDeformAttn`` layer at the encoder width
+     exported, saved, loaded and run: one MSDA forward launch, equal to the
+     eager layer;
+ 26. full-width ``cod`` under ``core.flags.diffusion_plane_layout=False``
+     (the NHWC plane kernel forward, the fused plane backward) against True:
+     a served batch of 8 within twice the planes' own bf16-vs-fp32 gap (at
+     the largest, at least BF16_ATOL, and on average), a train step's loss
+     within FIRST_LOSS_RTOL, each layout's launches counted; both timed in
+     turns.
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
@@ -212,10 +229,13 @@ and the grid kernel, each with its device ms and the per-step kernel's ms
 on the same tensors, and the per-step kernel on its own route), a
 served-throughput line, a ``trained``, a ``grid64``,
 a ``val``, a ``variants``, an ``msda``, a ``data_parallel``, a
-``spatial``, a ``depther`` and a ``serving_check`` JSON line, each with the
-card's name and power limit (the fused rows of ``kernels`` also carry phase
-19's launches, the fused, cluster and tiled forward rows phase 21's, the
-fused and tiled forward rows phase 23's); the last line is
+``spatial``, a ``depther``, a ``serving_check``, a ``bundle``, a
+``dqnet_bundle`` and a ``layout`` JSON line, each with the card's name and
+power limit (the fused rows of ``kernels`` also carry phase 19's launches,
+the fused, cluster and tiled forward rows phase 21's, the fused and tiled
+forward rows phase 23's, the fused forward row phase 24's, the MSDA forward
+row phase 25's, the NHWC plane row and the fused backward row phase 26's);
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
@@ -296,7 +316,7 @@ TRAIN_VAL_N = 8  # val after epoch 2: 8 synthetic images at batch 1
 TRAIN_WORKERS = 8  # configs/cod.yml's train_dataloader.num_workers, in force in phase 8
 # phase 8b: tiny cod at the recipe's grid 12 through a train CLI subprocess,
 # one epoch of PREEMPT_N // PREEMPT_BATCH steps, SIGTERM after step 3
-PREEMPT_N, PREEMPT_BATCH, PREEMPT_SIZE, PREEMPT_TIMEOUT_S = 20, 2, 96, 300
+PREEMPT_N, PREEMPT_BATCH, PREEMPT_SIZE, PREEMPT_TIMEOUT_S = 12, 2, 96, 300
 PREEMPT_MODEL = {"variant": "tiny", "convnext_dims": "[8,16,32,64]", "convnext_depths": "[1,1,1,1]",
                  "channel": 8, "latent_dim": 8, "grid": 12}
 VAL_METRICS = ("Emeasure", "Fmeasure", "Smeasure", "MAE")
@@ -326,7 +346,7 @@ VARIANTS = [  # (label, model.type, the model's -o overrides)
     ("kernel3_steps6", "cod", {"diffusion_kernel": 3, "diffusion_steps": 6}),
     ("fft2", "cod", {"fft_at_grid": True, "use_ssim": False}),
 ]
-VARIANT_STEPS, VARIANT_SERVE = 2, 16
+VARIANT_STEPS, VARIANT_SERVE = 2, 8
 VARIANT_HOOKS = {"cod": "our_init", "baseline": "baseline_init", "DQnet": "PretrainInitHook"}
 # configs/cod.yml's lr keys name the prompt tower; a model without one takes
 # the backbone's multiplier alone (an unmatched key raises, as in dgtd_tpu)
@@ -429,9 +449,28 @@ DEPTHER_CPU_HW, DEPTHER_CPU_REL = (100, 130), 1e-3
 DEPTHER_BF16_MAX_REL, DEPTHER_BF16_MEAN_REL = 5e-2, 1e-2
 # phase 23: dgtd_tpu_torch/tools/serving_check.py with its defaults
 SERVING_SIZES, SERVING_CHECK_GRID = (704, 1024), 512
+# phase 24: a serving bundle of full-width cod at the recipe's 384² (bf16,
+# then fp32), served at the bucket and at a size that is not one (resized
+# to the bucket and back, as jax.image.resize does)
+BUNDLE_ODD_HW = (352, 480)
+BUNDLE_ITERS = 10  # timed calls of eager predict and of the bundle's program
+# phase 25: DQnet's bundle at a cut depth (PVT b1: b2's widths, depths
+# (2, 2, 2, 2)); the MSDeformAttn layer exported at the encoder width, N=1
+DQNET_BUNDLE_VARIANT = "b1"
+# phase 26: full-width cod under core.flags.diffusion_plane_layout=False
+# (the NHWC stencil) against True (the plane stencil): a served batch and a
+# train step, each timed in turns (True, False, False, True)
+LAYOUT_ITERS = 3
+
+
+_START = time.perf_counter()
 
 
 def say(*parts):
+    """Print a line; a phase's first line carries the seconds since the
+    script started."""
+    if parts and str(parts[0]).startswith("phase "):
+        parts = (f"[{time.perf_counter() - _START:.1f} s]",) + parts
     print(*parts, flush=True)
 
 
@@ -1122,7 +1161,7 @@ def variants_phase(D, MD, P, card):
     tower where there is one), 384², bf16. For each of VARIANTS: train
     VARIANT_STEPS steps at batch TRAIN_BATCH through the Runner
     (``configs/cod.yml`` with ``-o model.type=…`` and the model's ``-o``
-    overrides), serve 2 batches of 8 through ``dgtd_tpu_torch.predict.main
+    overrides), serve 1 batch of 8 through ``dgtd_tpu_torch.predict.main
     --model …`` on the trained weights, each run's stencil launches read from
     the counters around it against what the route says (none for baseline,
     DQnet and use_prompts=false); the parameter count, ms per served batch
@@ -1957,6 +1996,268 @@ def serving_check_phase(D, card):
             "phase_s": time.perf_counter() - t_phase, "card": card}
 
 
+def _dir_bytes(path):
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+
+
+def bundle_phase(D, card):
+    """Phase 24: ``tools/export_serving.py`` on full-width ``cod`` at 384²
+    (bf16, the default, then fp32): export, ``ServingModel.load``, serve a
+    384² input and a BUNDLE_ODD_HW input; each held to eager ``predict`` on
+    the same inputs (the odd size resized to the bucket and back with the
+    loader's resize), the fused forward's counter read around the bundle's
+    calls; eager predict and the bundle's program timed at batch 1."""
+    import torch
+
+    from dgtd_tpu_torch.models.cod import cod
+    from dgtd_tpu_torch.tools import export_serving as E
+
+    say(f"phase 24: serving bundles of full-width cod at {SIZE}² (export_serving, bf16 and fp32), served at {SIZE}² "
+        f"and {BUNDLE_ODD_HW[0]}x{BUNDLE_ODD_HW[1]} through ServingModel")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(24)
+    cases = {hw: (rng.randn(1, *hw, 3).astype(np.float32), rng.rand(1, *hw, 1).astype(np.float32))
+             for hw in ((SIZE, SIZE), BUNDLE_ODD_HW)}
+    row = {"size": SIZE, "card": card}
+    model = cod(seed=0).to(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as tmp:
+        for name, dtype, tol in (("bf16", torch.bfloat16, dict(rtol=0.0, atol=BF16_ATOL)),
+                                 ("fp32", torch.float32, FP32_TOL)):
+            model.dtype = dtype  # the compute policy: autocast on or off
+            out = os.path.join(tmp, name)
+            meta = E.export_bundle(model, out, sizes=[SIZE], meta_extra={"model": "cod", "ckpt": None,
+                                                                         "loaded_params": 0})
+            t0 = time.perf_counter()
+            serving = E.ServingModel.load(out)
+            load_s = time.perf_counter() - t0
+            leg = {"export_s": meta["export_seconds"]["cuda"][str(SIZE)], "load_s": load_s, "bytes": _dir_bytes(out)}
+            # the program holds no weight: they come in as an input, from params.npz
+            check(leg["bytes"][f"predict_{SIZE}_cuda.pt2"] < leg["bytes"]["params.npz"] / 10, leg["bytes"])
+            for hw, (img, dep) in cases.items():
+                reset_plane_launches(D)
+                got = serving(img, dep)
+                torch.cuda.synchronize()
+                launches = plane_launches(D)
+                check(launches == launch_tuple("fused", 1),
+                      f"{name} bundle at {hw}: stencil launches ({LAUNCH_NAMES}) {launches}, want one fused forward")
+                at = (img, dep) if hw == (SIZE, SIZE) else (E._resize_nhwc(img, SIZE), E._resize_nhwc(dep, SIZE))
+                ref = model.predict(*(torch.from_numpy(a).to(dev) for a in at))[0].float().cpu().numpy()
+                if hw != (SIZE, SIZE):
+                    ref = E._resize_nhwc(ref, hw)
+                check(got.shape == (1, *hw, 1) and bool(np.isfinite(got).all()), (name, hw, got.shape))
+                err = float(np.abs(got - ref).max())
+                bar = tol["atol"] + tol["rtol"] * float(np.abs(ref).max())
+                say(f"  {name} bundle at {hw[0]}x{hw[1]}: max_abs_err vs eager predict {err:.3e} (limit {bar:.1e}); "
+                    f"stencil launches {launches}")
+                check(err <= bar, f"{name} bundle at {hw}: {err:.3e} > {bar:.1e}")
+                leg[f"{hw[0]}x{hw[1]}"] = {"max_abs_err": err, "limit": bar, "launches": launches}
+            if name == "bf16":
+                img, dep = (torch.from_numpy(a).to(dev) for a in cases[(SIZE, SIZE)])
+                leg["eager_ms"] = cuda_time_ms(lambda: model.predict(img, dep), BUNDLE_ITERS, warmup=2)
+                leg["bundle_ms"] = cuda_time_ms(lambda: serving.run(SIZE, img, dep), BUNDLE_ITERS, warmup=2)
+                leg["bundle_numpy_ms"] = cuda_time_ms(lambda: serving(*cases[(SIZE, SIZE)]), BUNDLE_ITERS, warmup=2)
+                reset_plane_launches(D)
+                serving.run(SIZE, img, dep)
+                torch.cuda.synchronize()
+                row["launches"] = plane_launches(D)[0] + sum(
+                    leg[f"{h}x{w}"]["launches"][0] for h, w in cases)
+                say(f"  bf16 batch 1 at {SIZE}²: eager predict {leg['eager_ms']:.2f} ms, the bundle's program "
+                    f"{leg['bundle_ms']:.2f} ms, ServingModel with its host copies {leg['bundle_numpy_ms']:.2f} ms "
+                    f"[{card}]")
+            say(f"  {name}: export {leg['export_s']:.1f} s, load {load_s:.1f} s, files {leg['bytes']}")
+            row[name] = leg
+            del serving
+    del model
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
+def dqnet_msda_bundle_phase(card):
+    """Phase 25: a ``DQnet`` bundle at a cut depth (bf16, 384²) served and
+    held to eager ``predict``; then the ``MSDeformAttn`` layer at the
+    encoder width exported with ``torch.export``, saved, loaded and run on
+    the card: ``msda.LAUNCHES`` counts its forward kernel, and its output
+    equals the eager layer's. (No model of the repository calls the layer,
+    DQnet included.)"""
+    import torch
+
+    from dgtd_tpu_torch.models.dqnet import DQnet
+    from dgtd_tpu_torch.ops import msda as A
+    from dgtd_tpu_torch.tools import export_serving as E
+
+    say(f"phase 25: a DQnet bundle (PVT {DQNET_BUNDLE_VARIANT}: b2's widths at a cut depth, bf16, {SIZE}²); the "
+        f"MSDeformAttn layer exported at the encoder width")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(25)
+    img, dep = rng.randn(1, SIZE, SIZE, 3).astype(np.float32), rng.rand(1, SIZE, SIZE, 1).astype(np.float32)
+    row = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dqnet_") as tmp:
+        model = DQnet(variant=DQNET_BUNDLE_VARIANT, seed=0).to(dev)
+        meta = E.export_bundle(model, tmp, sizes=[SIZE], meta_extra={"model": "DQnet"})
+        serving = E.ServingModel.load(tmp)
+        A.LAUNCHES = 0
+        got = serving(img, dep)
+        torch.cuda.synchronize()
+        ref = model.predict(torch.from_numpy(img).to(dev), torch.from_numpy(dep).to(dev))[0].float().cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        say(f"  DQnet bundle: export {meta['export_seconds']['cuda'][str(SIZE)]:.1f} s, max_abs_err vs eager "
+            f"{err:.3e} (limit {BF16_ATOL}); msda launches {A.LAUNCHES} (DQnet has no MSDA)")
+        check(got.shape == (1, SIZE, SIZE, 1) and err <= BF16_ATOL, f"DQnet bundle {got.shape} {err:.3e}")
+        row["dqnet"] = {"variant": DQNET_BUNDLE_VARIANT, "export_s": meta["export_seconds"]["cuda"][str(SIZE)],
+                        "bytes": _dir_bytes(tmp), "max_abs_err": err, "msda_launches": A.LAUNCHES}
+        del model, serving
+        torch.cuda.empty_cache()
+
+        layer = A.MSDeformAttn(ENC_D_MODEL, len(ENC_SHAPES), ENC_HEADS, ENC_POINTS, seed=0).to(dev).eval()
+
+        class Encoder(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.layer = layer
+
+            def forward(self, q, r, v):
+                return self.layer(q, r, v, ENC_SHAPES)
+
+        q = torch.from_numpy(rng.randn(1, ENC_S, ENC_D_MODEL).astype(np.float32)).to(dev)
+        v = torch.from_numpy(rng.randn(1, ENC_S, ENC_D_MODEL).astype(np.float32)).to(dev)
+        r = torch.from_numpy(rng.rand(1, ENC_S, len(ENC_SHAPES), 2).astype(np.float32)).to(dev)
+        path = os.path.join(tmp, "msdeformattn.pt2")
+        with torch.no_grad():
+            torch.export.save(torch.export.export(Encoder(), (q, r, v)), path)
+            program = torch.export.load(path).module()
+            A.LAUNCHES = 0
+            got = program(q, r, v)
+            torch.cuda.synchronize()
+            launches = A.LAUNCHES
+            ref = layer(q, r, v, ENC_SHAPES)
+        err = float((got - ref).abs().max())
+        say(f"  exported MSDeformAttn (N=1, Lq=S={ENC_S}): msda forward launches {launches}, max_abs_err vs eager "
+            f"{err:.3e}")
+        check(launches == 1, f"exported MSDeformAttn: {launches} forward launches, want 1")
+        check(err <= FP32_TOL["atol"] + FP32_TOL["rtol"] * float(ref.abs().max()), f"exported MSDeformAttn {err:.3e}")
+        row["msdeformattn"] = {"launches": launches, "max_abs_err": err, "n": 1, "lq": ENC_S}
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
+def layout_phase(D, card):
+    """Phase 26: full-width ``cod`` under
+    ``core.flags.diffusion_plane_layout`` False (the NHWC stencil: the NHWC
+    plane kernel forward, the fused plane backward on NHWC gradients)
+    against True (the plane kernels): a served batch (BATCH at 384², bf16)
+    and one train step's loss and backward (TRAIN_BATCH, bf16, one
+    drop-path generator seed for both), held together within the bf16
+    bars (the probabilities within twice the plane layout's own
+    bf16-vs-fp32 gap on the batch, at the largest (at least BF16_ATOL) and
+    on average; the loss within FIRST_LOSS_RTOL); each layout's kernels
+    counted; both timed in turns."""
+    import torch
+
+    from dgtd_tpu_torch.core import flags
+    from dgtd_tpu_torch.models.cod import cod
+
+    say(f"phase 26: cod under diffusion_plane_layout False (NHWC stencil) vs True (planes): a served batch of {BATCH} "
+        f"and a train step at batch {TRAIN_BATCH}, {SIZE}², bf16")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(26)
+    img = torch.from_numpy(rng.randn(BATCH, SIZE, SIZE, 3).astype(np.float32)).to(dev)
+    dep = torch.from_numpy(rng.rand(BATCH, SIZE, SIZE, 1).astype(np.float32)).to(dev)
+    timg = torch.from_numpy(rng.randn(TRAIN_BATCH, SIZE, SIZE, 3).astype(np.float32)).to(dev)
+    tdep = torch.from_numpy(rng.rand(TRAIN_BATCH, SIZE, SIZE, 1).astype(np.float32)).to(dev)
+    tlab = torch.from_numpy((rng.rand(TRAIN_BATCH, SIZE, SIZE, 1) > 0.5).astype(np.float32)).to(dev)
+    model = cod(seed=0).to(dev)
+
+    def counts():
+        return plane_launches(D) + (D.NHWC_PLANE_LAUNCHES, D.NHWC_GRID_LAUNCHES, D.NHWC_LAUNCHES)
+
+    def reset():
+        reset_plane_launches(D)
+        D.NHWC_PLANE_LAUNCHES = D.NHWC_GRID_LAUNCHES = D.NHWC_LAUNCHES = 0
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(timg, tdep, tlab, torch.Generator(device=dev).manual_seed(26))
+        loss.backward()
+        return loss
+
+    saved = flags.diffusion_plane_layout
+    row = {"card": card, "counter_order": LAUNCH_NAMES + ", nhwc plane fwd, nhwc grid fwd, nhwc step fwd"}
+    try:
+        runs = {}
+        for value in (True, False):
+            flags.set_flag("diffusion_plane_layout", value)
+            reset()
+            prob = model.predict(img, dep)[0].float()
+            torch.cuda.synchronize()
+            served = counts()
+            reset()
+            loss = float(step().detach())
+            torch.cuda.synchronize()
+            trained = counts()
+            grads = {k: p.grad.float().clone() for k, p in model.named_parameters() if p.grad is not None}
+            runs[value] = (prob, loss, grads, served, trained)
+            say(f"  layout {value}: served launches {served}, train-step launches {trained}, loss {loss:.6f}")
+        nhwc_served, nhwc_trained = runs[False][3], runs[False][4]
+        check(nhwc_served == NO_LAUNCHES + (1, 0, 0), f"flag False served: {nhwc_served}")
+        check(nhwc_trained == launch_tuple("fused", 0, 1) + (1, 0, 0), f"flag False train step: {nhwc_trained}")
+        check(runs[True][3] == launch_tuple("fused", 1) + (0, 0, 0), f"flag True served: {runs[True][3]}")
+        check(runs[True][4] == launch_tuple("fused", 1, 1) + (0, 0, 0), f"flag True train step: {runs[True][4]}")
+        # the two layouts' kernels sum a step's taps in other orders and round
+        # each step to bf16, and the model carries the difference on in
+        # bf16: two bf16 runs of one fp32 forward, each within the plane
+        # layout's own bf16-vs-fp32 gap of it (measured here, on this batch),
+        # so within twice that gap of each other, at the largest (at least
+        # BF16_ATOL) and on average
+        flags.set_flag("diffusion_plane_layout", True)
+        model.dtype = torch.float32
+        try:
+            prob32 = model.predict(img, dep)[0].float()
+        finally:
+            model.dtype = torch.bfloat16
+        gap = (runs[True][0] - prob32).abs()
+        gap_max, gap_mean = float(gap.max()), float(gap.mean())
+        diff = runs[False][0] - runs[True][0]
+        prob_err, prob_mean_err, mean_shift = float(diff.abs().max()), float(diff.abs().mean()), float(diff.mean())
+        prob_bar, mean_bar = max(BF16_ATOL, 2 * gap_max), 2 * gap_mean
+        loss_rel = abs(runs[False][1] - runs[True][1]) / abs(runs[True][1])
+        grad_rel = max(float((runs[False][2][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                       for k, g in runs[True][2].items())
+        say(f"  False vs True: served probability max_abs_err {prob_err:.3e} (limit {prob_bar:.3e}; the planes' "
+            f"bf16-vs-fp32 gap {gap_max:.3e}), mean abs {prob_mean_err:.3e} (limit {mean_bar:.3e}; gap mean "
+            f"{gap_mean:.3e}), mean shift {mean_shift:.2e}; loss rel {loss_rel:.2e} (limit "
+            f"{FIRST_LOSS_RTOL}); gradients' largest difference to their scale {grad_rel:.2e}")
+        check(prob_err <= prob_bar, f"layout False vs True served: {prob_err:.3e} > {prob_bar:.3e}")
+        check(prob_mean_err <= mean_bar, f"layout False vs True served mean abs: {prob_mean_err:.3e} > {mean_bar:.3e}")
+        check(loss_rel <= FIRST_LOSS_RTOL, f"layout False vs True loss: {loss_rel:.2e}")
+        check(all(bool(torch.isfinite(g).all()) for g in runs[False][2].values()), "flag False gradients finite")
+        del runs
+        timings = {"served_ms": {True: [], False: []}, "train_step_ms": {True: [], False: []}}
+        for value in (True, False, False, True):
+            flags.set_flag("diffusion_plane_layout", value)
+            timings["served_ms"][value].append(cuda_time_ms(lambda: model.predict(img, dep), LAYOUT_ITERS, warmup=2))
+            timings["train_step_ms"][value].append(cuda_time_ms(step, LAYOUT_ITERS, warmup=2))
+        row.update({"served_launches": nhwc_served, "train_launches": nhwc_trained, "prob_max_abs_err": prob_err,
+                    "prob_mean_abs_err": prob_mean_err, "prob_mean_shift": mean_shift, "prob_limit": prob_bar,
+                    "mean_abs_limit": mean_bar, "bf16_vs_fp32_gap": {"max": gap_max, "mean_abs": gap_mean},
+                    "loss_rel": loss_rel, "grad_rel_to_scale": grad_rel,
+                    **{k: {("planes" if v else "nhwc"): ms for v, ms in t.items()} for k, t in timings.items()}})
+        say(f"  served ms a batch: planes {timings['served_ms'][True]}, nhwc {timings['served_ms'][False]}; train "
+            f"ms a step (loss and backward): planes {timings['train_step_ms'][True]}, nhwc "
+            f"{timings['train_step_ms'][False]} [{card}]")
+    finally:
+        flags.set_flag("diffusion_plane_layout", saved)
+    del model
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
 def main():
     import torch
 
@@ -2384,7 +2685,7 @@ def run(keep):
     for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         runner.model.dtype = dt
         torch.cuda.reset_peak_memory_stats()
-        step_ms[name] = cuda_time_ms(one_step, 10, warmup=3)
+        step_ms[name] = cuda_time_ms(one_step, 6, warmup=3)
         peak[name] = torch.cuda.max_memory_allocated()
         say(f"  train step {name}: {step_ms[name]:.3f} ms, {TRAIN_BATCH * 1e3 / step_ms[name]:.2f} images/s, "
             f"peak memory {peak[name] / 2**30:.3f} GiB (batch {TRAIN_BATCH}, {SIZE}², back to back) [{card}]")
@@ -3011,7 +3312,7 @@ def run(keep):
         depth = torch.rand(BATCH, SIZE, SIZE, 1, generator=g_dev, device=dev)
         served_turns = {12: [], grid: []}
         for gs in (12, grid, grid, 12):
-            served_turns[gs].append(cuda_time_ms(lambda: nets[gs].predict(img, depth), 10, warmup=2))
+            served_turns[gs].append(cuda_time_ms(lambda: nets[gs].predict(img, depth), 5, warmup=2))
         del nets, m64, model
         torch.cuda.empty_cache()
         runners = {gs: Runner(load_config(recipe, [o for o in overrides64[1:] if not o.startswith("model.grid")]
@@ -3028,7 +3329,7 @@ def run(keep):
             counter[0] += 1
 
         for gs in (12, grid, grid, 12):
-            step_turns[gs].append(cuda_time_ms(lambda: grid_step(gs), 5, warmup=2))
+            step_turns[gs].append(cuda_time_ms(lambda: grid_step(gs), 3, warmup=2))
         del runners, batch, first
         torch.cuda.empty_cache()
     say(f"  served bf16 ms per batch (batch {BATCH}, {SIZE}², in turns 12, {grid}, {grid}, 12): grid 12 "
@@ -3137,6 +3438,11 @@ def run(keep):
     # ---- 22-23. the offline depther, serving_check ----
     depther_row = depther_phase(card)
     serving_row = serving_check_phase(D, card)
+
+    # ---- 24-26. serving bundles, the exported MSDA layer, the NHWC layout ----
+    bundle_row = bundle_phase(D, card)
+    dqnet_row = dqnet_msda_bundle_phase(card)
+    layout_row = layout_phase(D, card)
 
     b = rows["bf16"]
     bb = bwd_rows["bf16"]
@@ -3387,6 +3693,23 @@ def run(keep):
             "main_path": "serving_check: cod predict at " + " and ".join(f"{s}²" for s in SERVING_SIZES)
                          + f" (bf16, batch 1) and the {SERVING_CHECK_GRID}² diffusion block's nhwc_wrapper and "
                            "planes legs (warm-up and 3 timed runs of 4 calls each)"}
+    # phases 24-26: the fused forward in the cod bundle's calls, the MSDA
+    # forward in the exported layer's call, the NHWC plane forward and the
+    # fused backward under diffusion_plane_layout=False
+    by_name["diffusion_stencil_fused"]["bundle_launches"] = {
+        "launches": bundle_row["launches"],
+        "main_path": f"the bf16 cod bundle's program at {SIZE}² (batch 1): a {SIZE}² and a "
+                     f"{BUNDLE_ODD_HW[0]}x{BUNDLE_ODD_HW[1]} call through ServingModel and one on the card's tensors"}
+    by_name["msda_fwd"]["exported_launches"] = {
+        "launches": dqnet_row["msdeformattn"]["launches"],
+        "main_path": f"one call of the MSDeformAttn layer exported with torch.export (N=1, Lq=S={ENC_S})"}
+    by_name["diffusion_stencil_nhwc"]["layout_false_launches"] = {
+        "served": layout_row["served_launches"][8], "train": layout_row["train_launches"][8],
+        "main_path": f"cod under diffusion_plane_layout=False: one served batch of {BATCH} and one train step at "
+                     f"batch {TRAIN_BATCH}, {SIZE}², bf16"}
+    by_name["diffusion_stencil_fused_bwd"]["layout_false_launches"] = {
+        "train": layout_row["train_launches"][1],
+        "main_path": "the NHWC stencil's backward in one train step of cod under diffusion_plane_layout=False"}
     say(json.dumps({"kernels": kernel_rows}))
     say(json.dumps({"trained": {
         "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",
@@ -3423,6 +3746,9 @@ def run(keep):
     say(json.dumps({"spatial": spatial_row}))
     say(json.dumps({"depther": depther_row}))
     say(json.dumps({"serving_check": serving_row}))
+    say(json.dumps({"bundle": bundle_row}))
+    say(json.dumps({"dqnet_bundle": dqnet_row}))
+    say(json.dumps({"layout": layout_row}))
     say(json.dumps({"msda": {
         "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
                  f"n_points={ENC_POINTS}), seeded weights",

@@ -234,6 +234,16 @@ def _split(key: str) -> Tuple[str, str]:
     return "params", key
 
 
+#: keys a checkpoint may lack or carry beyond the model's: the reference's
+#: modules that its forward never calls, and BatchNorm's step counters
+DEAD_PREFIXES = ("hitnet.ca.", "hitnet.sa.", "hitnet.backbone.prompt_encoder.adaptor.")
+DEAD_SUFFIXES = ("num_batches_tracked",)
+
+
+def is_dead_key(key: str) -> bool:
+    return key.startswith(DEAD_PREFIXES) or key.endswith(DEAD_SUFFIXES)
+
+
 def state_dict_from_flax(flat: Dict[str, np.ndarray], kind: str = "full") -> Dict[str, torch.Tensor]:
     """The port's state_dict from a flat JAX variables mapping. Raises on a
     JAX leaf the key table does not map.

@@ -1,9 +1,13 @@
 """Depth-guided texture diffusion, the paper's prompt modules (counterpart of
 ``dgtd_tpu/models/diffusion.py``).
 
-``MessagePassing`` always runs in plane layout: the 1x1 affinity regressor's
-NCHW output (B, C·k², h, w) is already ``view(B·C, k², h, w)``, channel
-``o = c·k² + t``, so the stencil (``ops/diffusion.py``) needs no transposes.
+``MessagePassing`` runs in plane layout unless
+``core.flags.diffusion_plane_layout`` is ``False`` (read at each call): the
+1x1 affinity regressor's NCHW output (B, C·k², h, w) is already
+``view(B·C, k², h, w)``, channel ``o = c·k² + t``, so the stencil
+(``ops/diffusion.py``) needs no transposes. Under ``False`` it runs the NHWC
+stencil (``diffusion_nhwc``) on x and the weights moved to NHWC, as the JAX
+package's NHWC branch does.
 On CUDA the stencil runs hand-written kernels at every grid size: at the
 recipe's 12x12 grid all the steps in one launch of the fused forward and,
 in backward, one of the fused backward; at grids 23 to 64 (the paper's grid
@@ -19,7 +23,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.diffusion import diffusion_planes
+from ..core import flags
+from ..ops.diffusion import diffusion_nhwc, diffusion_planes
 from ..utils.image import fft_high_pass, resize_bilinear, resize_nearest
 from .convnext import EMBED_DIM, ConvNeXtFPNEncoder
 from .layers import conv2d
@@ -40,6 +45,16 @@ def affinity_planes(x: torch.Tensor, weight: torch.Tensor, kernel: int) -> Tuple
     return x.reshape(b * c, h, w).contiguous(), wt.to(x.dtype).contiguous()
 
 
+def affinity_nhwc(x: torch.Tensor, weight: torch.Tensor, kernel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NHWC stencil's inputs from ``MessagePassing``'s: x (B, C, h, w) ->
+    (B, h, w, C); weight (B, C·k², h, w) -> normalized (B, h, w, C, k²) in
+    x's dtype, channel-major like the JAX package's NHWC weight."""
+    b, c, h, w = x.shape
+    kk = kernel * kernel
+    nw = normalize_affinity(weight.reshape(b, c, kk, h, w).permute(0, 3, 4, 1, 2), dim=-1)
+    return x.permute(0, 2, 3, 1).contiguous(), nw.to(x.dtype)
+
+
 class MessagePassing(nn.Module):
     """Iterated affinity-weighted stencil, 1x1 conv to 3 channels, bilinear
     resize to the input resolution."""
@@ -52,9 +67,13 @@ class MessagePassing(nn.Module):
 
     def forward(self, x, weight, out_size):
         b, c, h, w = x.shape
-        xp, wt = affinity_planes(x, weight, self.kernel)
-        xp = diffusion_planes(xp, wt, self.kernel, self.steps)
-        return resize_bilinear(self.conv(xp.view(b, c, h, w)), out_size)
+        if flags.diffusion_plane_layout is False:
+            xn, nw = affinity_nhwc(x, weight, self.kernel)
+            out = diffusion_nhwc(xn, nw, self.kernel, self.steps).permute(0, 3, 1, 2)
+        else:
+            xp, wt = affinity_planes(x, weight, self.kernel)
+            out = diffusion_planes(xp, wt, self.kernel, self.steps).view(b, c, h, w)
+        return resize_bilinear(self.conv(out), out_size)
 
 
 class ShapePropWeightRegressor(nn.Module):

@@ -35,8 +35,15 @@ per-step NHWC kernel a step. Its backward moves g, the step inputs and w
 into plane layout and runs the plane backward kernels (the JAX backward is
 the VJP of the jnp stencil).
 
-CPU tensors take the plain versions; a CUDA tensor gets the kernels or an
-exception, never a plain version.
+Both forwards are ``torch.library`` custom ops, ``dgtd_torch::diffusion_planes``
+and ``dgtd_torch::diffusion_nhwc``, so that ``torch.export`` traces them
+(``tools/export_serving.py``): their CUDA implementation is the kernel
+route, their CPU implementation the plain version, and a fake
+implementation gives the outputs' shapes. The served forward, the autograd
+Functions' forward and an exported program all call the op; the backward
+kernels are called from the Functions. CPU tensors take the plain
+versions; a CUDA tensor gets the kernels or an exception, never a plain
+version.
 """
 
 from __future__ import annotations
@@ -425,32 +432,76 @@ def _check(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> None:
 def _forward_steps(
     x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, keep: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Run the steps; returns (output, xs): xs holds every step's input as
-    one (steps, P, H, W) tensor when ``keep`` (saved for backward), else it
-    is None. The output is never x itself (a Function's output must not be
-    its input): 0 steps return a copy."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        if steps == 0:
-            return x.clone(), x.new_empty((0, *x.shape)) if keep else None
-        outs = [x]
-        for _ in range(steps):
-            outs.append(diffusion_step_plain(outs[-1], w, kernel))
-        return outs[-1], torch.stack(outs[:-1]) if keep else None
+    """Run the steps through the ``dgtd_torch::diffusion_planes`` op;
+    returns (output, xs): xs holds every step's input as one
+    (steps, P, H, W) tensor when ``keep`` (saved for backward), else it is
+    None. The output is never x itself (a Function's output must not be
+    its input): 0 steps return a copy. A tensor on neither the CPU nor
+    CUDA raises here, before the dispatcher could send it to the op's
+    shape-only (fake) implementation, and so does a CUDA tensor that is not
+    contiguous (the op itself takes any strides)."""
+    if not (_on_cpu(x, w) or _cuda_contiguous(x, w)):
+        _check(x, w, kernel, steps)
+    out, xs = diffusion_planes_op(x, w, kernel, steps, keep)
+    return out, xs if keep else None
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _cuda_contiguous(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cuda" and t.is_contiguous() for t in ts)
+
+
+@torch.library.custom_op("dgtd_torch::diffusion_planes", mutates_args=(), device_types="cuda")
+def diffusion_planes_op(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int,
+                        keep: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plane forward as a ``torch.library`` op, so that ``torch.export``
+    can trace it: (output, step inputs), the step inputs (steps, P, H, W)
+    when ``keep``, else (0, P, H, W). On CUDA the kernel route: one launch
+    of the fused, cluster or tiled forward for all the steps, as
+    ``plane_route`` says, else one launch of the per-step kernel a step; a
+    launch that fails raises. On the CPU the plain version. x and w are
+    made contiguous here: in an exported program the strides are those of
+    the trace, and a ``.contiguous()`` that was a no-op there is not in the
+    graph, while the run's tensors may differ (cuDNN's output layout)."""
+    x, w = x.contiguous(), w.contiguous()
     _check(x, w, kernel, steps)
-    xs = torch.empty((steps, *x.shape), dtype=x.dtype, device=x.device) if keep else None
+    xs = torch.empty((steps if keep else 0, *x.shape), dtype=x.dtype, device=x.device)
     if steps == 0:
         return x.clone(), xs
     out = torch.empty_like(x)
     route = plane_route(x.shape[1], x.shape[2], kernel, x.dtype, steps)
+    ys = xs if keep else None
     if route == "fused":
-        _fused_forward(x, w, kernel, steps, xs, out)
+        _fused_forward(x, w, kernel, steps, ys, out)
     elif route == "cluster":
-        _cluster_forward(x, w, kernel, steps, xs, out)
+        _cluster_forward(x, w, kernel, steps, ys, out)
     elif route == "tiled":
-        _tiled_forward(x, w, kernel, steps, xs, out)
+        _tiled_forward(x, w, kernel, steps, ys, out)
     else:
-        _per_step_forward(x, w, kernel, steps, xs, out)
+        _per_step_forward(x, w, kernel, steps, ys, out)
     return out, xs
+
+
+def _plain_chain(step, x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int,
+                 keep: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ops' CPU implementation: ``steps`` plain steps, (output, step
+    inputs or a (0, ...) tensor); 0 steps return a copy of x."""
+    outs = [x]
+    for _ in range(steps):
+        outs.append(step(outs[-1], w, kernel))
+    xs = torch.stack(outs[:-1]) if keep and steps else x.new_empty((0, *x.shape))
+    return (outs[-1] if steps else x.clone()), xs
+
+
+def _steps_fake(x, w, kernel, steps, keep):
+    return torch.empty_like(x), x.new_empty((steps if keep else 0, *x.shape))
+
+
+diffusion_planes_op.register_kernel("cpu")(functools.partial(_plain_chain, diffusion_step_plain))
+diffusion_planes_op.register_fake(_steps_fake)
 
 
 def _all_steps_forward(route: str, x, w, kernel: int, steps: int, xs: Optional[torch.Tensor],
@@ -688,29 +739,46 @@ def _check_nhwc(x: torch.Tensor, w: torch.Tensor, kernel: int, steps: int) -> No
 
 def _nhwc_forward_steps(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int,
                         keep: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Run the steps; returns (output, xs): xs holds every step's input as
-    one (steps, B, H, W, C) tensor when ``keep`` (saved for backward), else
-    it is None. The output is never x itself: 0 steps return a copy."""
-    if x.device.type == "cpu" and w_tm.device.type == "cpu":
-        if steps == 0:
-            return x.clone(), x.new_empty((0, *x.shape)) if keep else None
-        outs = [x]
-        for _ in range(steps):
-            outs.append(diffusion_step_nhwc_plain(outs[-1], w_tm, kernel))
-        return outs[-1], torch.stack(outs[:-1]) if keep else None
+    """Run the steps through the ``dgtd_torch::diffusion_nhwc`` op; returns
+    (output, xs): xs holds every step's input as one (steps, B, H, W, C)
+    tensor when ``keep`` (saved for backward), else it is None. The output
+    is never x itself: 0 steps return a copy. A tensor on neither the CPU
+    nor CUDA, or a CUDA tensor that is not contiguous, raises here."""
+    if not (_on_cpu(x, w_tm) or _cuda_contiguous(x, w_tm)):
+        _check_nhwc(x, w_tm, kernel, steps)
+    out, xs = diffusion_nhwc_op(x, w_tm, kernel, steps, keep)
+    return out, xs if keep else None
+
+
+@torch.library.custom_op("dgtd_torch::diffusion_nhwc", mutates_args=(), device_types="cuda")
+def diffusion_nhwc_op(x: torch.Tensor, w_tm: torch.Tensor, kernel: int, steps: int,
+                      keep: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NHWC forward on tap-major weights as a ``torch.library`` op:
+    (output, step inputs), the step inputs (steps, B, H, W, C) when
+    ``keep``, else (0, B, H, W, C). On CUDA one launch of the NHWC plane or
+    grid kernel for all the steps, as ``nhwc_route`` says, else (k >= 13)
+    one launch of the per-step NHWC kernel a step; on the CPU the plain
+    version. x and w are made contiguous here, as in
+    ``diffusion_planes_op``."""
+    x, w_tm = x.contiguous(), w_tm.contiguous()
     _check_nhwc(x, w_tm, kernel, steps)
-    xs = torch.empty((steps, *x.shape), dtype=x.dtype, device=x.device) if keep else None
+    xs = torch.empty((steps if keep else 0, *x.shape), dtype=x.dtype, device=x.device)
     if steps == 0:
         return x.clone(), xs
     out = torch.empty_like(x)
     route = nhwc_route(x.shape[1], x.shape[2], kernel, x.dtype)
+    ys = xs if keep else None
     if route == "plane":
-        _nhwc_plane_forward(x, w_tm, kernel, steps, xs, out)
+        _nhwc_plane_forward(x, w_tm, kernel, steps, ys, out)
     elif route == "grid":
-        _nhwc_grid_forward(x, w_tm, kernel, steps, xs, out)
+        _nhwc_grid_forward(x, w_tm, kernel, steps, ys, out)
     else:
-        _nhwc_per_step_forward(x, w_tm, kernel, steps, xs, out)
+        _nhwc_per_step_forward(x, w_tm, kernel, steps, ys, out)
     return out, xs
+
+
+diffusion_nhwc_op.register_kernel("cpu")(functools.partial(_plain_chain, diffusion_step_nhwc_plain))
+diffusion_nhwc_op.register_fake(_steps_fake)
 
 
 def _nhwc_plane_forward(x, w_tm, kernel: int, steps: int, xs: Optional[torch.Tensor], out: torch.Tensor) -> None:

@@ -6,7 +6,8 @@ forward kernel replaces the Pallas kernel, the backward is autograd through
 the plain version (the JAX backward is the VJP of ``_ln_reference``). Like
 the JAX kernel it is standalone: no model of the port calls it (the models
 use ``models/layers.py::LayerNorm``). CPU tensors take the plain version; a
-CUDA tensor gets the kernel or an exception. The kernel has three routes,
+CUDA tensor gets the kernel or an exception. The forward is the
+``torch.library`` custom op ``dgtd_torch::layer_norm``. The kernel has three routes,
 picked by :func:`ln_route` (the lane-group route with 16-byte accesses, the
 scalar warp route, the block route).
 """
@@ -124,14 +125,37 @@ def launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, out: torch.
 
 
 def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """The forward without autograd. On CUDA one launch of the kernel; on the
-    CPU the plain version."""
-    if x.device.type == "cpu" and scale.device.type == "cpu" and bias.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
+    """The forward without autograd, through the ``dgtd_torch::layer_norm``
+    op. On CUDA one launch of the kernel; on the CPU the plain version. A
+    tensor on neither, or a CUDA x that is not contiguous, raises here (the
+    op itself takes any strides)."""
+    on_cpu = all(t.device.type == "cpu" for t in (x, scale, bias))
+    if not (on_cpu or (all(t.device.type == "cuda" for t in (x, scale, bias)) and x.is_contiguous())):
+        _check(x, scale, bias)
+    return layer_norm_op(x, scale, bias, float(eps))
+
+
+@torch.library.custom_op("dgtd_torch::layer_norm", mutates_args=(), device_types="cuda")
+def layer_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm's forward as a ``torch.library`` op, so that
+    ``torch.export`` can trace it: on CUDA one launch of the kernel (a
+    launch that fails raises), on the CPU the plain version. x is made
+    contiguous here: an exported program's strides are the trace's."""
+    x = x.contiguous()
     _check(x, scale, bias)
     out = torch.empty_like(x)
     launch(x, _fp32(scale), _fp32(bias), out, eps)
     return out
+
+
+@layer_norm_op.register_kernel("cpu")
+def _layer_norm_cpu(x, scale, bias, eps):
+    return layer_norm_plain(x, scale, bias, eps)
+
+
+@layer_norm_op.register_fake
+def _layer_norm_fake(x, scale, bias, eps):
+    return torch.empty_like(x)
 
 
 class LayerNormFn(torch.autograd.Function):

@@ -20,7 +20,10 @@ Bilinear sampling follows ``F.grid_sample(align_corners=False,
 padding_mode='zeros')``: src = loc * size - 0.5, out-of-range corners
 contribute zero. ``loc`` and ``aw`` are upcast to fp32 at the op's boundary
 and the gradients cast back to the caller's dtypes. CPU tensors take the
-plain versions; a CUDA tensor gets the kernels or an exception.
+plain versions; a CUDA tensor gets the kernels or an exception. The
+forward is the ``torch.library`` custom op ``dgtd_torch::msda_fwd`` (level
+shapes an argument), so that ``torch.export`` traces it; the backward
+kernels are called from the autograd Function.
 
 Each kernel runs on a plan per call, :func:`msda_plan`, computed here from
 the shapes and passed to the C functions, which check it: the levels a
@@ -35,13 +38,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import init_parameters, linear
 from . import _build
 
 #: launches of the forward, dValue and dLocation/dWeight kernels (one each
@@ -305,22 +307,52 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes, loc: torch.Tensor, aw: torch.Tensor) -> torch.Tensor:
-    """The forward without autograd: (N, Lq, M*D) in value's dtype. On CUDA
-    one launch of the forward kernel on :func:`msda_plan`'s plan (loc and aw
-    fp32); on the CPU the plain version."""
-    global LAUNCHES
+    """The forward without autograd, through the ``dgtd_torch::msda_fwd``
+    op: (N, Lq, M*D) in value's dtype. On CUDA one launch of the forward
+    kernel on :func:`msda_plan`'s plan (loc and aw fp32); on the CPU the
+    plain version. A tensor on neither, or a CUDA tensor that is not
+    contiguous, raises here (the op itself takes any strides)."""
     shapes = _static_shapes(spatial_shapes)
-    if _on_cpu(value, loc, aw):
-        return ms_deform_attn_plain(value, shapes, loc, aw)
-    _check(value, shapes, loc, aw)
+    if not (_on_cpu(value, loc, aw) or all(t.device.type == "cuda" and t.is_contiguous() for t in (value, loc, aw))):
+        _check(value, shapes, loc, aw)
+    return msda_fwd_op(value, loc, aw, [v for hw in shapes for v in hw])
+
+
+def _pairs(flat: Sequence[int]) -> Shapes:
+    """The op's flat level shapes [H_0, W_0, H_1, W_1, ...] as pairs."""
+    return tuple((int(flat[i]), int(flat[i + 1])) for i in range(0, len(flat), 2))
+
+
+@torch.library.custom_op("dgtd_torch::msda_fwd", mutates_args=(), device_types="cuda")
+def msda_fwd_op(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor, shapes: List[int]) -> torch.Tensor:
+    """The MSDA forward as a ``torch.library`` op, so that ``torch.export``
+    can trace it; ``shapes`` the levels' (H, W) flat. On CUDA one launch of
+    the forward kernel (the plan is made here, from the shapes); a launch
+    that fails raises. On the CPU the plain version. The inputs are made
+    contiguous here: an exported program's strides are the trace's."""
+    global LAUNCHES
+    levels = _pairs(shapes)
+    value, loc, aw = value.contiguous(), loc.contiguous(), aw.contiguous()
+    _check(value, levels, loc, aw)
     n, _, m, d = value.shape
     out = torch.empty((n, loc.shape[1], m * d), dtype=value.dtype, device=value.device)
-    plan = _call_plan(value, shapes, loc, out)
-    rc = _fwd_fn()(value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(), *_launch_args(value, shapes, loc),
+    plan = _call_plan(value, levels, loc, out)
+    rc = _fwd_fn()(value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(), *_launch_args(value, levels, loc),
                    *_plan_args(plan))
     _raise_on(rc, "MSDA forward")
     LAUNCHES += 1
     return out
+
+
+@msda_fwd_op.register_kernel("cpu")
+def _msda_fwd_cpu(value, loc, aw, shapes):
+    return ms_deform_attn_plain(value, _pairs(shapes), loc, aw)
+
+
+@msda_fwd_op.register_fake
+def _msda_fwd_fake(value, loc, aw, shapes):
+    n, _, m, d = value.shape
+    return value.new_empty((n, loc.shape[1], m * d))
 
 
 def ms_deform_attn_dvalue(g: torch.Tensor, value: torch.Tensor, spatial_shapes, loc: torch.Tensor,
@@ -426,6 +458,8 @@ class MSDeformAttn(nn.Module):
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
                  seed: Optional[int] = 0):
+        from ..models.layers import init_parameters, linear
+
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of n_heads {n_heads}")

@@ -1,18 +1,20 @@
 """Batch inference: images (+ depth maps) -> segmentation masks, on the GPU
-(counterpart of the root ``predict.py`` in its ``--checkpoint`` mode).
+(counterpart of the root ``predict.py``).
 
     python -m dgtd_tpu_torch.predict --checkpoint weights.pth \\
         --image-dir data/Imgs --depth-dir data/depth --out-dir masks \\
         [--model cod|baseline|DQnet] [--size 384] [--batch 8] [--fp32] \\
         [-o variant=b0] [-o diffusion_kernel=11] [--device cpu]
+    python -m dgtd_tpu_torch.predict --bundle bundle/ --image-dir ... --out-dir ... [--device cpu]
 
 ``--checkpoint`` takes a port ``state_dict`` (``.pth``; a reference
 ``epoch_N.pth`` loads too) or a JAX flat ``.npz``, carried across by
 ``convert.state_dict_from_flax``. Depth maps pair with images by sorted order;
 without ``--depth-dir`` a zero depth plane is used. ``-o`` sets the model's
 arguments (an ablation axis of ``docs/ABLATIONS.md``, a smaller variant).
-Runs on CUDA unless ``--device`` names another device; a missing card
-raises.
+``--bundle`` serves a bundle of ``tools/export_serving.py`` instead, one
+image a call at its own size. Runs on CUDA unless ``--device`` names another
+device; a missing card raises.
 """
 
 from __future__ import annotations
@@ -33,20 +35,27 @@ from .data.device_norm import IMAGENET_MEAN, IMAGENET_STD, normalize_image, scal
 from .utils.files import list_images
 
 
-def load_checkpoint(model: torch.nn.Module, path: str):
-    """Load a ``.pth`` state_dict or a JAX flat ``.npz`` into ``model``,
-    leniently (a partial checkpoint is a legitimate debugging input). Returns
-    (loaded keys, model keys left at init, checkpoint keys not used)."""
+def read_checkpoint(path: str) -> dict:
+    """The port's state dict from a ``.pth`` (a bare state dict or one under
+    ``model`` or ``state_dict``) or from a JAX flat ``.npz``, carried across
+    by ``convert.state_dict_from_flax``."""
     if path.endswith(".npz"):
         from .convert import state_dict_from_flax
 
         with np.load(path) as z:
-            state = state_dict_from_flax({k: z[k] for k in z.files})
-    else:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        for wrap in ("model", "state_dict"):
-            if isinstance(state, dict) and wrap in state:
-                state = state[wrap]
+            return state_dict_from_flax({k: z[k] for k in z.files})
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for wrap in ("model", "state_dict"):
+        if isinstance(state, dict) and wrap in state:
+            state = state[wrap]
+    return state
+
+
+def load_checkpoint(model: torch.nn.Module, path: str):
+    """Load a ``.pth`` state_dict or a JAX flat ``.npz`` into ``model``,
+    leniently (a partial checkpoint is a legitimate debugging input). Returns
+    (loaded keys, model keys left at init, checkpoint keys not used)."""
+    state = read_checkpoint(path)
     result = model.load_state_dict(state, strict=False)
     unused = set(result.unexpected_keys)
     loaded = [k for k in state if k not in unused]
@@ -70,7 +79,12 @@ def paired_depth_files(files, depth_dir):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--checkpoint", required=True, help="port state_dict .pth or JAX flat .npz")
+    ap.add_argument("--checkpoint", default=None, help="port state_dict .pth or JAX flat .npz")
+    ap.add_argument(
+        "--bundle", default=None,
+        help="serve from a bundle dir (tools/export_serving.py) instead of building the model from "
+        "code; exclusive with --checkpoint; one image a call at its own size",
+    )
     ap.add_argument("--image-dir", required=True)
     ap.add_argument("--depth-dir", default=None)
     ap.add_argument("--out-dir", required=True)
@@ -87,7 +101,10 @@ def parse_args(argv=None):
         "-o", "--model-arg", action="append", default=[],
         help="model kwargs, e.g. -o variant=b0 -o convnext_depths=[1,1,2,1]",
     )
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if bool(args.bundle) == bool(args.checkpoint):
+        ap.error("exactly one of --checkpoint or --bundle is required")
+    return args
 
 
 def main(argv=None):
@@ -95,6 +112,8 @@ def main(argv=None):
     of the serving loop (first decode to last PNG written)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.bundle:
+        return run_bundle(args, device)
     from PIL import Image
 
     files = list_images(args.image_dir)
@@ -183,6 +202,41 @@ def main(argv=None):
         done_n += len(pending[0])
         print(f"{done_n}/{len(files)}")
     return {"images": len(files), "batches": len(starts), "loop_s": time.perf_counter() - t0}
+
+
+def run_bundle(args, device: torch.device) -> dict:
+    """Folder inference through a bundle (the root ``predict.py``'s
+    ``_run_bundle``): one image a call at its own size (the bundle buckets
+    and resizes), its depth resized to it with PIL's bilinear filter, or a
+    zero plane without ``--depth-dir``; writes ``<name>_output.png`` at the
+    image's size."""
+    from PIL import Image
+
+    from .tools.export_serving import ServingModel
+
+    serving = ServingModel.load(args.bundle, device)
+    print(f"bundle: sizes {serving.sizes}, platforms {serving.meta.get('platforms')}, on {device}")
+    files = list_images(args.image_dir)
+    depth_files = paired_depth_files(files, args.depth_dir)
+    os.makedirs(args.out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    for i, f in enumerate(files):
+        with Image.open(os.path.join(args.image_dir, f)) as im:
+            rgb = np.asarray(im.convert("RGB"), np.float32) / 255.0
+            size = im.size
+        img = ((rgb - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)[None]
+        if depth_files:
+            with Image.open(os.path.join(args.depth_dir, depth_files[i])) as dm:
+                dep = np.asarray(dm.convert("L").resize(size, Image.BILINEAR), np.float32)[None, ..., None] / 255.0
+        else:
+            dep = np.zeros(img.shape[:3] + (1,), np.float32)
+        prob = serving(img, dep)
+        name = os.path.splitext(f)[0]
+        Image.fromarray((np.clip(prob[0, ..., 0], 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(args.out_dir, f"{name}_output.png")
+        )
+        print(f"{i + 1}/{len(files)}")
+    return {"images": len(files), "batches": len(files), "loop_s": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":

@@ -48,21 +48,12 @@ from ..metrics import evaluators as _evaluators  # noqa: F401  (registers the me
 from ..metrics.device import batch_statistics, statistics_to_host
 from ..parallel import dist as pdist
 from .. import models as _models  # noqa: F401  (registers the models)
+from ..convert import is_dead_key
 from ..predict import load_checkpoint
 from ..utils.visualizer import build_visualizer
 from . import hooks as _hooks  # noqa: F401  (registers the hooks)
 from .optim import Optimizer
 from .state import train_step
-
-#: keys a checkpoint may lack or carry beyond the model's: the reference's
-#: modules that its forward never calls, and BatchNorm's step counters
-DEAD_PREFIXES = ("hitnet.ca.", "hitnet.sa.", "hitnet.backbone.prompt_encoder.adaptor.")
-DEAD_SUFFIXES = ("num_batches_tracked",)
-
-
-def _is_dead(key: str) -> bool:
-    return key.startswith(DEAD_PREFIXES) or key.endswith(DEAD_SUFFIXES)
-
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -187,7 +178,7 @@ class Runner:
         if not params.intersection(loaded):
             raise ValueError(f"restore_checkpoint: no array of {path} matches a parameter of the model; "
                              "wrong checkpoint for this model or config?")
-        unmatched = sorted(k for k in missed + unused if not _is_dead(k))
+        unmatched = sorted(k for k in missed + unused if not is_dead_key(k))
         if unmatched:
             raise ValueError(f"restore_checkpoint: {len(unmatched)} keys of {path} and the model do not pair "
                              f"(first: {unmatched[:5]})")

@@ -75,6 +75,31 @@ def test_tiny_cod_predict_out_size_and_tensor_match_jax(carried):
     np.testing.assert_allclose(pred2.numpy(), np.asarray(pred2_ref), rtol=0, atol=4 * PROB_ATOL)
 
 
+def test_tiny_cod_nhwc_layout_matches_the_planes_and_jax(carried):
+    """``diffusion_plane_layout=False`` (the NHWC stencil) equals ``True``
+    (the plane stencil) and the JAX model under its own flag ``False`` (the
+    jnp NHWC stencil; on the CPU its automatic choice too, so the compiled
+    predict of this module serves)."""
+    from dgtd_tpu.core import flags as jax_flags
+    from dgtd_tpu_torch.core import flags as port_flags
+
+    _, variables, _, pm, jax_predict = carried
+    img, dep = _inputs(5, 2, 64, 64)
+    saved = (jax_flags.diffusion_plane_layout, port_flags.diffusion_plane_layout)
+    try:
+        jax_flags.set_flag("diffusion_plane_layout", False)
+        ref = np.asarray(jax_predict(variables, img, dep))
+        probs = {}
+        for value in (True, False):
+            port_flags.set_flag("diffusion_plane_layout", value)
+            probs[value] = pm.predict(torch.from_numpy(img), torch.from_numpy(dep))[0].numpy()
+    finally:
+        jax_flags.set_flag("diffusion_plane_layout", saved[0])
+        port_flags.set_flag("diffusion_plane_layout", saved[1])
+    np.testing.assert_allclose(probs[False], probs[True], rtol=0, atol=PROB_ATOL)
+    np.testing.assert_allclose(probs[False], ref, rtol=0, atol=PROB_ATOL)
+
+
 def test_state_dict_from_flax_agrees_with_export_state_dict(carried):
     _, _, flat, pm, _ = carried
     template = {k: v.numpy() for k, v in pm.state_dict().items()}

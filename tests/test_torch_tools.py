@@ -2,7 +2,9 @@
 ``depth_gen --estimator sobel`` (gray and magma PNGs bit-equal) and its
 refusals, ``eval_folder`` (both reductions), ``utils/vis_debug``,
 ``bench_table`` against the port's own ``Runner.val``,
-``serving_check`` at a small grid, ``convert_ckpt`` round trips, and a
+``serving_check`` at a small grid, ``convert_ckpt`` round trips,
+``metric_parity``'s folder loading and its refusal without the reference
+(the runbook itself needs the reference checkout and is ``slow``), and a
 fresh interpreter that imports every module of the slice and no JAX.
 """
 
@@ -23,7 +25,8 @@ from dgtd_tpu_torch.core.config import load_config
 from dgtd_tpu_torch.models import dinov2 as port_dinov2
 from dgtd_tpu_torch.models.cod import cod
 from dgtd_tpu_torch.models.dpt import DPTHead
-from dgtd_tpu_torch.tools import bench_table, convert_ckpt, depth_gen, eval_folder, serving_check
+from dgtd_tpu_torch.tools import bench_table, convert_ckpt, depth_gen, eval_folder, metric_parity, serving_check
+from dgtd_tpu_torch.tools.ref_oracle import reference_available
 from dgtd_tpu_torch.train import loop as L
 from dgtd_tpu_torch.utils import vis_debug
 
@@ -338,7 +341,9 @@ def test_the_slice_imports_no_jax():
     mods = ["dgtd_tpu_torch.models.dinov2", "dgtd_tpu_torch.models.dpt", "dgtd_tpu_torch.convert",
             "dgtd_tpu_torch.tools.depth_gen", "dgtd_tpu_torch.tools.convert_ckpt",
             "dgtd_tpu_torch.tools.eval_folder", "dgtd_tpu_torch.tools.bench_table",
-            "dgtd_tpu_torch.tools.serving_check", "dgtd_tpu_torch.utils.vis_debug"]
+            "dgtd_tpu_torch.tools.serving_check", "dgtd_tpu_torch.utils.vis_debug",
+            "dgtd_tpu_torch.tools.export_serving", "dgtd_tpu_torch.tools.metric_parity",
+            "dgtd_tpu_torch.tools.ref_oracle", "dgtd_tpu_torch.core.flags"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import dgtd_tpu_torch.tools.eval_folder as E, dgtd_tpu_torch.tools.bench_table as B\n"
@@ -347,3 +352,67 @@ def test_the_slice_imports_no_jax():
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dgtd_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+def _parity_tree(root, n=3, sizes=((64, 64), (50, 70), (48, 40))):
+    """An RGB-D folder as tests/test_metric_parity.py writes it: JPEG images,
+    blob masks, depth maps with their own names."""
+    rng = np.random.RandomState(0)
+    for sub in ("Imgs", "GT", "Depth"):
+        os.makedirs(root / sub)
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        cy, cx, r = rng.randint(16, h - 16), rng.randint(16, w - 16), rng.randint(8, 16)
+        Image.fromarray((rng.rand(h, w, 3) * 255).astype(np.uint8)).save(root / "Imgs" / f"x{i}.jpg")
+        Image.fromarray(((((yy - cy) ** 2 + (xx - cx) ** 2) < r * r) * 255).astype(np.uint8)).save(
+            root / "GT" / f"x{i}.png")
+        Image.fromarray((rng.rand(h, w) * 255).astype(np.uint8)).save(root / "Depth" / f"x{i}_depth.png")
+
+
+@pytest.mark.parametrize("with_depth", [True, False], ids=["depth", "no_depth"])
+def test_metric_parity_load_folder_matches_the_jax_tool(tmp_path, with_depth):
+    from dgtd_tpu.tools import metric_parity as jax_parity
+
+    _parity_tree(tmp_path)
+    args = (str(tmp_path / "Imgs"), str(tmp_path / "GT"), str(tmp_path / "Depth") if with_depth else None, 56)
+    ours, ref = list(metric_parity.load_folder(*args)), list(jax_parity.load_folder(*args))
+    assert len(ours) == len(ref) == 3
+    for got, want in zip(ours, ref):
+        assert got[0] == want[0]
+        for a, b in zip(got[1:], want[1:]):
+            assert a.shape == b.shape and a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+
+def test_metric_parity_needs_the_reference(tmp_path, monkeypatch):
+    """Without the reference checkout the tool raises FileNotFoundError
+    naming the path it looked for; a JAX .npz is refused."""
+    _parity_tree(tmp_path, n=1)
+    missing = tmp_path / "no_reference"
+    monkeypatch.setenv("DGTD_REFERENCE_ROOT", str(missing))
+    with pytest.raises(FileNotFoundError, match="no_reference"):
+        metric_parity.run_parity(str(tmp_path / "Imgs"), str(tmp_path / "GT"), None, None, state_dict={},
+                                 device="cpu")
+    with pytest.raises(SystemExit, match="reference .pth"):
+        metric_parity.load_state_dict(str(tmp_path / "w.npz"))
+
+
+@pytest.mark.slow
+@pytest.mark.skipif(not reference_available(), reason="reference checkout not present")
+def test_metric_parity_runbook_synthetic(tmp_path):
+    """The reference model and the port on one random state dict, through
+    predict and the metrics (tests/test_metric_parity.py's bars)."""
+    from dgtd_tpu_torch.tools.ref_oracle import cpu_cuda_calls, load_reference_cod
+
+    _parity_tree(tmp_path, n=5, sizes=((64, 64),))
+    torch.manual_seed(0)
+    with cpu_cuda_calls():
+        state_dict = load_reference_cod().cod().state_dict()
+    result = metric_parity.run_parity(str(tmp_path / "Imgs"), str(tmp_path / "GT"), str(tmp_path / "Depth"),
+                                      checkpoint=None, size=384, state_dict=state_dict, device="cpu")
+    assert result["n_images"] == 5
+    assert result["pred_max_abs_delta"] < 5e-3, result
+    for k, d in result["delta"].items():
+        assert d < 2e-3, (k, d, result["reference"][k], result["ours"][k])
+    assert 0.0 < result["ours"]["COD/MAE"] < 1.0
