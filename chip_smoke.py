@@ -175,8 +175,8 @@ Phases (any failure exits non-zero):
  20. the train CLI under ``torchrun --standalone --nproc_per_node=1`` (one
      NCCL rank, ``configs/cod.yml``, 2 steps at batch 10 on synthetic
      data): its ``log.jsonl`` (the ``dist`` record, finite losses), its
-     ``epoch_1.pth`` loaded into the model; ``-o dist.space=2`` exits with
-     the NotImplementedError;
+     ``epoch_1.pth`` loaded into the model; the CLI (in this process)
+     refuses ``-o dist.space=2`` in train mode with the NotImplementedError;
  21. ``parallel/spatial.py::spatial_diffusion`` on 2 gloo ranks of the card
      (k = 7, 4 steps, fp32 and bf16) against the unsharded
      ``diffusion_planes`` on the same tensors: x (1,512,512,24), whose
@@ -217,7 +217,18 @@ Phases (any failure exits non-zero):
      a served batch of 8 within twice the planes' own bf16-vs-fp32 gap (at
      the largest, at least BF16_ATOL, and on average), a train step's loss
      within FIRST_LOSS_RTOL, each layout's launches counted; both timed in
-     turns.
+     turns;
+ 27. full-width ``cod`` served under the data×space layout
+     (``parallel/space.py``: every activation H-banded over the space
+     ranks) by gloo ranks of the card against one process on the same
+     weights and inputs: 384², batch 8, at (data, space) = (1, 2) and
+     (2, 2), and 1024², batch 1, at (1, 2), each in fp32 (TF32 off; within
+     SPACE_FP32_ATOL) and bf16 (within twice one process's own
+     bf16-vs-fp32 gap, at least BF16_ATOL): ms a batch a rank, peak memory
+     a rank beside one process's, the layout's counts and bytes, the
+     stencil launches a rank (one fused forward a step on the halo'd
+     band), and the fused kernel held to its plain version on a captured
+     halo'd band.
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
@@ -230,11 +241,12 @@ on the same tensors, and the per-step kernel on its own route), a
 served-throughput line, a ``trained``, a ``grid64``,
 a ``val``, a ``variants``, an ``msda``, a ``data_parallel``, a
 ``spatial``, a ``depther``, a ``serving_check``, a ``bundle``, a
-``dqnet_bundle`` and a ``layout`` JSON line, each with the card's name and
-power limit (the fused rows of ``kernels`` also carry phase 19's launches,
-the fused, cluster and tiled forward rows phase 21's, the fused and tiled
-forward rows phase 23's, the fused forward row phase 24's, the MSDA forward
-row phase 25's, the NHWC plane row and the fused backward row phase 26's);
+``dqnet_bundle``, a ``layout`` and a ``space`` JSON line, each with the
+card's name and power limit (the fused rows of ``kernels`` also carry
+phase 19's launches, the fused, cluster and tiled forward rows phase 21's,
+the fused and tiled forward rows phase 23's, the fused forward row phase
+24's and 27's, the MSDA forward row phase 25's, the NHWC plane row and the
+fused backward row phase 26's);
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -461,6 +473,16 @@ DQNET_BUNDLE_VARIANT = "b1"
 # (the NHWC stencil) against True (the plane stencil): a served batch and a
 # train step, each timed in turns (True, False, False, True)
 LAYOUT_ITERS = 3
+# phase 27: full-width cod served under the data×space layout
+# (parallel/space.py) by gloo ranks of the card against one process on the
+# same weights and inputs: (size, global batch, (data, space)); the recipe's
+# 384² at 2 and 4 ranks, and docs/SERVING.md's 1024² configuration at one
+# image on 2 ranks
+SPACE_CASES = ((384, 8, (1, 2)), (384, 8, (2, 2)), (1024, 1, (1, 2)))
+# fp32 (TF32 off) against one process: the bands compute each pixel as the
+# whole level does but for the spatial means' order
+SPACE_FP32_ATOL = 1e-4
+SPACE_ITERS = 2  # timed batches a case and dtype
 
 
 _START = time.perf_counter()
@@ -1524,9 +1546,17 @@ def dp_rank(rank, world, init_file, out_dir, dtype_names):
 
     S.all_mean_ = timed_reduce
     out = {}
+    initial = None
     for name in dtype_names:
         reduce_s.clear()
-        model = cod(dtype=getattr(torch, name), seed=0).to(dev)
+        # seed 0's weights, initialized once a process and loaded again for
+        # the next dtype
+        model = cod(dtype=getattr(torch, name), seed=0 if initial is None else None)
+        if initial is None:
+            initial = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(initial)
+        model = model.to(dev)
         loader = DataLoader(SyntheticSODDataset(n=DP_STEPS * TRAIN_BATCH, size=SIZE), TRAIN_BATCH, shuffle=True,
                             seed=0, drop_last=True, device=dev, rank=rank, world=world)
         opt = Optimizer(model.named_parameters(), cfg["optim_wrapper"], int(cfg["train_cfg"]["max_epochs"]),
@@ -1639,10 +1669,12 @@ def torchrun_phase(card):
     """Phase 20: ``torchrun --standalone --nproc_per_node=1 -m
     dgtd_tpu_torch.train configs/cod.yml`` (one rank, NCCL) for 2 steps on
     synthetic data: its log, a checkpoint that loads into the model; then
-    ``-o dist.space=2`` under torchrun fails with the NotImplementedError."""
+    the same CLI (in this process) refuses ``-o dist.space=2`` in train mode
+    with the NotImplementedError, before it starts a group."""
     import torch
 
     from dgtd_tpu_torch.models.cod import cod
+    from dgtd_tpu_torch.train import cli
 
     steps = TORCHRUN_N // TRAIN_BATCH
     say(f"phase 20: the train CLI under torchrun --standalone --nproc_per_node=1 (NCCL): configs/cod.yml, "
@@ -1673,15 +1705,17 @@ def torchrun_phase(card):
         check(state["meta"] == {"epoch": 1, "iter": steps}, state["meta"])
         cod(seed=None).load_state_dict(state["state_dict"])
         del state
-        refused = subprocess.run(argv + ["-o", "dist.space=2"], cwd=ROOT, capture_output=True, text=True,
-                                 timeout=TORCHRUN_TIMEOUT_S)
-        check(refused.returncode != 0 and "NotImplementedError" in refused.stderr and "A13b" in refused.stderr,
-              f"dist.space=2 exited {refused.returncode}:\n{refused.stderr[-3000:]}")
+        refused = None
+        try:
+            cli.main([recipe, "-o", f"work_dir={work}_space", "-o", "dist.space=2"])
+        except NotImplementedError as e:
+            refused = str(e)
+        check(refused is not None and "A13c" in refused, f"dist.space=2 in train mode: {refused}")
     row = {"launcher": "torchrun --standalone --nproc_per_node=1", "backend": "nccl", "steps": steps,
            "losses": losses, "run_s": run_s, "checkpoint_loaded": True, "dist_space_2": "NotImplementedError",
            "phase_s": time.perf_counter() - t_phase, "card": card}
     say(f"  {steps} steps on one NCCL rank, losses {losses}, {run_s:.1f} s with the launcher; epoch_1.pth loads "
-        f"into cod; -o dist.space=2 exits {refused.returncode} with NotImplementedError (ROADMAP A13b) [{card}]")
+        f"into cod; -o dist.space=2 in train mode raises NotImplementedError (ROADMAP A13c) [{card}]")
     return row
 
 
@@ -2256,6 +2290,204 @@ def layout_phase(D, card):
     torch.cuda.empty_cache()
     row["phase_s"] = time.perf_counter() - t_phase
     return row
+
+
+def space_inputs(size, batch):
+    """A served batch's image and depth (NHWC, on the card), the same in
+    every process for a (size, batch)."""
+    import torch
+
+    g = torch.Generator().manual_seed(size * 1000 + batch)
+    img = torch.randn(batch, size, size, 3, generator=g)
+    dep = torch.rand(batch, size, size, 1, generator=g)
+    return img.cuda(), dep.cuda()
+
+
+def space_rank(rank, world, init_file, out_dir, weights):
+    """One rank of phase 27: full-width ``cod`` (seed 0's ``weights``) served under each
+    SPACE_CASES layout of ``world`` ranks, fp32 (TF32 off) and bf16: one
+    warm-up batch, then SPACE_ITERS timed ones with the launch counters and
+    the layout's counts reset just before the first and read just after it;
+    peak memory; the probability gathered whole (saved by rank 0). Rank 0
+    also keeps the stencil's first halo'd band and holds the fused kernel's
+    output on it to the plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from dgtd_tpu_torch.models.cod import cod
+    from dgtd_tpu_torch.ops import diffusion as D
+    from dgtd_tpu_torch.parallel import space as S
+    from dgtd_tpu_torch.parallel import spatial as SP
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores (gloo stages every exchange there)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    model = cod(seed=None)
+    model.load_state_dict(torch.load(weights))
+    model = model.cuda()
+    grabbed = {}
+    planes = SP.diffusion_planes
+
+    def grab(x, w, kernel, steps):
+        grabbed.setdefault(x.dtype, (x.clone(), w.clone(), kernel, steps))
+        return planes(x, w, kernel, steps)
+
+    out = {}
+    for i, (size, batch, (data, spc)) in enumerate(SPACE_CASES):
+        if data * spc != world:
+            continue
+        layout = S.make_space(data, spc)
+        img, dep = space_inputs(size, batch)
+        for name in ("float32", "bfloat16"):
+            model.dtype = getattr(torch, name)
+            with S.active_space(layout):
+                SP.diffusion_planes = grab
+                try:
+                    model.predict(img, dep)  # warm-up
+                finally:
+                    SP.diffusion_planes = planes
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = []
+                for it in range(SPACE_ITERS):
+                    if it == 0:
+                        reset_plane_launches(D)
+                        layout.reset_counts()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    prob = model.predict(img, dep)[0]
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    if it == 0:
+                        launches, counts = plane_launches(D), dict(layout.counts)
+                peak = torch.cuda.max_memory_allocated()
+                full = S.gather_map(prob, size)
+                peak_above = peak - base
+            if rank == 0:
+                torch.save(full.cpu(), os.path.join(out_dir, f"space_{i}_{name}.pt"))
+            out[f"{i}_{name}"] = {"band": list(prob.shape), "ms": ms, "launches": launches, "counts": counts,
+                                  "peak_memory_bytes": peak, "peak_above_start_bytes": peak_above}
+            del prob, full
+        del img, dep
+        torch.cuda.empty_cache()
+    if rank == 0:
+        for dtype, (x, w, kernel, steps) in grabbed.items():
+            route = D.plane_route(*x.shape[1:], kernel, dtype, steps)
+            out[f"band_check_{dtype}"] = {"planes": list(x.shape), "route": route,
+                                          "max_abs_err": check_kernel(D, x, w, kernel, steps,
+                                                                      f"fused forward on a halo'd band {dtype}")}
+    with open(os.path.join(out_dir, f"space_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def space_phase(D, card):
+    """Phase 27: full-width ``cod`` served under the data×space layout on
+    gloo ranks of the card (``space_rank``; NCCL refuses two ranks on one
+    GPU) against one process on the same weights and inputs, each case of
+    SPACE_CASES in fp32 (TF32 off) and bf16. fp32 within SPACE_FP32_ATOL of
+    one process; bf16 within twice one process's own bf16-vs-fp32 gap on
+    the batch, at least BF16_ATOL; the stencil a step a rank on the halo'd
+    band (the fused kernel), held to its plain version on one band."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from dgtd_tpu_torch.models.cod import cod
+
+    say("phase 27: cod served under the data×space layout (H banded over the space ranks), gloo ranks of the "
+        "card vs one process, fp32 (TF32 off) and bf16: " + ", ".join(
+            f"{size}² batch {batch} at (data, space) = {layout}" for size, batch, layout in SPACE_CASES))
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    model = cod(seed=0)
+    model_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    ranks = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_space_")
+    weights = os.path.join(tmp.name, "cod_seed0.pt")
+    torch.save(model.state_dict(), weights)
+    model = model.cuda()
+    single = {}
+    for i, (size, batch, _) in enumerate(SPACE_CASES):
+        if any(j < i and SPACE_CASES[j][:2] == (size, batch) for j in range(len(SPACE_CASES))):
+            continue
+        img, dep = space_inputs(size, batch)
+        for name in ("float32", "bfloat16"):
+            model.dtype = getattr(torch, name)
+            model.predict(img, dep)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = []
+            for _ in range(SPACE_ITERS):
+                t0 = time.perf_counter()
+                prob = model.predict(img, dep)[0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            single[(size, batch, name)] = {"prob": prob.float().cpu(), "ms": ms,
+                                           "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base}
+        del img, dep, prob
+    del model
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    with tmp:
+        for world in sorted({d * s for _, _, (d, s) in SPACE_CASES}):
+            out = os.path.join(tmp.name, f"w{world}")
+            os.makedirs(out)
+            mp.spawn(space_rank, args=(world, os.path.join(out, "init"), out, weights), nprocs=world)
+            ranks[world] = [read_json(os.path.join(out, f"space_{r}.json")) for r in range(world)]
+            for i, (size, batch, (data, spc)) in enumerate(SPACE_CASES):
+                if data * spc == world:
+                    for name in ("float32", "bfloat16"):
+                        single[(i, name)] = torch.load(os.path.join(out, f"space_{i}_{name}.pt")).float()
+        band_checks = {k: v for k, v in ranks[min(ranks)][0].items() if k.startswith("band_check")}
+    cases = {}
+    for i, (size, batch, (data, spc)) in enumerate(SPACE_CASES):
+        world = data * spc
+        ref32, ref16 = single[(size, batch, "float32")], single[(size, batch, "bfloat16")]
+        gap = (ref16["prob"] - ref32["prob"]).abs()
+        row = {"size": size, "batch": batch, "data": data, "space": spc, "ranks": world,
+               "bf16_vs_fp32_gap": {"max": float(gap.max()), "mean_abs": float(gap.mean())}}
+        for name, ref in (("float32", ref32), ("bfloat16", ref16)):
+            got = single[(i, name)]
+            check(tuple(got.shape) == tuple(ref["prob"].shape) and bool(torch.isfinite(got).all()),
+                  f"space {size}² {(data, spc)} {name}: gathered {tuple(got.shape)}")
+            diff = (got - ref["prob"]).abs()
+            err, mean_err = float(diff.max()), float(diff.mean())
+            bar = SPACE_FP32_ATOL if name == "float32" else max(BF16_ATOL, 2 * float(gap.max()))
+            per_rank = [r[f"{i}_{name}"] for r in ranks[world]]
+            for r, pr in enumerate(per_rank):
+                check(tuple(pr["launches"]) == launch_tuple("fused", STEPS),
+                      f"space {size}² {(data, spc)} {name} rank {r}: launches {pr['launches']}")
+                check(pr["counts"]["banded"] > 0 and pr["counts"]["halos"] > 0, pr["counts"])
+            row[name] = {"max_abs_err": err, "mean_abs_err": mean_err, "limit": bar,
+                         "one_process_ms": ref["ms"],
+                         "one_process_peak_above_start_bytes": ref["peak_above_start_bytes"],
+                         "model_bytes": model_bytes, "ranks": per_rank}
+            c = per_rank[0]["counts"]
+            say(f"  {size}² batch {batch}, (data, space) = ({data}, {spc}), {name}: max_abs_err {err:.3e} (limit "
+                f"{bar:.3e}), mean abs {mean_err:.3e}; band {per_rank[0]['band']}; ms a batch a rank "
+                f"{[[round(t, 1) for t in pr['ms']] for pr in per_rank]} vs one process "
+                f"{[round(t, 1) for t in ref['ms']]}; peak memory of a batch above the weights and inputs a rank "
+                f"{[round(pr['peak_above_start_bytes'] / 2**30, 3) for pr in per_rank]} GiB vs one process "
+                f"{ref['peak_above_start_bytes'] / 2**30:.3f} (the weights {model_bytes / 2**30:.3f}); layers "
+                f"banded {c['banded']}, replicated "
+                f"{c['replicated']}, whole-level ops {c['full']}; gathers {c['gathers']} "
+                f"({c['gather_bytes'] / 1e6:.1f} MB), halo exchanges {c['halos']} ({c['halo_bytes'] / 1e6:.2f} MB), "
+                f"reductions {c['reductions']}; stencil launches a rank ({LAUNCH_NAMES}) {per_rank[0]['launches']} "
+                f"[{card}]")
+            check(err <= bar, f"space {size}² {(data, spc)} {name}: {err:.3e} > {bar:.3e}")
+        cases[f"{size}_{data}x{spc}"] = row
+    for key, bc in band_checks.items():
+        check(bc["route"] == "fused", f"{key}: route {bc['route']}")
+        say(f"  {key}: halo'd planes {bc['planes']} on the {bc['route']} kernel, max_abs_err {bc['max_abs_err']:.3e}")
+    return {"model": "cod, full width (PVTv2-b2, ConvNeXt-B), seed 0", "backend": "gloo (ranks share the card)",
+            "cases": cases, "band_checks": band_checks, "phase_s": time.perf_counter() - t_phase, "card": card}
 
 
 def main():
@@ -3444,6 +3676,9 @@ def run(keep):
     dqnet_row = dqnet_msda_bundle_phase(card)
     layout_row = layout_phase(D, card)
 
+    # ---- 27. serving under the data×space layout ----
+    space_row = space_phase(D, card)
+
     b = rows["bf16"]
     bb = bwd_rows["bf16"]
     n_batches = summaries["bf16"]["batches"]
@@ -3710,6 +3945,12 @@ def run(keep):
     by_name["diffusion_stencil_fused_bwd"]["layout_false_launches"] = {
         "train": layout_row["train_launches"][1],
         "main_path": "the NHWC stencil's backward in one train step of cod under diffusion_plane_layout=False"}
+    # phase 27: the fused forward a stencil step a rank on the halo'd bands
+    by_name["diffusion_stencil_fused"]["space_launches"] = {
+        "launches": {f"{key} {name}": [rk["launches"][0] for rk in case[name]["ranks"]]
+                     for key, case in space_row["cases"].items() for name in ("float32", "bfloat16")},
+        "max_abs_err_on_a_band": {k: v["max_abs_err"] for k, v in space_row["band_checks"].items()},
+        "main_path": f"one served batch of each phase-27 case and dtype a rank, {STEPS} steps on the halo'd band"}
     say(json.dumps({"kernels": kernel_rows}))
     say(json.dumps({"trained": {
         "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",
@@ -3749,6 +3990,7 @@ def run(keep):
     say(json.dumps({"bundle": bundle_row}))
     say(json.dumps({"dqnet_bundle": dqnet_row}))
     say(json.dumps({"layout": layout_row}))
+    say(json.dumps({"space": space_row}))
     say(json.dumps({"msda": {
         "layer": f"MSDeformAttn(d_model={ENC_D_MODEL}, n_levels={len(ENC_SHAPES)}, n_heads={ENC_HEADS}, "
                  f"n_points={ENC_POINTS}), seeded weights",

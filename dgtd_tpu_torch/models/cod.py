@@ -6,6 +6,13 @@ Modes: ``loss`` (train-mode forward and the total loss), ``predict`` and
 module is in, and puts the module back afterwards, as the JAX package's
 ``train=True/False`` does. The public functions keep the JAX package's
 layout (NHWC in, NHWC out) so the two can be compared like with like.
+
+Under a data×space layout (``parallel/space.py::active_space``), the
+counterpart of the JAX package's ``model.predict`` on inputs sharded
+``P('data', 'space')``, ``predict`` and ``tensor`` take the whole batch,
+run this rank's rows of it on its band of H, and return those rows and
+that band; ``space.gather_map`` joins the ranks' results into the whole
+map. ``loss`` does not run under a layout (ROADMAP A13c).
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import torch
 import torch.nn as nn
 
 from ..core.registry import MODELS
+from ..parallel import space
+from ..parallel.dist import row_slice
 from ..utils.image import resize_bilinear
 from .hitnet import HitNet
 from .layers import DropPath, init_parameters, set_drop_path_generator
@@ -47,6 +56,9 @@ class SegModel(nn.Module):
     returns a texture."""
 
     use_ssim = True
+    #: whether the forward takes the image's global height and runs on a
+    #: band under a data×space layout
+    supports_space = False
 
     def finish_init(self, dtype: torch.dtype, seed: Optional[int]) -> None:
         if dtype not in (torch.float32, torch.bfloat16):
@@ -83,6 +95,9 @@ class SegModel(nn.Module):
         ``loss_ssim`` only when the SSIM term is added. BatchNorm running
         statistics are updated. ``generator`` drives DropPath; it may be None
         only when every drop-path rate is 0."""
+        if space.current() is not None:
+            raise NotImplementedError(f"{type(self).__name__}.loss under a data×space layout: the train step over "
+                                      "data×space is not ported yet (ROADMAP A13c)")
         if generator is None and any(isinstance(m, DropPath) and m.rate for m in self.modules()):
             raise ValueError(f"{type(self).__name__}.loss needs a generator for DropPath (or drop-path rates of 0)")
         set_drop_path_generator(self, generator)
@@ -100,23 +115,43 @@ class SegModel(nn.Module):
         aux["loss"] = loss
         return loss, aux
 
+    def _forward(self, image, depth):
+        """The eval forward of NHWC inputs -> NCHW outputs, and the image's
+        global height; under a data×space layout on this rank's rows and
+        band."""
+        h = image.shape[1]
+        with self._mode(False), self._autocast(image.device.type):
+            if space.current() is None:
+                return self(_nchw(image), _nchw(depth)), h
+            if not self.supports_space:
+                raise NotImplementedError(f"{type(self).__name__} does not run under a data×space layout")
+            sp = space.current()
+            rows = row_slice(image.shape[0], sp.data_index, sp.data)
+            image, depth = space.band_rows(image[rows], 1), space.band_rows(depth[rows], 1)
+            return self(_nchw(image), _nchw(depth), h), h
+
+    def texture_height(self, h: int) -> int:
+        """The global height of the texture for an image of ``h`` rows."""
+        return h
+
     @torch.inference_mode()
     def tensor(self, image, depth):
         """Raw eval-mode outputs in NHWC: (texture or None, [stage logits],
-        second logits)."""
-        with self._mode(False), self._autocast(image.device.type):
-            texture, stage_preds, pred2 = self(_nchw(image), _nchw(depth))
+        second logits); under a data×space layout this rank's rows and band."""
+        (texture, stage_preds, pred2), _ = self._forward(image, depth)
         return _nhwc(texture), [_nhwc(p) for p in stage_preds], _nhwc(pred2)
 
     @torch.inference_mode()
     def predict(self, image, depth, out_size=None):
         """Eval forward on NHWC image (B,H,W,3) and depth (B,H,W,1) ->
-        ((B,H',W',1) fp32 probability map, {"texture": NHWC texture or None})."""
-        with self._mode(False), self._autocast(image.device.type):
-            texture, stage_preds, pred2 = self(_nchw(image), _nchw(depth))
+        ((B,H',W',1) fp32 probability map, {"texture": NHWC texture or None});
+        under a data×space layout this rank's rows and band of each (the
+        resize to ``out_size`` on the gathered logits)."""
+        (texture, stage_preds, pred2), h = self._forward(image, depth)
+        with self._autocast(image.device.type):
             logits = stage_preds[-1] + pred2
-        if out_size is not None and tuple(out_size) != tuple(logits.shape[-2:]):
-            logits = resize_bilinear(logits, out_size)
+        if out_size is not None and tuple(out_size) != (h, image.shape[2]):
+            logits = resize_bilinear(logits, out_size, in_h=h)
         prob = torch.sigmoid(logits.float())
         return _nhwc(prob), {"texture": _nhwc(texture)}
 
@@ -133,6 +168,7 @@ class cod(SegModel):
     accepted and unused, as in the reference."""
 
     use_ssim = True
+    supports_space = True
     #: this model's HitNet settings; HitNet's defaults are ``cod``'s
     net_kwargs: Dict[str, Any] = {}
 
@@ -155,9 +191,15 @@ class cod(SegModel):
             )
         self.finish_init(dtype, seed)
 
-    def forward(self, image, depth):
-        """NCHW forward -> (texture or None, [stage logits], second logits)."""
-        return self.hitnet(image, depth)
+    def forward(self, image, depth, H=None):
+        """NCHW forward -> (texture or None, [stage logits], second logits);
+        ``H``: the image's global height under a data×space layout."""
+        return self.hitnet(image, depth, H)
+
+    def texture_height(self, h: int) -> int:
+        """The grid's with ``fft_at_grid`` (the texture is grid-sized), else
+        the image's."""
+        return self.hitnet.backbone.prompt_encoder.grid if self.hitnet.fft_at_grid else h
 
     @property
     def frozen_param_prefixes(self) -> Tuple[str, ...]:

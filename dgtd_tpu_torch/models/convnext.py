@@ -3,6 +3,8 @@
 
 Keys follow the official ConvNeXt checkpoint plus the reference's FPN head
 (``convs.<i>``, ``fusion_conv``) under ``hitnet.backbone.prompt_encoder.encoder2``.
+Under a data×space layout (``parallel/space.py``) each level is this rank's
+band, and ``h``/``H`` are the levels' global heights.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.image import resize_bilinear
-from .layers import DropPath, LayerNorm, LayerNorm2d, checkpointed, conv2d, linear
+from .layers import DropPath, LayerNorm, LayerNorm2d, checkpointed, conv2d, linear, sequential
 
 #: channels of the FPN-fused embedding (what the prompt decoders consume)
 EMBED_DIM = 24
@@ -34,8 +36,8 @@ class Block(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim))  # layer scale, init 1.0
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
-        y = self.dwconv(x).permute(0, 2, 3, 1)
+    def forward(self, x, h=None):
+        y = self.dwconv(x, h).permute(0, 2, 3, 1)
         y = self.pwconv2(F.gelu(self.pwconv1(self.norm(y))))
         y = self.drop_path(y * self.gamma.to(y.dtype))
         return x + y.permute(0, 3, 1, 2)
@@ -68,14 +70,22 @@ class ConvNeXtFPNEncoder(nn.Module):
         self.convs = nn.ModuleList(conv2d(d, EMBED_DIM, 1, init="pvt") for d in dims)
         self.fusion_conv = conv2d(EMBED_DIM * len(dims), EMBED_DIM, 1, init="pvt")
 
-    def forward(self, x):
+    def out_rows(self, H: int) -> int:
+        """The embedding's global height for an input of ``H`` rows (the
+        stem's output)."""
+        return self.downsample_layers[0][0].out_rows(H)
+
+    def forward(self, x, H=None):
         remat = self.remat and self.training and torch.is_grad_enabled()
-        outs = []
+        h = x.shape[-2] if H is None else H
+        outs, heights = [], []
         for down, stage in zip(self.downsample_layers, self.stages):
-            x = down(x)
+            x, h = sequential(down, x, h)
             for blk in stage:
-                x = checkpointed(blk, x) if remat else blk(x)
+                x = checkpointed(blk, x, h) if remat else blk(x, h)
             outs.append(x)
-        target = outs[0].shape[-2:]
-        lateral = [resize_bilinear(conv(o), target, exact=False) for conv, o in zip(self.convs, outs)]
+            heights.append(h)
+        target = (heights[0], outs[0].shape[-1])
+        lateral = [resize_bilinear(conv(o), target, exact=False, in_h=lh)
+                   for conv, o, lh in zip(self.convs, outs, heights)]
         return self.fusion_conv(torch.cat(lateral, dim=1))

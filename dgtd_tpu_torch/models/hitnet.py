@@ -43,35 +43,40 @@ class HitNetDecoder(nn.Module):
         self.SAM = SAMFusion(ch)
         self.out_SAM = conv2d(ch, 1, 1)
 
-    def decode(self, image, x1, x2, x3, x4) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    def decode(self, image, x1, x2, x3, x4, heights=None) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Stage maps (strides 4/8/16/32) -> ([refine_iters stage logits],
-        second logits), at the image's resolution."""
-        cim = self.decoder_level1(x1)
+        second logits), at the image's resolution. ``heights``: the global
+        heights of (image, x1, x2, x3, x4) under a data×space layout (their
+        own by default); every resize targets a global size."""
+        H, h1, h2, h3, h4 = heights or [t.shape[-2] for t in (image, x1, x2, x3, x4)]
+        cim = self.decoder_level1(x1, h1)
         x2_t = self.Translayer2_1(x2)
         x3_t = self.Translayer3_1(x3)
         x4_t = self.Translayer4_1(x4)
-        s8, s16 = x2.shape[-2:], x3.shape[-2:]
-        full = image.shape[-2:]
+        s8, s16 = (h2, x2.shape[-1]), (h3, x3.shape[-1])
+        full = (H, image.shape[-1])
 
         stage_preds: List[torch.Tensor] = []
         cfm = None
         for it in range(self.refine_iters):
             if cfm is not None:
-                x4_up = resize_bilinear(x4_t, s8, align_corners=True, exact=False)
-                x4_t = self.compress_out(torch.cat([x4_up, cfm], dim=1))
-            x4_f = self.decoder_level4(x4_t)
+                x4_up = resize_bilinear(x4_t, s8, align_corners=True, exact=False, in_h=h4)
+                x4_t = self.compress_out(torch.cat([x4_up, cfm], dim=1), h2)
+                # compress_out's output rows need not be x4's
+                h4 = self.compress_out.conv.out_rows(h2)
+            x4_f = self.decoder_level4(x4_t, h4)
             x3_f = self.decoder_level3(
-                torch.cat([x3_t, resize_bilinear(x4_f, s16, align_corners=True, exact=False)], dim=1))
+                torch.cat([x3_t, resize_bilinear(x4_f, s16, align_corners=True, exact=False, in_h=h4)], dim=1), h3)
             if it > 0:
                 x2_t = self.compress_out2(torch.cat([x2_t, cfm], dim=1))
             x2_f = self.decoder_level2(
-                torch.cat([x2_t, resize_bilinear(x3_f, s8, align_corners=True, exact=False)], dim=1))
-            cfm = self.conv4(x2_f)
-            stage_preds.append(resize_bilinear(self.out_CFM(cfm), full))
+                torch.cat([x2_t, resize_bilinear(x3_f, s8, align_corners=True, exact=False, in_h=h3)], dim=1), h2)
+            cfm = self.conv4(x2_f, h2)
+            stage_preds.append(resize_bilinear(self.out_CFM(cfm), full, in_h=h2))
 
         t2 = self.Translayer2_0(cim)
-        t2 = resize_bilinear(t2, s8, align_corners=True, exact=False)
-        pred2 = resize_bilinear(self.out_SAM(self.SAM(cfm, t2)), full)
+        t2 = resize_bilinear(t2, s8, align_corners=True, exact=False, in_h=h1)
+        pred2 = resize_bilinear(self.out_SAM(self.SAM(cfm, t2, h2)), full, in_h=h2)
         return stage_preds, pred2
 
 
@@ -108,11 +113,17 @@ class HitNet(HitNetDecoder):
                               drop_path_rate=drop_path_rate, remat=remat)
         self.build_decoder(dims, channel, refine_iters)
 
-    def forward(self, image, depth):
+    def forward(self, image, depth, H=None):
+        """``H``: the image's global height under a data×space layout
+        (``parallel/space.py``), where image and depth are this rank's
+        bands and so are the outputs."""
         bb = self.backbone
-        texture = prompts = None
+        H = image.shape[-2] if H is None else H
+        texture = prompts = prompt_h = None
         if self.use_prompts and self.inject_prompts:
-            texture, embedding = bb.prompt_encoder(image, depth)
-            prompts = [dec(embedding) for dec in bb.prompt_decoder]
-        stage_preds, pred2 = self.decode(image, *bb(image, prompts))
+            texture, embedding = bb.prompt_encoder(image, depth, H)
+            prompt_h = bb.prompt_encoder.encoder2.out_rows(H)
+            prompts = [dec(embedding, prompt_h) for dec in bb.prompt_decoder]
+        outs = bb(image, prompts, H, prompt_h)
+        stage_preds, pred2 = self.decode(image, *outs, heights=[H, *bb.heights(H)])
         return texture, stage_preds, pred2

@@ -17,15 +17,50 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..parallel import space
 from ..parallel.dist import all_reduce_sum, data_group, rank_world
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state-dict keys) that runs on
+    this rank's band of H under a data×space layout
+    (``parallel/space.py::conv_rows``: the halo geometry, or the gathered
+    level where the layout says so). ``h`` is the global height of the
+    input's level; a conv wider or more strided than 1x1 needs it under a
+    layout. Without one, or for a 1x1 conv, it is ``nn.Conv2d``."""
+
+    def forward(self, x, h=None):
+        if not space.split() or self.pointwise:
+            return super().forward(x)
+        return space.conv_rows(self, x, h)
+
+    @property
+    def pointwise(self) -> bool:
+        return self.kernel_size == (1, 1) and self.stride == (1, 1) and self.padding == (0, 0)
+
+    def out_rows(self, h: int) -> int:
+        """The output's rows for ``h`` input rows."""
+        return space.conv_out_rows(h, self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0])
+
+
 def conv2d(cin, cout, kernel, stride=1, padding=0, groups=1, bias=True, init="torch"):
-    """``nn.Conv2d`` tagged with its init scheme: "torch" (U(±1/sqrt(fan_in))
+    """:class:`Conv2d` tagged with its init scheme: "torch" (U(±1/sqrt(fan_in))
     for weight and bias) or "pvt" (normal(0, sqrt(2/fan_out)), zero bias)."""
-    m = nn.Conv2d(cin, cout, kernel, stride, padding, groups=groups, bias=bias)
+    m = Conv2d(cin, cout, kernel, stride, padding, groups=groups, bias=bias)
     m.init_scheme = init
     return m
+
+
+def sequential(seq: nn.Sequential, x, h=None):
+    """``seq(x)`` with the input level's global height ``h`` given to each
+    :class:`Conv2d` and carried through its stride; -> (output, its h)."""
+    for m in seq:
+        if isinstance(m, Conv2d):
+            x = m(x, h)
+            h = None if h is None else m.out_rows(h)
+        else:
+            x = m(x)
+    return x, h
 
 
 def linear(cin, cout, bias=True, init="trunc"):
@@ -206,8 +241,9 @@ class BasicConv2d(nn.Module):
         self.conv = conv2d(cin, cout, kernel, stride, padding, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def forward(self, x):
-        y = self.conv(x)
+    def forward(self, x, h=None):
+        """``h``: the global height of x's level (``Conv2d``)."""
+        y = self.conv(x, h)
         if not self.training:
             return self.bn(y)
         bn = self.bn
@@ -250,8 +286,8 @@ class CALayer(nn.Module):
             conv2d(c, mid, 1, bias=bias), nn.ReLU(), conv2d(mid, c, 1, bias=bias), nn.Sigmoid()
         )
 
-    def forward(self, x):
-        return x * self.conv_du(x.mean(dim=(2, 3), keepdim=True))
+    def forward(self, x, h=None):
+        return x * self.conv_du(space.spatial_mean(x, h, keepdim=True))
 
 
 class CAB(nn.Module):
@@ -267,8 +303,8 @@ class CAB(nn.Module):
         )
         self.CA = CALayer(c, reduction, bias)
 
-    def forward(self, x):
-        return self.CA(self.body(x)) + x
+    def forward(self, x, h=None):
+        return self.CA(sequential(self.body, x, h)[0], h) + x
 
 
 class CABStack(nn.Sequential):
@@ -276,6 +312,11 @@ class CABStack(nn.Sequential):
 
     def __init__(self, c, n=2, kernel=3, reduction=4, bias=False):
         super().__init__(*[CAB(c, kernel, reduction, bias) for _ in range(n)])
+
+    def forward(self, x, h=None):
+        for cab in self:
+            x = cab(x, h)
+        return x
 
 
 class SAMFusion(nn.Module):
@@ -294,11 +335,11 @@ class SAMFusion(nn.Module):
             linear(squeeze, 1, bias=False, init="torch"), nn.Sigmoid(),
         )
 
-    def _branch(self, x):
-        y = x.mean(dim=(2, 3))
+    def _branch(self, x, h):
+        y = space.spatial_mean(x, h)
         g = self.fc(y)[:, :, None, None]
         w = self.fc_wight(y)[:, :, None, None]
         return x * g * w
 
-    def forward(self, x_h, x_l):
-        return self._branch(x_h) + self._branch(x_l)
+    def forward(self, x_h, x_l, h=None):
+        return self._branch(x_h, h) + self._branch(x_l, h)

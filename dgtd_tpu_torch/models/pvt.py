@@ -5,6 +5,14 @@ Tokens are (B, N, C) inside the blocks, as in the reference; the convolutions
 Per-block prompts (NCHW maps) are resized bilinearly to the stage grid and
 added to the tokens before each block. Keys follow the official PVTv2
 checkpoint under ``hitnet.backbone``.
+
+Under a data×space layout (``parallel/space.py``) the tokens are this
+rank's band of rows: ``h`` is the band's height, ``H`` the stage's global
+one. The convolutions run on the band with their halos, and each
+attention keeps its queries on the band and gathers the keys and values
+(the reduced tokens after ``sr`` and ``norm``, or every token where
+``sr_ratio`` is 1) over the space group, so that the softmax sees every
+key.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import space
 from ..utils.image import resize_bilinear
 from .layers import DropPath, LayerNorm, checkpointed, conv2d, linear
 
@@ -40,8 +49,8 @@ class DWConv(nn.Module):
         super().__init__()
         self.dwconv = conv2d(dim, dim, 3, 1, 1, groups=dim, init="pvt")
 
-    def forward(self, x, h, w):
-        return self.dwconv(_to_map(x, h, w)).flatten(2).transpose(1, 2)
+    def forward(self, x, h, w, H=None):
+        return self.dwconv(_to_map(x, h, w), H).flatten(2).transpose(1, 2)
 
 
 class Mlp(nn.Module):
@@ -53,8 +62,8 @@ class Mlp(nn.Module):
         self.dwconv = DWConv(hidden)
         self.fc2 = linear(hidden, dim)
 
-    def forward(self, x, h, w):
-        return self.fc2(F.gelu(self.dwconv(self.fc1(x), h, w)))
+    def forward(self, x, h, w, H=None):
+        return self.fc2(F.gelu(self.dwconv(self.fc1(x), h, w, H)))
 
 
 class Attention(nn.Module):
@@ -72,12 +81,17 @@ class Attention(nn.Module):
             self.sr = conv2d(dim, dim, sr_ratio, sr_ratio, init="pvt")
             self.norm = LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, h, w):
+    def forward(self, x, h, w, H=None):
+        """x: (B, h·w) tokens of a stage of ``H`` global rows (``h`` local)."""
         b, n, c = x.shape
         nh = self.num_heads
         q = self.q(x).reshape(b, n, nh, c // nh).permute(0, 2, 1, 3)
         if self.sr_ratio > 1:
-            x = self.norm(self.sr(_to_map(x, h, w)).flatten(2).transpose(1, 2))
+            x = self.norm(self.sr(_to_map(x, h, w), H).flatten(2).transpose(1, 2))
+        if space.split():
+            space.count("banded" if space.banded(H) else "replicated")
+            # every key and value: the tokens of the reduced level, or the stage's
+            x = space.gather_rows(x, self.sr.out_rows(H) if self.sr_ratio > 1 else H, dim=1)
         kv = self.kv(x).reshape(b, -1, 2, nh, c // nh).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
         attn = (q @ k.transpose(-2, -1)) * self.scale
@@ -98,9 +112,9 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, h, w):
-        x = x + self.drop_path(self.attn(self.norm1(x), h, w))
-        return x + self.drop_path(self.mlp(self.norm2(x), h, w))
+    def forward(self, x, h, w, H=None):
+        x = x + self.drop_path(self.attn(self.norm1(x), h, w, H))
+        return x + self.drop_path(self.mlp(self.norm2(x), h, w, H))
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -111,10 +125,13 @@ class OverlapPatchEmbed(nn.Module):
         self.proj = conv2d(cin, dim, patch, stride, patch // 2, init="pvt")
         self.norm = LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x):
-        x = self.proj(x)
+    def forward(self, x, H=None):
+        """x: an NCHW map of ``H`` global rows (its own by default) ->
+        (tokens, local rows h, w, global rows)."""
+        H = x.shape[-2] if H is None else H
+        x = self.proj(x, H)
         h, w = x.shape[-2:]
-        return self.norm(x.flatten(2).transpose(1, 2)), h, w
+        return self.norm(x.flatten(2).transpose(1, 2)), h, w, self.proj.out_rows(H)
 
 
 class PVTv2(nn.Module):
@@ -129,7 +146,9 @@ class PVTv2(nn.Module):
     keeping them (``layers.checkpointed``), in a train-mode forward that
     records gradients.
 
-    Returns the 4 stage maps (NCHW, strides 4/8/16/32)."""
+    Returns the 4 stage maps (NCHW, strides 4/8/16/32). Under a data×space
+    layout ``H`` is the input's global height and ``prompt_h`` the prompts'
+    (:meth:`heights` gives the stages')."""
 
     def __init__(self, variant="b2", prompt_encoder: Optional[nn.Module] = None,
                  prompt_decoder: Optional[nn.Module] = None, drop_path_rate: float = 0.1, remat: bool = False):
@@ -151,16 +170,24 @@ class PVTv2(nn.Module):
         if prompt_decoder is not None:
             self.prompt_decoder = prompt_decoder
 
-    def forward(self, x, prompts: Optional[List[List[torch.Tensor]]] = None):
+    def heights(self, H: int) -> List[int]:
+        """The 4 stage maps' global heights for an input of ``H`` rows."""
+        out = []
+        for s in range(4):
+            H = getattr(self, f"patch_embed{s + 1}").proj.out_rows(H)
+            out.append(H)
+        return out
+
+    def forward(self, x, prompts: Optional[List[List[torch.Tensor]]] = None, H=None, prompt_h=None):
         remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for s in range(4):
-            x, h, w = getattr(self, f"patch_embed{s + 1}")(x)
+            x, h, w, H = getattr(self, f"patch_embed{s + 1}")(x, H)
             for i, blk in enumerate(getattr(self, f"block{s + 1}")):
                 if prompts is not None:
-                    p = resize_bilinear(prompts[s][i], (h, w), exact=False)
+                    p = resize_bilinear(prompts[s][i], (H, w), exact=False, in_h=prompt_h)
                     x = x + p.flatten(2).transpose(1, 2).to(x.dtype)
-                x = checkpointed(blk, x, h, w) if remat else blk(x, h, w)
+                x = checkpointed(blk, x, h, w, H) if remat else blk(x, h, w, H)
             x = getattr(self, f"norm{s + 1}")(x)
             x = _to_map(x, h, w)
             outs.append(x)

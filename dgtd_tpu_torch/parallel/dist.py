@@ -30,19 +30,35 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import resolve_device
+from .space import current as current_layout, make_space
 
 #: the CPU gloo group of the host-side agreements, made with the world group
 _SIDE = None
 
 
-def refuse_space(space) -> None:
-    """``-o dist.space=N``: the JAX package's 2-D data×space train and
-    predict step. The port has no such step yet (ROADMAP A13b), so N > 1
-    raises instead of training data-parallel."""
-    if int(space) > 1:
+def refuse_space(space, mode: str = "train") -> None:
+    """``-o dist.space=N``: the JAX package's 2-D data×space layout. The
+    port serves under it (``-m val``; ``parallel/space.py``); its train
+    step is not ported yet (ROADMAP A13c), so N > 1 in train mode raises
+    instead of training data-parallel."""
+    if int(space) > 1 and mode != "val":
         raise NotImplementedError(
-            f"dist.space={space}: the data×space step (H sharding of every activation) is not ported yet "
-            "(ROADMAP A13b); the port trains data-parallel only (dist.space=1)")
+            f"dist.space={space} in {mode} mode: the data×space train step (the adjoints of the halo exchanges "
+            "and gathers, BatchNorm and DropPath over data×space) is not ported yet (ROADMAP A13c); the port "
+            "trains data-parallel only (dist.space=1) and serves under the layout with -m val")
+
+
+def start_space(space):
+    """The data×space layout of ``-o dist.space=N`` over the started process
+    group (``parallel/space.py::make_space``, data = world / N), or None for
+    N = 1. A world that is not a multiple of N, one process included,
+    raises."""
+    space = int(space)
+    if space <= 1:
+        return None
+    if world() % space:
+        raise ValueError(f"dist.space={space} needs a world of data×{space} ranks, got {world()}")
+    return make_space(world() // space, space)
 
 
 @dataclass(frozen=True)
@@ -163,7 +179,12 @@ def is_main() -> bool:
 
 def data_group():
     """The group a train step's batch is split over: the world group under
-    more than one rank, else None (one process computes the global batch)."""
+    more than one rank, else None (one process computes the global batch).
+    Under a data×space layout (``parallel/space.py``) it is the layout's
+    data group, never the world."""
+    layout = current_layout()
+    if layout is not None:
+        return layout.data_group
     return dist.group.WORLD if world() > 1 else None
 
 

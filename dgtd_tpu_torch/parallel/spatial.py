@@ -13,8 +13,10 @@ each shard boundary.
 
 The exchange follows the group's backend: NCCL sends and receives on the
 device (``batch_isend_irecv``); gloo sends host tensors, so CUDA halos go
-through the host. Every stencil step runs where x lies. This is the
-serving path: it records no gradient.
+through the host (``space.py::ring_halo``). Every stencil step runs where
+x lies. This is the serving path: it records no gradient.
+:func:`spatial_planes` and :func:`spatial_nhwc` take the stencil's own
+layouts (the model's ``MessagePassing`` under a data×space layout).
 """
 
 from __future__ import annotations
@@ -23,12 +25,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..ops.diffusion import diffusion_planes
-
-
-def _peer(group, group_rank: int) -> int:
-    """The global rank of ``group_rank`` in ``group``."""
-    return group_rank if group is None else dist.get_global_rank(group, group_rank)
+from ..ops.diffusion import diffusion_nhwc, diffusion_planes
+from .space import ring_halo
 
 
 def shard_rows(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -46,37 +44,52 @@ def exchange_halos(x_local: torch.Tensor, r: int, group=None) -> torch.Tensor:
     layout (P, Hs, W)) with r rows from each ring neighbour: the bottom rows
     of rank i−1 above, the top rows of rank i+1 below, zeros at the two
     edges. -> (.., Hs + 2r, ..)."""
-    n, i = dist.get_world_size(group), dist.get_rank(group)
-    top, bottom = x_local[:, :r].contiguous(), x_local[:, -r:].contiguous()
-    from_prev, from_next = torch.zeros_like(top), torch.zeros_like(bottom)
-    host = dist.get_backend(group) != "nccl" and x_local.device.type != "cpu"
-    sends, recvs = [], []
-    if i > 0:
-        sends.append((top, _peer(group, i - 1)))
-        recvs.append((from_prev, _peer(group, i - 1)))
-    if i < n - 1:
-        sends.append((bottom, _peer(group, i + 1)))
-        recvs.append((from_next, _peer(group, i + 1)))
-    if host:
-        # gloo's send and recv take CPU tensors
-        sends = [(t.cpu(), p) for t, p in sends]
-        landed = [(torch.empty(t.shape, dtype=t.dtype), p) for t, p in recvs]
-    else:
-        landed = recvs
-    if dist.get_backend(group) == "nccl":
-        ops = [dist.P2POp(dist.isend, t, p, group) for t, p in sends]
-        works = dist.batch_isend_irecv(ops + [dist.P2POp(dist.irecv, t, p, group) for t, p in landed]) if ops else []
-    else:
-        works = [dist.isend(t, p, group=group) for t, p in sends] + [dist.irecv(t, p, group=group) for t, p in landed]
-    for work in works:
-        work.wait()
-    if host:
-        for (dst, _), (src, _) in zip(recvs, landed):
-            dst.copy_(src)
-    return torch.cat([from_prev, x_local, from_next], dim=1)
+    return ring_halo(x_local, r, r, group, dim=1)
+
+
+def _check_shard(hs: int, r: int, kernel: int) -> None:
+    if hs < r:
+        raise ValueError(f"shard height {hs} < halo radius {r} (kernel {kernel}): use fewer shards or a "
+                         "smaller kernel")
 
 
 @torch.no_grad()
+def spatial_planes(planes: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, group=None) -> torch.Tensor:
+    """``steps`` stencil steps in plane layout on this rank's rows: planes
+    (P, Hs, W) and their normalized w (P, k², Hs, W). Before each step the
+    halos come from the ring neighbours (:func:`exchange_halos`) and one
+    ``diffusion_planes`` step runs on the halo'd (P, Hs + 2r, W) planes,
+    whose route their shape picks; ``kernel = 1`` runs its steps in one
+    call with no exchange. Returns this rank's rows of the result."""
+    p, hs, w_ = planes.shape
+    r = kernel // 2
+    if r == 0:
+        return diffusion_planes(planes.contiguous(), w.contiguous(), kernel, steps)
+    _check_shard(hs, r, kernel)
+    # w rows of zeros beside the halos: the halo rows' outputs are dropped
+    wp = F.pad(w, (0, 0, r, r)).contiguous()
+    out = planes.contiguous()
+    for _ in range(steps):
+        out = diffusion_planes(exchange_halos(out, r, group), wp, kernel, 1)[:, r:-r].contiguous()
+    return out
+
+
+@torch.no_grad()
+def spatial_nhwc(x: torch.Tensor, norm_weight: torch.Tensor, kernel: int, steps: int, group=None) -> torch.Tensor:
+    """The same on NHWC rows, the NHWC stencil (``diffusion_nhwc``) one
+    step a call on the halo'd (B, Hs + 2r, W, C) rows: x (B, Hs, W, C),
+    norm_weight (B, Hs, W, C, k²)."""
+    r = kernel // 2
+    if r == 0:
+        return diffusion_nhwc(x.contiguous(), norm_weight, kernel, steps)
+    _check_shard(x.shape[1], r, kernel)
+    wp = F.pad(norm_weight, (0, 0, 0, 0, 0, 0, r, r))
+    out = x.contiguous()
+    for _ in range(steps):
+        out = diffusion_nhwc(exchange_halos(out, r, group), wp, kernel, 1)[:, r:-r].contiguous()
+    return out
+
+
 def spatial_diffusion(x: torch.Tensor, norm_weight: torch.Tensor, kernel: int, steps: int,
                       group=None) -> torch.Tensor:
     """``steps`` stencil steps on this rank's H-shard, the halos exchanged
@@ -85,25 +98,14 @@ def spatial_diffusion(x: torch.Tensor, norm_weight: torch.Tensor, kernel: int, s
 
     x (B, Hs, W, C) and norm_weight (B, Hs, W, C, k²), already normalized,
     are this rank's rows (:func:`shard_rows`). Each shard must be at least r
-    rows high, since a halo comes from the next shard only. ``kernel = 1``
-    is pointwise: its steps run in one call on the shard, with no exchange.
-    Returns this rank's rows of the result."""
+    rows high, since a halo comes from the next shard only. The steps run in
+    plane layout (:func:`spatial_planes`). Returns this rank's rows of the
+    result."""
     b, hs, w, c = x.shape
     kk = kernel * kernel
     if tuple(norm_weight.shape) != (b, hs, w, c, kk):
         raise ValueError(f"norm_weight {tuple(norm_weight.shape)} does not match x {tuple(x.shape)} at k={kernel}")
-    r = kernel // 2
-    planes = x.permute(0, 3, 1, 2).reshape(b * c, hs, w).contiguous()
+    planes = x.permute(0, 3, 1, 2).reshape(b * c, hs, w)
     wp = norm_weight.permute(0, 3, 4, 1, 2).reshape(b * c, kk, hs, w)
-    if r == 0:
-        out = diffusion_planes(planes, wp.contiguous(), kernel, steps)
-    else:
-        if hs < r:
-            raise ValueError(f"shard height {hs} < halo radius {r} (kernel {kernel}): use fewer shards or a "
-                             "smaller kernel")
-        # w rows of zeros beside the halos: the halo rows' outputs are dropped
-        wp = F.pad(wp, (0, 0, r, r)).contiguous()
-        out = planes
-        for _ in range(steps):
-            out = diffusion_planes(exchange_halos(out, r, group), wp, kernel, 1)[:, r:-r].contiguous()
+    out = spatial_planes(planes, wp, kernel, steps, group)
     return out.reshape(b, c, hs, w).permute(0, 2, 3, 1).contiguous()

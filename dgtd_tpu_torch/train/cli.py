@@ -17,8 +17,16 @@ batch; N must divide it):
 Rank r runs on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo).
 SLURM and OMPI launches of more than one task start the group too, and
 ``-o dist.coordinator=host:port`` names a ``tcp://`` rendezvous
-(``parallel/dist.py::detect_launch``). ``-o dist.space=N`` with N > 1, the
-JAX package's data×space step, raises ``NotImplementedError``.
+(``parallel/dist.py::detect_launch``).
+
+Serving under the JAX package's data×space layout: ``-m val -o
+dist.space=N`` on data·N ranks splits each val batch over data rows of
+ranks and every activation's H over N ranks (``parallel/space.py``):
+
+    torchrun --nproc_per_node=data·N -m dgtd_tpu_torch.train configs/cod.yml -m val -o dist.space=N
+
+The world must be a multiple of N. In train mode N > 1 raises
+``NotImplementedError`` (the data×space train step, ROADMAP A13c).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 
 from ..core.config import get_dotted, load_config
 from ..parallel import dist as pdist
+from ..parallel.space import active_space
 from .loop import Runner
 
 
@@ -48,18 +57,20 @@ def main(argv=None):
     ``work_dir``; val mode returns the metrics."""
     args = parse_args(argv)
     cfg = load_config(args.config, args.override)
-    pdist.refuse_space(get_dotted(cfg, "dist.space", 1))
+    space = get_dotted(cfg, "dist.space", 1)
+    pdist.refuse_space(space, args.mode)
     device, started = pdist.init_distributed(get_dotted(cfg, "dist.coordinator"), args.device)
     try:
-        work_dir = get_dotted(cfg, "work_dir", "./output/run")
-        runner = Runner(cfg, work_dir=work_dir, seed=int(get_dotted(cfg, "seed", 0)), device=device,
-                        dtype=torch.float32 if args.fp32 else torch.bfloat16, mode=args.mode)
-        if args.resume:
-            runner.resume(args.resume)
-        if args.mode == "val":
-            return runner.val(save_visualizations=bool(get_dotted(cfg, "save_visualizations", False)))
-        summary = runner.train()
-        return {**summary, "work_dir": work_dir}
+        with active_space(pdist.start_space(space)):
+            work_dir = get_dotted(cfg, "work_dir", "./output/run")
+            runner = Runner(cfg, work_dir=work_dir, seed=int(get_dotted(cfg, "seed", 0)), device=device,
+                            dtype=torch.float32 if args.fp32 else torch.bfloat16, mode=args.mode)
+            if args.resume:
+                runner.resume(args.resume)
+            if args.mode == "val":
+                return runner.val(save_visualizations=bool(get_dotted(cfg, "save_visualizations", False)))
+            summary = runner.train()
+            return {**summary, "work_dir": work_dir}
     finally:
         if started:
             pdist.destroy()

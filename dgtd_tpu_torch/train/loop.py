@@ -23,7 +23,10 @@ waits for a checkpoint to be written before it goes on. A signal stops
 every rank at the same step boundary: the ranks agree on the stop flag
 there. Every rank walks the whole val set in order (the ``parity``
 reduction depends on the order) and the ranks' results are averaged, as
-the JAX package's multi-host val pass does.
+the JAX package's multi-host val pass does. Under a data×space layout
+(``-m val -o dist.space=N``, ``parallel/space.py``) each rank runs its rows
+and band of every val batch and the probability is gathered whole before
+the metrics, so every rank scores the same maps.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..data.loader import DataLoader
 from ..metrics import evaluators as _evaluators  # noqa: F401  (registers the metrics)
 from ..metrics.device import batch_statistics, statistics_to_host
 from ..parallel import dist as pdist
+from ..parallel import space
 from .. import models as _models  # noqa: F401  (registers the models)
 from ..convert import is_dead_key
 from ..predict import load_checkpoint
@@ -269,8 +273,15 @@ class Runner:
 
     def _predict(self, image: torch.Tensor, depth: torch.Tensor):
         """The eval forward on a batch as the loader gives it: (prob
-        (B,H,W,1) fp32, extras with the texture)."""
-        return self.model.predict(normalize_image(image), scale_plane(depth))
+        (B,H,W,1) fp32, extras with the texture); under a data×space layout
+        both gathered whole from the ranks' rows and bands."""
+        prob, extras = self.model.predict(normalize_image(image), scale_plane(depth))
+        if space.current() is not None:
+            h = image.shape[1]
+            prob = space.gather_map(prob, h)
+            if extras.get("texture") is not None:
+                extras = {**extras, "texture": space.gather_map(extras["texture"], self.model.texture_height(h))}
+        return prob, extras
 
     def val(self, during_train: bool = False, save_visualizations: bool = False) -> Dict[str, float]:
         """One pass over the val loader; logs {"epoch", "step", the metrics

@@ -5,15 +5,24 @@ The JAX package emulates ``F.interpolate``/``F.unfold`` with dense matrices
 and slices; here the torch operators are the definition itself. Only the
 legacy ``nearest`` rule and the FFT high-pass mask are spelled out, so their
 index arithmetic matches the JAX side exactly.
+
+Under a data×space layout (``parallel/space.py``) the resizes, the FFT
+high-pass and ``normalize_01`` take this rank's band of a level whose
+global height is ``in_h``; sizes are global. They work on the whole level
+(gather, compute, band), as XLA gathers the JAX package's resize einsums
+and FFT; a bilinear resize by a whole factor down (``align_corners``
+False) needs only the band's own rows and runs there.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import space
 
 
 def resize_bilinear(
@@ -21,16 +30,41 @@ def resize_bilinear(
     size: Tuple[int, int],
     align_corners: bool = False,
     exact: bool = True,
+    in_h: Optional[int] = None,
 ) -> torch.Tensor:
     """Bilinear-resize NCHW ``x`` to ``size=(H, W)`` (``F.interpolate``,
     ``antialias=False``). ``exact=True`` computes in fp32 and casts back, as
-    the JAX ``exact`` path does; ``exact=False`` stays in the input dtype."""
+    the JAX ``exact`` path does; ``exact=False`` stays in the input dtype.
+    ``in_h``: x's global height under a data×space layout."""
     out_h, out_w = int(size[0]), int(size[1])
+    if space.split():
+        return _resize_level(x, out_h, out_w, align_corners, exact, in_h)
+    return _resize(x, out_h, out_w, align_corners, exact)
+
+
+def _resize(x, out_h, out_w, align_corners, exact):
     if tuple(x.shape[-2:]) == (out_h, out_w):
         return x
     src = x.float() if exact else x
     y = F.interpolate(src, size=(out_h, out_w), mode="bilinear", align_corners=align_corners)
     return y.to(x.dtype)
+
+
+def _resize_level(x, out_h, out_w, align_corners, exact, in_h):
+    """``resize_bilinear`` of the level whose band is x: on the band where
+    it shrinks by a whole factor (each output row samples rows of its own
+    band, at the same source offsets as on the whole level), else on the
+    gathered level."""
+    if in_h is None:
+        raise ValueError("under a data×space layout resize_bilinear needs the input's global height (in_h)")
+    if (in_h, x.shape[-1]) == (out_h, out_w):
+        return x
+    hb = x.shape[-2]
+    if (not align_corners and space.banded(in_h) and space.banded(out_h) and in_h % out_h == 0
+            and hb % (in_h // out_h) == 0):
+        space.count("banded")
+        return _resize(x, hb // (in_h // out_h), out_w, False, exact)
+    return space.full_level(lambda full: _resize(full, out_h, out_w, align_corners, exact), x, in_h)
 
 
 def resize_scale(x: torch.Tensor, scale: float, align_corners: bool = False) -> torch.Tensor:
@@ -41,8 +75,21 @@ def resize_scale(x: torch.Tensor, scale: float, align_corners: bool = False) -> 
     return resize_bilinear(x, (int(np.floor(h * scale)), int(np.floor(w * scale))), align_corners)
 
 
-def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Legacy ``nearest``: src index = floor(dst * in / out)."""
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int], in_h: Optional[int] = None) -> torch.Tensor:
+    """Legacy ``nearest``: src index = floor(dst * in / out). ``in_h``: x's
+    global height under a data×space layout (computed on the whole level)."""
+    if space.split():
+        return space.full_level(lambda full: _resize_nearest(full, size), x, _level_h(in_h, "resize_nearest"))
+    return _resize_nearest(x, size)
+
+
+def _level_h(in_h: Optional[int], what: str) -> int:
+    if in_h is None:
+        raise ValueError(f"under a data×space layout {what} needs the input's global height (in_h)")
+    return in_h
+
+
+def _resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     h, w = x.shape[-2:]
     out_h, out_w = int(size[0]), int(size[1])
     if (h, w) == (out_h, out_w):
@@ -87,15 +134,24 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 def normalize_01(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Min-max normalize with ONE min and max over the whole tensor (the
-    whole batch, not per image), as the reference's loss does."""
-    lo, hi = x.min(), x.max()
+    whole batch, not per image), as the reference's loss does; under a
+    data×space layout the whole batch's, over every band and row."""
+    lo, hi = space.global_min_max(x)
     return (x - lo) / (hi - lo + eps)
 
 
-def fft_high_pass(x: torch.Tensor, rate: float) -> torch.Tensor:
+def fft_high_pass(x: torch.Tensor, rate: float, in_h: Optional[int] = None) -> torch.Tensor:
     """FFT high-pass texture: zero a centered low-frequency square of side
     ``2 * int(sqrt(H*W*rate)//2)`` of the shifted spectrum (norm='forward'),
-    inverse-transform, return ``abs(real)``. NCHW in/out, fp32 inside."""
+    inverse-transform, return ``abs(real)``. NCHW in/out, fp32 inside.
+    ``in_h``: x's global height under a data×space layout (computed on the
+    whole level)."""
+    if space.split():
+        return space.full_level(lambda full: _fft_high_pass(full, rate), x, _level_h(in_h, "fft_high_pass"))
+    return _fft_high_pass(x, rate)
+
+
+def _fft_high_pass(x: torch.Tensor, rate: float) -> torch.Tensor:
     h, w = x.shape[-2:]
     line = int((h * w * rate) ** 0.5 // 2)
     keep = np.ones((h, w), dtype=np.float32)

@@ -331,7 +331,7 @@ def test_single_process_starts_no_group(monkeypatch):
 
 def test_dist_space_above_one_raises(tmp_path):
     cfg = os.path.join(W.ROOT, "configs", "synthetic_smoke.yml")
-    with pytest.raises(NotImplementedError, match="A13b"):
+    with pytest.raises(NotImplementedError, match="A13c"):
         cli.main([cfg, "--device", "cpu", "-o", f"work_dir={tmp_path}", "-o", "dist.space=2"])
     assert not os.listdir(tmp_path)
 
