@@ -176,7 +176,8 @@ Phases (any failure exits non-zero):
      NCCL rank, ``configs/cod.yml``, 2 steps at batch 10 on synthetic
      data): its ``log.jsonl`` (the ``dist`` record, finite losses), its
      ``epoch_1.pth`` loaded into the model; the CLI (in this process)
-     refuses ``-o dist.space=2`` in train mode with the NotImplementedError;
+     refuses ``-o dist.space=2`` for ``DQnet`` (no banded forward, ROADMAP
+     A13d) with the NotImplementedError;
  21. ``parallel/spatial.py::spatial_diffusion`` on 2 gloo ranks of the card
      (k = 7, 4 steps, fp32 and bf16) against the unsharded
      ``diffusion_planes`` on the same tensors: x (1,512,512,24), whose
@@ -228,7 +229,20 @@ Phases (any failure exits non-zero):
      a rank beside one process's, the layout's counts and bytes, the
      stencil launches a rank (one fused forward a step on the halo'd
      band), and the fused kernel held to its plain version on a captured
-     halo'd band.
+     halo'd band; then its train leg in the same rank processes: 2 AdamW
+     steps of full-width ``cod`` (seed 0's weights, ``configs/cod.yml``'s
+     optimizer, 384², batch 10) under (1, 2) and (2, 2), fp32 (TF32 off)
+     and bf16, against one process on the same weights and batches: fp32
+     losses within SPACE_TRAIN_LOSS_RTOL; every step-1 gradient, with
+     cuDNN on both sides (and at (2, 2) also with ATen's native
+     convolutions on both), within twice one process's own cuDNN-vs-native spread of its scale
+     (at least SPACE_TRAIN_GRAD_RTOL); bf16 losses within twice one
+     process's own bf16-vs-fp32 gap (at least BF16_ATOL); parameters and
+     BatchNorm statistics bit-equal across the ranks; 4 fused stencil
+     forwards and 4 fused backwards a step a rank (a step each way on the
+     halo'd band); the fused backward held to its plain version on a
+     captured halo'd band; ms a step a rank, peak memory a rank, the
+     counts and bytes of the forward's and the backward's exchanges.
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
@@ -482,7 +496,23 @@ SPACE_CASES = ((384, 8, (1, 2)), (384, 8, (2, 2)), (1024, 1, (1, 2)))
 # fp32 (TF32 off) against one process: the bands compute each pixel as the
 # whole level does but for the spatial means' order
 SPACE_FP32_ATOL = 1e-4
-SPACE_ITERS = 2  # timed batches a case and dtype
+SPACE_ITERS = 1  # timed batches a case and dtype
+# phase 27's train leg: full-width cod, seed 0's weights, configs/cod.yml's
+# optimizer at its 384² and batch of 10, SPACE_TRAIN_STEPS steps a dtype under
+# each layout against one process on the same weights and batches
+SPACE_TRAIN_LAYOUTS = ((1, 2), (2, 2))
+SPACE_TRAIN_STEPS = 2
+# fp32 (TF32 off): the loss as phase 19 holds 2 ranks to one process. Each
+# step-1 gradient, with cuDNN on both sides and with ATen's native
+# convolutions on both, within twice one process's own spread between the
+# two of its scale, at least 1e-3 (PERF.md §2's gradient bar): a band is
+# another shape than the whole level, both algorithms pick their fp32
+# reductions by shape, and the layout's gap is of the size of that spread
+# under either (PERF.md §6)
+SPACE_TRAIN_LOSS_RTOL, SPACE_TRAIN_GRAD_RTOL = 1e-4, 1e-3
+CONV_NAMES = {"cudnn": "cuDNN's", "native": "ATen's native"}
+# the layout whose ranks also take a native fp32 step (both axes split)
+SPACE_NATIVE_LAYOUT = (2, 2)
 
 
 _START = time.perf_counter()
@@ -1669,8 +1699,9 @@ def torchrun_phase(card):
     """Phase 20: ``torchrun --standalone --nproc_per_node=1 -m
     dgtd_tpu_torch.train configs/cod.yml`` (one rank, NCCL) for 2 steps on
     synthetic data: its log, a checkpoint that loads into the model; then
-    the same CLI (in this process) refuses ``-o dist.space=2`` in train mode
-    with the NotImplementedError, before it starts a group."""
+    the same CLI (in this process) refuses ``-o dist.space=2`` for
+    ``DQnet``, which has no banded forward (ROADMAP A13d), with the
+    NotImplementedError, before it starts a group or writes a file."""
     import torch
 
     from dgtd_tpu_torch.models.cod import cod
@@ -1678,7 +1709,7 @@ def torchrun_phase(card):
 
     steps = TORCHRUN_N // TRAIN_BATCH
     say(f"phase 20: the train CLI under torchrun --standalone --nproc_per_node=1 (NCCL): configs/cod.yml, "
-        f"{steps} steps at batch {TRAIN_BATCH}, {SIZE}², bf16; then -o dist.space=2")
+        f"{steps} steps at batch {TRAIN_BATCH}, {SIZE}², bf16; then DQnet with -o dist.space=2")
     t_phase = time.perf_counter()
     recipe = os.path.join(ROOT, "configs", "cod.yml")
     launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
@@ -1707,15 +1738,17 @@ def torchrun_phase(card):
         del state
         refused = None
         try:
-            cli.main([recipe, "-o", f"work_dir={work}_space", "-o", "dist.space=2"])
+            cli.main([recipe, "-o", f"work_dir={work}_space", "-o", "dist.space=2",
+                      "-o", "model={'type': 'DQnet'}"])
         except NotImplementedError as e:
             refused = str(e)
-        check(refused is not None and "A13c" in refused, f"dist.space=2 in train mode: {refused}")
+        check(refused is not None and "A13d" in refused and not os.path.exists(f"{work}_space"),
+              f"DQnet under dist.space=2: {refused}")
     row = {"launcher": "torchrun --standalone --nproc_per_node=1", "backend": "nccl", "steps": steps,
-           "losses": losses, "run_s": run_s, "checkpoint_loaded": True, "dist_space_2": "NotImplementedError",
+           "losses": losses, "run_s": run_s, "checkpoint_loaded": True, "dqnet_dist_space_2": "NotImplementedError",
            "phase_s": time.perf_counter() - t_phase, "card": card}
     say(f"  {steps} steps on one NCCL rank, losses {losses}, {run_s:.1f} s with the launcher; epoch_1.pth loads "
-        f"into cod; -o dist.space=2 in train mode raises NotImplementedError (ROADMAP A13c) [{card}]")
+        f"into cod; DQnet with -o dist.space=2 raises NotImplementedError (ROADMAP A13d) [{card}]")
     return row
 
 
@@ -2303,6 +2336,83 @@ def space_inputs(size, batch):
     return img.cuda(), dep.cuda()
 
 
+def space_train_batches():
+    """Phase 27's SPACE_TRAIN_STEPS global train batches (NHWC, on the host):
+    a normalized image, a depth and a binary label, the same in every
+    process."""
+    import torch
+
+    g = torch.Generator().manual_seed(27)
+    return [{"input": torch.randn(TRAIN_BATCH, SIZE, SIZE, 3, generator=g),
+             "depth": torch.rand(TRAIN_BATCH, SIZE, SIZE, 1, generator=g),
+             "label": (torch.rand(TRAIN_BATCH, SIZE, SIZE, 1, generator=g) > 0.5).float()}
+            for _ in range(SPACE_TRAIN_STEPS)]
+
+
+def space_train(model, weights, layout, name, grads_path=None, n_steps=SPACE_TRAIN_STEPS):
+    """``n_steps`` train steps (``train/state.py::train_step``,
+    configs/cod.yml's optimizer) of ``model`` reloaded with seed 0's
+    ``weights``, in dtype ``name``, on this process's rows of
+    :func:`space_train_batches` under ``layout`` (None: one process, every
+    row). The stencil's launch counters and the layout's counts are reset
+    just before each step and read just after. Returns each step's loss
+    terms, ms, launches and counts, the peak memory, and whether every
+    rank holds the same parameters and statistics bit for bit afterwards;
+    ``grads_path`` receives the step-1 gradients the optimizer is handed.
+    cuDNN is used as the caller has set it."""
+    import torch
+    import torch.distributed as dist
+
+    from dgtd_tpu_torch.core.config import load_config
+    from dgtd_tpu_torch.ops import diffusion as D
+    from dgtd_tpu_torch.parallel import space as S
+    from dgtd_tpu_torch.parallel.dist import row_slice
+    from dgtd_tpu_torch.train.optim import Optimizer
+    from dgtd_tpu_torch.train.state import train_step
+
+    model.load_state_dict(torch.load(weights))
+    model.dtype = getattr(torch, name)
+    cfg = load_config(os.path.join(ROOT, "configs", "cod.yml"))
+    opt = Optimizer(model.named_parameters(), cfg["optim_wrapper"], int(cfg["train_cfg"]["max_epochs"]),
+                    SPACE_TRAIN_STEPS, frozen_prefixes=model.frozen_param_prefixes, model_cfg=cfg["model"])
+
+    class Grab:
+        def step(self, step):
+            if step == 0 and grads_path:
+                torch.save({n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+                           grads_path)
+            return opt.step(step)
+
+    rows = slice(None) if layout is None else row_slice(TRAIN_BATCH, layout.data_index, layout.data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for step, b in enumerate(space_train_batches()[:n_steps]):
+        batch = {k: v[rows].cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        if layout is not None:
+            dist.barrier()
+            layout.reset_counts()
+        reset_plane_launches(D)
+        t0 = time.perf_counter()
+        with S.active_space(layout):
+            aux = train_step(model, Grab(), batch, step, seed=1)
+        losses = {k: float(v) for k, v in aux.items()}
+        torch.cuda.synchronize()
+        steps.append({"losses": losses, "ms": (time.perf_counter() - t0) * 1e3, "launches": plane_launches(D),
+                      "counts": None if layout is None else dict(layout.counts)})
+    equal = True
+    if layout is not None:
+        flat = torch.cat([v.contiguous().reshape(-1).view(torch.uint8).cpu() for v in model.state_dict().values()])
+        theirs = flat.clone()
+        dist.broadcast(theirs, src=0)
+        flag = torch.tensor([int(torch.equal(flat, theirs))])
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        equal = bool(flag.item())
+    return {"steps": steps, "peak_memory_bytes": torch.cuda.max_memory_allocated(), "bit_equal": equal,
+            "rows": TRAIN_BATCH if layout is None else TRAIN_BATCH // layout.data}
+
+
 def space_rank(rank, world, init_file, out_dir, weights):
     """One rank of phase 27: full-width ``cod`` (seed 0's ``weights``) served under each
     SPACE_CASES layout of ``world`` ranks, fp32 (TF32 off) and bf16: one
@@ -2310,7 +2420,12 @@ def space_rank(rank, world, init_file, out_dir, weights):
     the layout's counts reset just before the first and read just after it;
     peak memory; the probability gathered whole (saved by rank 0). Rank 0
     also keeps the stencil's first halo'd band and holds the fused kernel's
-    output on it to the plain version."""
+    output on it to the plain version. Then the train leg under each
+    SPACE_TRAIN_LAYOUTS layout of ``world`` ranks (:func:`space_train`, fp32
+    and bf16, then at SPACE_NATIVE_LAYOUT one fp32 step with cuDNN off;
+    rank 0 saves the fp32 step-1 gradients), and rank 0 holds the
+    fused backward on the first captured halo'd band to its plain
+    version."""
     import torch
     import torch.distributed as dist
 
@@ -2374,12 +2489,44 @@ def space_rank(rank, world, init_file, out_dir, weights):
             del prob, full
         del img, dep
         torch.cuda.empty_cache()
+    grabbed_bwd = {}
+    bwd = D.diffusion_planes_bwd
+
+    def grab_bwd(g, xs, w, kernel):
+        grabbed_bwd.setdefault(g.dtype, (g.clone(), xs.clone(), w.clone(), kernel))
+        return bwd(g, xs, w, kernel)
+
+    for data, spc in SPACE_TRAIN_LAYOUTS:
+        if data * spc != world:
+            continue
+        layout = S.make_space(data, spc)
+        for name in ("float32", "bfloat16"):
+            keep = rank == 0 and name == "float32"
+            grads = os.path.join(out_dir, f"space_train_grads_{data}x{spc}.pt") if keep else None
+            D.diffusion_planes_bwd = grab_bwd
+            try:
+                out[f"train_{data}x{spc}_{name}"] = space_train(model, weights, layout, name, grads)
+            finally:
+                D.diffusion_planes_bwd = bwd
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+        if (data, spc) == SPACE_NATIVE_LAYOUT:
+            grads = os.path.join(out_dir, f"space_train_grads_native_{data}x{spc}.pt") if rank == 0 else None
+            with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+                out[f"train_{data}x{spc}_native"] = space_train(model, weights, layout, "float32", grads, n_steps=1)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
     if rank == 0:
         for dtype, (x, w, kernel, steps) in grabbed.items():
             route = D.plane_route(*x.shape[1:], kernel, dtype, steps)
             out[f"band_check_{dtype}"] = {"planes": list(x.shape), "route": route,
                                           "max_abs_err": check_kernel(D, x, w, kernel, steps,
                                                                       f"fused forward on a halo'd band {dtype}")}
+        for dtype, (g, xs, w, kernel) in grabbed_bwd.items():
+            route = D.plane_route(*g.shape[1:], kernel, dtype, len(xs))
+            out[f"band_check_bwd_{dtype}"] = {"planes": list(g.shape), "route": route,
+                                              "max_abs_err": check_bwd(D, g, xs, w, kernel,
+                                                                       f"fused backward on a halo'd band {dtype}")}
     with open(os.path.join(out_dir, f"space_{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -2400,7 +2547,9 @@ def space_phase(D, card):
 
     say("phase 27: cod served under the data×space layout (H banded over the space ranks), gloo ranks of the "
         "card vs one process, fp32 (TF32 off) and bf16: " + ", ".join(
-            f"{size}² batch {batch} at (data, space) = {layout}" for size, batch, layout in SPACE_CASES))
+            f"{size}² batch {batch} at (data, space) = {layout}" for size, batch, layout in SPACE_CASES)
+        + f"; then trained {SPACE_TRAIN_STEPS} steps at {SIZE}², batch {TRAIN_BATCH}, at (data, space) = "
+        + " and ".join(map(str, SPACE_TRAIN_LAYOUTS)))
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -2432,6 +2581,17 @@ def space_phase(D, card):
             single[(size, batch, name)] = {"prob": prob.float().cpu(), "ms": ms,
                                            "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base}
         del img, dep, prob
+    single_train = {name: space_train(model, weights, None, name,
+                                      os.path.join(tmp.name, "space_train_grads_1.pt") if name == "float32" else None)
+                    for name in ("float32", "bfloat16")}
+    # the card's own spread: cuDNN's fp32 convolutions (TF32 off) pick their
+    # algorithm by shape, and a band is another shape than the whole level;
+    # ATen's native convolutions (GEMMs) give a second fp32 gradient, the
+    # one the ranks' native step is held to
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        single_train["native"] = space_train(model, weights, None, "float32",
+                                             os.path.join(tmp.name, "space_train_grads_native.pt"), n_steps=1)
+    model.zero_grad(set_to_none=True)
     del model
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -2446,6 +2606,7 @@ def space_phase(D, card):
                     for name in ("float32", "bfloat16"):
                         single[(i, name)] = torch.load(os.path.join(out, f"space_{i}_{name}.pt")).float()
         band_checks = {k: v for k, v in ranks[min(ranks)][0].items() if k.startswith("band_check")}
+        train = space_train_checks(tmp.name, ranks, single_train, card)
     cases = {}
     for i, (size, batch, (data, spc)) in enumerate(SPACE_CASES):
         world = data * spc
@@ -2486,8 +2647,106 @@ def space_phase(D, card):
     for key, bc in band_checks.items():
         check(bc["route"] == "fused", f"{key}: route {bc['route']}")
         say(f"  {key}: halo'd planes {bc['planes']} on the {bc['route']} kernel, max_abs_err {bc['max_abs_err']:.3e}")
+    check({"band_check_bwd_torch.float32", "band_check_bwd_torch.bfloat16"} <= set(band_checks),
+          f"no captured backward band: {sorted(band_checks)}")
     return {"model": "cod, full width (PVTv2-b2, ConvNeXt-B), seed 0", "backend": "gloo (ranks share the card)",
-            "cases": cases, "band_checks": band_checks, "phase_s": time.perf_counter() - t_phase, "card": card}
+            "cases": cases, "train": train, "band_checks": band_checks, "phase_s": time.perf_counter() - t_phase,
+            "card": card}
+
+
+def space_train_checks(tmp, ranks, single, card):
+    """Phase 27's train leg against one process: the fp32 loss terms of
+    every step within SPACE_TRAIN_LOSS_RTOL; rank 0's step-1 gradients
+    (the world's average), with cuDNN on both sides and, at
+    SPACE_NATIVE_LAYOUT, with it off on both, each within twice one process's own cuDNN-vs-native spread of
+    its scale (at least SPACE_TRAIN_GRAD_RTOL); the bf16 losses within
+    twice one process's own bf16-vs-fp32 gap (at least BF16_ATOL); every rank bit-equal after the steps, 4 fused
+    forwards and 4 fused backwards a step (one process: 1 + 1). Prints
+    and returns a row a layout."""
+    import torch
+
+    refs = {"cudnn": torch.load(os.path.join(tmp, "space_train_grads_1.pt")),
+            "native": torch.load(os.path.join(tmp, "space_train_grads_native.pt"))}
+
+    def grad_gap(got, ref_grads):
+        """How far ``got`` lies from ``ref_grads``: the largest difference over
+        its parameter's scale (a floor of 1e-4 of the largest gradient) and
+        that parameter, its difference and its scale over the largest
+        gradient, and the relative L2 norm of every gradient's difference."""
+        check(set(got) == set(ref_grads), "train: the parameters with a gradient differ")
+        scale = max(float(g.abs().max()) for g in ref_grads.values())
+        to_scale, name = max((float((got[n] - ref).abs().max()) / max(float(ref.abs().max()), 1e-4 * scale), n)
+                             for n, ref in ref_grads.items())
+        ref = ref_grads[name]
+        num = sum(float(((got[n] - r).double() ** 2).sum()) for n, r in ref_grads.items())
+        den = sum(float((r.double() ** 2).sum()) for r in ref_grads.values())
+        return {"to_scale": to_scale, "param": name,
+                "param_diff_to_largest": float((got[name] - ref).abs().max()) / scale,
+                "param_scale_to_largest": float(ref.abs().max()) / scale, "rel_l2": (num / den) ** 0.5}
+
+    def gap_text(gap):
+        return (f"{gap['to_scale']:.3e} of their scale at the most ({gap['param']}, whose gradient is "
+                f"{gap['param_scale_to_largest']:.2e} of the largest and differs by {gap['param_diff_to_largest']:.2e} "
+                f"of it); relative L2 {gap['rel_l2']:.3e}")
+
+    spread = grad_gap(refs["native"], refs["cudnn"])
+    grad_bar = max(SPACE_TRAIN_GRAD_RTOL, 2 * spread["to_scale"])
+    say(f"  train: one process's fp32 step-1 gradients, cuDNN vs ATen's native convolutions: {gap_text(spread)}: "
+        f"the card's own spread between two fp32 convolution algorithms; the layouts' bar {grad_bar:.3e}")
+    one32, one16 = single["float32"], single["bfloat16"]
+    for run in (one32, one16):
+        check(all(tuple(st["launches"]) == launch_tuple("fused", 1, 1) for st in run["steps"]),
+              f"one process: launches {[st['launches'] for st in run['steps']]}")
+    rows = {}
+    for data, spc in SPACE_TRAIN_LAYOUTS:
+        world, key = data * spc, f"{data}x{spc}"
+        gaps = {}
+        convs = ("cudnn", "native") if (data, spc) == SPACE_NATIVE_LAYOUT else ("cudnn",)
+        for conv in convs:
+            path = f"space_train_grads_{key}.pt" if conv == "cudnn" else f"space_train_grads_native_{key}.pt"
+            gaps[conv] = grad_gap(torch.load(os.path.join(tmp, f"w{world}", path)), refs[conv])
+            say(f"  train {key}: step-1 gradients with {CONV_NAMES[conv]} convolutions on both sides: "
+                f"{gap_text(gaps[conv])} (bar {grad_bar:.3e})")
+            check(gaps[conv]["to_scale"] <= grad_bar, f"train {key} {conv}: gradient {gaps[conv]['param']} at "
+                                                      f"{gaps[conv]['to_scale']:.3e} of its scale (bar {grad_bar:.3e})")
+        row = {"data": data, "space": spc, "ranks": world, "rows_a_rank": TRAIN_BATCH // data, "grad_bar": grad_bar,
+               "grad_gap_cudnn": gaps["cudnn"], "grad_gap_native": gaps.get("native"),
+               "one_process_cudnn_vs_native": spread,
+               "native_ms": [st["ms"] for st in ranks[world][0].get(f"train_{key}_native", {}).get("steps", [])],
+               "one_process_native_ms": [st["ms"] for st in single["native"]["steps"]]}
+        for name, one in (("float32", one32), ("bfloat16", one16)):
+            per_rank = [r[f"train_{key}_{name}"] for r in ranks[world]]
+            errs = []
+            for i, st in enumerate(one["steps"]):
+                ref = st["losses"]["loss"]
+                bar = (SPACE_TRAIN_LOSS_RTOL * abs(ref) if name == "float32" else
+                       max(BF16_ATOL, 2 * abs(ref - one32["steps"][i]["losses"]["loss"])))
+                for r, pr in enumerate(per_rank):
+                    got = pr["steps"][i]["losses"]
+                    err = abs(got["loss"] - ref)
+                    errs.append(err)
+                    check(err <= bar, f"train {key} {name} step {i + 1} rank {r}: loss {got['loss']} vs one "
+                                      f"process {ref} (bar {bar:.3e})")
+                    check(tuple(pr["steps"][i]["launches"]) == launch_tuple("fused", STEPS, STEPS),
+                          f"train {key} {name} rank {r} step {i + 1}: launches {pr['steps'][i]['launches']}")
+            for r, pr in enumerate(per_rank):
+                check(pr["bit_equal"], f"train {key} {name}: rank {r}'s parameters or statistics differ")
+            c = per_rank[0]["steps"][0]["counts"]
+            check(c["banded"] > 0 and c["halos"] > 0 and c["grad_exchanges"] > 0, f"train {key} {name}: counts {c}")
+            row[name] = {"max_loss_err": max(errs), "one_process": one, "ranks": per_rank}
+            say(f"  train {key} {name}: {SPACE_TRAIN_STEPS} steps at batch {TRAIN_BATCH} ({TRAIN_BATCH // data} rows "
+                f"a rank), losses {[round(st['losses']['loss'], 6) for st in per_rank[0]['steps']]} vs one process "
+                f"{[round(st['losses']['loss'], 6) for st in one['steps']]} (largest difference {max(errs):.3e}); "
+                f"ms a step a rank {[[round(st['ms'], 1) for st in pr['steps']] for pr in per_rank]} vs one process "
+                f"{[round(st['ms'], 1) for st in one['steps']]}; peak memory a rank "
+                f"{[round(pr['peak_memory_bytes'] / 2**30, 2) for pr in per_rank]} GiB vs one process "
+                f"{one['peak_memory_bytes'] / 2**30:.2f}; a step: banded {c['banded']}, replicated {c['replicated']}, "
+                f"whole-level ops {c['full']}; forward gathers {c['gathers']} ({c['gather_bytes'] / 1e6:.1f} MB), "
+                f"halos {c['halos']} ({c['halo_bytes'] / 1e6:.1f} MB), reductions {c['reductions']}; backward "
+                f"exchanges {c['grad_exchanges']} ({c['grad_bytes'] / 1e6:.1f} MB); stencil launches a rank a step "
+                f"{per_rank[0]['steps'][0]['launches']}; the ranks bit-equal [{card}]")
+        rows[key] = row
+    return rows
 
 
 def main():
@@ -3951,6 +4210,16 @@ def run(keep):
                      for key, case in space_row["cases"].items() for name in ("float32", "bfloat16")},
         "max_abs_err_on_a_band": {k: v["max_abs_err"] for k, v in space_row["band_checks"].items()},
         "main_path": f"one served batch of each phase-27 case and dtype a rank, {STEPS} steps on the halo'd band"}
+    train_launches = {f"{key} {name}": [[st["launches"] for st in rk["steps"]] for rk in row[name]["ranks"]]
+                      for key, row in space_row["train"].items() for name in ("float32", "bfloat16")}
+    by_name["diffusion_stencil_fused"]["space_train_launches"] = {
+        "launches": {k: [[st[0] for st in rk] for rk in v] for k, v in train_launches.items()},
+        "main_path": f"each train step of phase 27's train leg a rank, {STEPS} steps on the halo'd band"}
+    by_name["diffusion_stencil_fused_bwd"]["space_train_launches"] = {
+        "launches": {k: [[st[1] for st in rk] for rk in v] for k, v in train_launches.items()},
+        "max_abs_err_on_a_band": {k: v["max_abs_err"] for k, v in space_row["band_checks"].items()
+                                  if k.startswith("band_check_bwd")},
+        "main_path": f"each train step of phase 27's train leg a rank, {STEPS} steps on the halo'd band"}
     say(json.dumps({"kernels": kernel_rows}))
     say(json.dumps({"trained": {
         "model": "cod, full width (PVTv2-b2, ConvNeXt-B), seeded random weights",

@@ -12,7 +12,11 @@ counterpart of the JAX package's ``model.predict`` on inputs sharded
 ``P('data', 'space')``, ``predict`` and ``tensor`` take the whole batch,
 run this rank's rows of it on its band of H, and return those rows and
 that band; ``space.gather_map`` joins the ranks' results into the whole
-map. ``loss`` does not run under a layout (ROADMAP A13c).
+map. ``loss`` under a layout takes this rank's rows (what the loader gives
+rank (d, s): data row d's rows of the global batch), runs the train
+forward on its band of them, and returns its data row's loss, the same on
+every space rank of the row (``parallel/space.py``'s convention). A model
+without ``supports_space`` (``DQnet``) raises under a layout (ROADMAP A13d).
 """
 
 from __future__ import annotations
@@ -94,21 +98,30 @@ class SegModel(nn.Module):
         (B,H,W,1) -> (total loss, {"loss_seg", ["loss_ssim",] "loss"}), fp32;
         ``loss_ssim`` only when the SSIM term is added. BatchNorm running
         statistics are updated. ``generator`` drives DropPath; it may be None
-        only when every drop-path rate is 0."""
-        if space.current() is not None:
-            raise NotImplementedError(f"{type(self).__name__}.loss under a data×space layout: the train step over "
-                                      "data×space is not ported yet (ROADMAP A13c)")
+        only when every drop-path rate is 0. Under a data×space layout the
+        inputs are this rank's rows, banded here; the loss is their data
+        row's."""
+        sp = space.current()
+        if sp is not None:
+            self._refuse_space()
         if generator is None and any(isinstance(m, DropPath) and m.rate for m in self.modules()):
             raise ValueError(f"{type(self).__name__}.loss needs a generator for DropPath (or drop-path rates of 0)")
+        h = image.shape[1]
         set_drop_path_generator(self, generator)
         try:
             with self._mode(True), self._autocast(image.device.type):
-                texture, stage_preds, pred2 = self(_nchw(image), _nchw(depth))
+                if sp is None:
+                    texture, stage_preds, pred2 = self(_nchw(image), _nchw(depth))
+                else:
+                    texture, stage_preds, pred2 = self(_nchw(space.band_rows(image, 1)),
+                                                       _nchw(space.band_rows(depth, 1)), h)
         finally:
             set_drop_path_generator(self, None)
         loss = staged_losses(stage_preds, pred2, _nchw(label))
         aux = {"loss_seg": loss}
         if self.use_ssim and texture is not None:
+            # the SSIM term on the whole rows: it carries no gradient
+            texture = space.gather_rows(texture, self.texture_height(h))
             loss_ssim = texture_ssim_loss(texture, _nchw(image))
             loss = loss + loss_ssim
             aux["loss_ssim"] = loss_ssim
@@ -123,8 +136,7 @@ class SegModel(nn.Module):
         with self._mode(False), self._autocast(image.device.type):
             if space.current() is None:
                 return self(_nchw(image), _nchw(depth)), h
-            if not self.supports_space:
-                raise NotImplementedError(f"{type(self).__name__} does not run under a data×space layout")
+            self._refuse_space()
             sp = space.current()
             rows = row_slice(image.shape[0], sp.data_index, sp.data)
             image, depth = space.band_rows(image[rows], 1), space.band_rows(depth[rows], 1)
@@ -133,6 +145,11 @@ class SegModel(nn.Module):
     def texture_height(self, h: int) -> int:
         """The global height of the texture for an image of ``h`` rows."""
         return h
+
+    def _refuse_space(self) -> None:
+        if not self.supports_space:
+            raise NotImplementedError(f"{type(self).__name__} does not run under a data×space layout: its "
+                                      "banded forward is not ported yet (ROADMAP A13d)")
 
     @torch.inference_mode()
     def tensor(self, image, depth):

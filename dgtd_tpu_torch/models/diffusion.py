@@ -18,8 +18,8 @@ dtype.
 Under a data×space layout (``parallel/space.py``) every map is this rank's
 band of rows: the texture's FFT and the resizes to the grid run on the
 gathered level, the stencil on the banded grid through
-``parallel/spatial.py`` (the halo'd band, one kernel launch a step), and
-the 3x3 convs on their bands. Heights passed in are global.
+``parallel/spatial.py`` (the halo'd band, one kernel launch a step each
+way), and the 3x3 convs on their bands. Heights passed in are global.
 """
 
 from __future__ import annotations
@@ -79,7 +79,6 @@ class MessagePassing(nn.Module):
         if not space.split():
             out = self._diffuse(x, weight)
         else:
-            space.refuse_grad(x, weight)
             if space.banded(h) and x.shape[-2] >= self.kernel // 2:
                 space.count("banded")
                 out = self._diffuse(x, weight, space.current().space_group)

@@ -50,9 +50,9 @@ class HitNetDecoder(nn.Module):
         own by default); every resize targets a global size."""
         H, h1, h2, h3, h4 = heights or [t.shape[-2] for t in (image, x1, x2, x3, x4)]
         cim = self.decoder_level1(x1, h1)
-        x2_t = self.Translayer2_1(x2)
-        x3_t = self.Translayer3_1(x3)
-        x4_t = self.Translayer4_1(x4)
+        x2_t = self.Translayer2_1(x2, h2)
+        x3_t = self.Translayer3_1(x3, h3)
+        x4_t = self.Translayer4_1(x4, h4)
         s8, s16 = (h2, x2.shape[-1]), (h3, x3.shape[-1])
         full = (H, image.shape[-1])
 
@@ -68,13 +68,13 @@ class HitNetDecoder(nn.Module):
             x3_f = self.decoder_level3(
                 torch.cat([x3_t, resize_bilinear(x4_f, s16, align_corners=True, exact=False, in_h=h4)], dim=1), h3)
             if it > 0:
-                x2_t = self.compress_out2(torch.cat([x2_t, cfm], dim=1))
+                x2_t = self.compress_out2(torch.cat([x2_t, cfm], dim=1), h2)
             x2_f = self.decoder_level2(
                 torch.cat([x2_t, resize_bilinear(x3_f, s8, align_corners=True, exact=False, in_h=h3)], dim=1), h2)
             cfm = self.conv4(x2_f, h2)
             stage_preds.append(resize_bilinear(self.out_CFM(cfm), full, in_h=h2))
 
-        t2 = self.Translayer2_0(cim)
+        t2 = self.Translayer2_0(cim, h1)
         t2 = resize_bilinear(t2, s8, align_corners=True, exact=False, in_h=h1)
         pred2 = resize_bilinear(self.out_SAM(self.SAM(cfm, t2, h2)), full, in_h=h2)
         return stage_preds, pred2

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -145,7 +146,9 @@ class DropPath(nn.Module):
     dropped. ``cod.loss`` refuses to run without one when a rate is not 0.
     Under data parallelism (``parallel/dist.py::data_group``) every rank
     draws the global batch's mask from the same generator and takes its own
-    rows, so the ranks drop the samples that one process would."""
+    rows, so the ranks drop the samples that one process would; under a
+    data×space layout the rows are its data row's, so the space ranks of a
+    row drop the same samples."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -182,7 +185,9 @@ def checkpointed(block: nn.Module, *args):
     submodule's mode, every DropPath's generator and each generator's state
     as they were at the forward, and puts back what it found afterwards.
     A BatchNorm would update its running statistics twice: a block that
-    holds one raises."""
+    holds one raises. Under a data×space layout the recompute runs under
+    the forward's layout (``parallel/space.py``), which the thread of a
+    CUDA backward does not see."""
     modules = list(block.modules())
     if any(isinstance(m, nn.modules.batchnorm._BatchNorm) for m in modules):
         raise ValueError(f"checkpointed: {type(block).__name__} holds a BatchNorm, "
@@ -191,6 +196,7 @@ def checkpointed(block: nn.Module, *args):
     saved = ([m.training for m in modules], [m.generator for m in drops],
              {id(g): (g, g.get_state()) for m in drops if (g := m.generator) is not None})
     calls = [0]
+    layout = space.current()
 
     def swap(state):
         """Put ``state`` (modes, generators, generator states) in place;
@@ -212,7 +218,8 @@ def checkpointed(block: nn.Module, *args):
             return block(*a)
         was = swap(saved)
         try:
-            return block(*a)
+            with space.active_space(layout):
+                return block(*a)
         finally:
             swap(was)
 
@@ -234,7 +241,11 @@ class BasicConv2d(nn.Module):
     are the global batch's, as XLA reduces them across the JAX package's
     mesh: the ranks sum their counts and sums, then their squared deviations
     from the global mean, by all-reduces whose backward all-reduces the
-    gradient; every rank then writes the same running statistics."""
+    gradient; every rank then writes the same running statistics. Under a
+    data×space layout a banded output level sums over every rank of the
+    world (each holds distinct pixels); a replicated one over the data
+    group only, since the space ranks of a data row hold the same pixels
+    (:func:`bn_group`)."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0):
         super().__init__()
@@ -242,13 +253,14 @@ class BasicConv2d(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x, h=None):
-        """``h``: the global height of x's level (``Conv2d``)."""
+        """``h``: the global height of x's level (``Conv2d``); a train-mode
+        forward under a data×space layout needs it, 1x1 too."""
         y = self.conv(x, h)
         if not self.training:
             return self.bn(y)
         bn = self.bn
         yf = y.float()
-        group = data_group()
+        group = bn_group(None if h is None else self.conv.out_rows(h))
         if group is None:
             out = F.batch_norm(yf, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
             with torch.no_grad():
@@ -260,6 +272,23 @@ class BasicConv2d(nn.Module):
             bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
             bn.num_batches_tracked.add_(1)
         return out.to(y.dtype)
+
+
+def bn_group(out_h):
+    """The group a train-mode BatchNorm sums its statistics over, for an
+    output level of ``out_h`` global rows: the data group
+    (``parallel/dist.py::data_group``; None for one process) without a
+    layout that splits H; under one the world for a banded level, the data
+    group (None when it is one rank) for a replicated one, whose space
+    ranks hold the same pixels (the world would count each of them
+    ``space`` times: the same statistics for more traffic)."""
+    if not space.split():
+        return data_group()
+    if out_h is None:
+        raise ValueError("a train-mode BatchNorm under a data×space layout needs its level's global height")
+    if space.banded(out_h):
+        return dist.group.WORLD
+    return data_group() if space.current().data > 1 else None
 
 
 def _global_batch_norm(yf: torch.Tensor, bn: nn.BatchNorm2d, group):

@@ -6,6 +6,12 @@ stage weighting keeps the reference's quirk: iteration 0 is weighted 0, and
 the SSIM term is the SSIM of the min-max-normalized texture against the
 input, which carries no parameter gradient (the texture is an FFT of the
 input).
+
+Under a data×space layout (``parallel/space.py``) ``structure_loss`` takes
+this rank's band of the logits and its whole rows of the label: the pixel
+weight is computed on the whole label and banded, and the per-image sums
+are summed over the space group with their gradient. The SSIM term takes
+the texture gathered whole (``models/cod.py``).
 """
 
 from __future__ import annotations
@@ -15,20 +21,26 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel import space
 from ..parallel.dist import data_group, global_extrema
 from ..utils.image import avg_pool, normalize_01, reflect_pad
 
 
 def structure_loss(logits: torch.Tensor, gts: torch.Tensor) -> torch.Tensor:
     """Pixel weight ``1 + 5·|avgpool31(gt) − gt|``; weighted BCE-with-logits
-    plus weighted IoU, per image, averaged. (B, 1, H, W) logits and targets."""
+    plus weighted IoU, per image, averaged. (B, 1, H, W) logits and targets;
+    under a data×space layout the logits' band of the targets' H rows."""
     logits, gts = logits.float(), gts.float()
+    h = gts.shape[-2]
     weit = 1.0 + 5.0 * (avg_pool(gts, 31, 1, 15) - gts).abs()
+    weit, gts = space.band_rows(weit), space.band_rows(gts)
     bce = F.binary_cross_entropy_with_logits(logits, gts, reduction="none")
-    wbce = (weit * bce).sum((2, 3)) / weit.sum((2, 3))
     preds = torch.sigmoid(logits)
-    inter = (preds * gts * weit).sum((2, 3))
-    union = ((preds + gts) * weit).sum((2, 3))
+    wsum, wbce, inter, union = (weit.sum((2, 3)), (weit * bce).sum((2, 3)), (preds * gts * weit).sum((2, 3)),
+                                ((preds + gts) * weit).sum((2, 3)))
+    if space.banded(h):
+        wsum, wbce, inter, union = space.sum_over_space(torch.stack([wsum, wbce, inter, union]))
+    wbce = wbce / wsum
     wiou = 1.0 - (inter + 1.0) / (union - inter + 1.0)
     return (wbce + wiou).mean()
 
@@ -60,7 +72,9 @@ def staged_losses(stage_logits: Sequence[torch.Tensor], pred2_logits: torch.Tens
 
 def texture_ssim_loss(texture: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """SSIM between the batch-normalized texture map and the input image.
-    Under data parallelism the min and max are the global batch's."""
+    Under data parallelism the min and max are the global batch's (the data
+    group's: under a data×space layout the texture and image are a data
+    row's whole rows)."""
     group = data_group()
     if group is None:
         return ssim_loss(normalize_01(texture), image)

@@ -7,7 +7,8 @@ reference's ``torchrun --nproc_per_node=2`` does, and keeps the JAX
 package's semantics: ``batch_size`` is the global batch, rank r of W takes
 rows ``[r·B/W, (r+1)·B/W)`` of each (:func:`row_slice`), BatchNorm and
 DropPath see the global batch (``models/layers.py``), and the train step
-averages the gradients over the ranks (:func:`all_mean_`).
+averages the gradients over the ranks (:func:`all_mean_`; under a
+data×space layout over the world, :func:`grad_group`).
 
 :func:`init_distributed` starts the process group a launch asks for, from
 the same markers as ``initialize_multihost``: an explicit coordinator,
@@ -34,18 +35,6 @@ from .space import current as current_layout, make_space
 
 #: the CPU gloo group of the host-side agreements, made with the world group
 _SIDE = None
-
-
-def refuse_space(space, mode: str = "train") -> None:
-    """``-o dist.space=N``: the JAX package's 2-D data×space layout. The
-    port serves under it (``-m val``; ``parallel/space.py``); its train
-    step is not ported yet (ROADMAP A13c), so N > 1 in train mode raises
-    instead of training data-parallel."""
-    if int(space) > 1 and mode != "val":
-        raise NotImplementedError(
-            f"dist.space={space} in {mode} mode: the data×space train step (the adjoints of the halo exchanges "
-            "and gathers, BatchNorm and DropPath over data×space) is not ported yet (ROADMAP A13c); the port "
-            "trains data-parallel only (dist.space=1) and serves under the layout with -m val")
 
 
 def start_space(space):
@@ -186,6 +175,15 @@ def data_group():
     if layout is not None:
         return layout.data_group
     return dist.group.WORLD if world() > 1 else None
+
+
+def grad_group():
+    """The group a train step averages its gradients and loss terms over:
+    the world under a data×space layout (``parallel/space.py``'s
+    convention), else :func:`data_group`."""
+    if current_layout() is not None:
+        return dist.group.WORLD
+    return data_group()
 
 
 def rank_world(group=None) -> Tuple[int, int]:

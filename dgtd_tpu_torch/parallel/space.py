@@ -23,8 +23,37 @@ forward when the caller resets the counts.
 Model code reads the layout from :func:`active_space`'s context. With no
 active space every function here is an exact no-op, so one process runs
 the same code as before. Sizes passed here are always global, never a
-band's. This is the serving layout: a banded primitive that sees a tensor
-requiring grad raises (the train step under it is ROADMAP A13c).
+band's.
+
+The train step runs under the layout too (the JAX package's train step
+traced under the same mesh), and every collective here has its adjoint.
+One convention holds them together:
+
+- The objective is the mean over the world's ranks of each rank's loss.
+  The space ranks of a data row all compute their data row's loss, so
+  that mean is the global batch's loss.
+- Each collective's backward is its transpose: an all-gather
+  (:func:`gather_rows`, :func:`gather_map`) reduce-scatters the summed
+  gradient, each rank keeping its band; a halo exchange
+  (:func:`ring_halo`, :func:`halo`) sends each halo row's gradient back
+  to the rank that sent the row, which adds it to its border rows (the
+  zeros past the image's edges take none); an all-reduce sum
+  (:func:`spatial_mean`, :func:`sum_over_space`: the losses' per-image
+  sums over the bands) all-reduces the gradient; :func:`band_rows` (a
+  narrow) is autograd's own zero padding.
+- After the backward the train step averages every parameter's gradient
+  over the whole world, not over the data group
+  (``parallel/dist.py::grad_group``). A banded layer's gradient then
+  arrives ``space`` times through the transposed all-reduces of a loss
+  that every space rank repeats, a replicated layer's once on each of the
+  ``space`` ranks, and the world's mean counts each once.
+
+The backward need not run on the caller's thread (on CUDA autograd runs
+it on a device thread, whose context holds no layout), so each autograd
+Function keeps its group, neighbours and band geometry from the forward
+and never reads :func:`current` in backward; ``models/layers.py::
+checkpointed`` re-enters the layout for its recompute. The backward's
+collectives are counted apart (``grad_exchanges``, ``grad_bytes``).
 
 Collectives follow the group's backend as in ``parallel/spatial.py``: NCCL
 gathers with ``all_gather_into_tensor`` and exchanges halos with
@@ -48,8 +77,11 @@ import torch.nn.functional as F
 #: on a band or on a replicated level; ops computed on a gathered whole
 #: level (resizes, the FFT); all-gathers of rows or batches and their
 #: bytes; halo exchanges and the bytes received; all-reduces of spatial
-#: means and extrema
-COUNT_KEYS = ("banded", "replicated", "full", "gathers", "gather_bytes", "halos", "halo_bytes", "reductions")
+#: means and extrema; the backward's transposed collectives and the bytes
+#: each takes in (a reduce-scatter's summed gradient, a halo's returned
+#: rows, an all-reduce's tensor)
+COUNT_KEYS = ("banded", "replicated", "full", "gathers", "gather_bytes", "halos", "halo_bytes", "reductions",
+              "grad_exchanges", "grad_bytes")
 
 
 @dataclass
@@ -134,13 +166,12 @@ def count(key: str, n: int = 1) -> None:
         sp.counts[key] += int(n)
 
 
-def refuse_grad(*tensors: torch.Tensor) -> None:
-    """The layout is forward only: a tensor that would record a gradient
-    through a band's collectives raises."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the data×space layout is forward only: the adjoints of its halo exchanges and gathers are not "
-            "ported yet (ROADMAP A13c); run predict/tensor (inference mode) under it")
+def _count_grad(sp: Optional[Space], *tensors: torch.Tensor) -> None:
+    """Count one of the backward's collectives on ``sp`` (the layout its
+    forward ran under; None: none) with the bytes of ``tensors``."""
+    if sp is not None:
+        sp.counts["grad_exchanges"] += 1
+        sp.counts["grad_bytes"] += sum(t.numel() * t.element_size() for t in tensors)
 
 
 def band_rows(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
@@ -175,14 +206,48 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
+def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The transpose of :func:`_all_gather`: the sum over ``group`` of
+    every rank's ``g``, this rank's equal share of it along ``dim``. NCCL
+    reduce-scatters; gloo (which has no reduce-scatter) all-reduces and
+    keeps the share."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    gm = g.movedim(dim, 0).contiguous()
+    part = gm.shape[0] // n
+    if dist.get_backend(group) == "nccl":
+        out = gm.new_empty((part, *gm.shape[1:]))
+        dist.reduce_scatter_tensor(out, gm, group=group)
+    else:
+        buf = gm.cpu() if _through_host(group, gm) else gm.clone()
+        dist.all_reduce(buf, group=group)
+        out = buf[i * part:(i + 1) * part].to(g.device)
+    return out.movedim(0, dim).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`_all_gather` whose backward reduce-scatters the summed
+    gradient (each rank keeps its share)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, sp):
+        ctx.group, ctx.dim, ctx.sp = group, dim, sp
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count_grad(ctx.sp, g)
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+
+
 def gather_rows(x: torch.Tensor, global_h: int, dim: int = -2) -> torch.Tensor:
     """The whole level from this rank's band: an all-gather over the space
     group along ``dim`` (rows, or a band's row-major tokens); x itself
-    where ``global_h`` is not banded."""
+    where ``global_h`` is not banded. Its backward reduce-scatters the
+    summed gradient."""
     if not banded(global_h):
         return x
-    refuse_grad(x)
-    return _all_gather(x, _ACTIVE.get().space_group, dim)
+    sp = _ACTIVE.get()
+    return _Gather.apply(x, sp.space_group, dim, sp)
 
 
 def gather_map(x: torch.Tensor, global_h: int, dim: int = 1) -> torch.Tensor:
@@ -195,35 +260,15 @@ def gather_map(x: torch.Tensor, global_h: int, dim: int = 1) -> torch.Tensor:
         return x
     x = gather_rows(x, global_h, dim)
     if sp.data > 1:
-        refuse_grad(x)
-        x = _all_gather(x, sp.data_group, 0)
+        x = _Gather.apply(x, sp.data_group, 0, sp)
     return x
 
 
-def ring_halo(x: torch.Tensor, top: int, bottom: int, group, dim: int = -2) -> torch.Tensor:
-    """``x`` with ``top`` rows of the previous rank of ``group`` above it and
-    ``bottom`` rows of the next rank below it along ``dim`` (zeros past the
-    first and last rank); each must fit in a neighbour's band. Every rank
-    of ``group`` calls it."""
-    n, i = dist.get_world_size(group), dist.get_rank(group)
-    hb = x.shape[dim]
-    if top > hb or bottom > hb:
-        raise ValueError(f"a halo of {top}/{bottom} rows is taller than a band of {hb}")
-    xm = x.movedim(dim, 0)
-    above = xm.new_zeros((top, *xm.shape[1:]))
-    below = xm.new_zeros((bottom, *xm.shape[1:]))
-    sends, recvs = [], []
-    if i > 0:
-        if bottom:  # my first rows are the previous rank's bottom halo
-            sends.append((xm[:bottom].contiguous(), _peer(group, i - 1)))
-        if top:
-            recvs.append((above, _peer(group, i - 1)))
-    if i < n - 1:
-        if top:  # my last rows are the next rank's top halo
-            sends.append((xm[hb - top:].contiguous(), _peer(group, i + 1)))
-        if bottom:
-            recvs.append((below, _peer(group, i + 1)))
-    host = _through_host(group, x)
+def _exchange(group, sends, recvs, like: torch.Tensor) -> None:
+    """Post every send ((tensor, global peer)) and receive into every
+    buffer of ``recvs`` at once, then wait for all: NCCL on the device
+    (``batch_isend_irecv``), gloo on host copies of CUDA tensors."""
+    host = _through_host(group, like)
     if host:
         sends = [(t.cpu(), p) for t, p in sends]
         landed = [(torch.empty(t.shape, dtype=t.dtype), p) for t, p in recvs]
@@ -240,9 +285,89 @@ def ring_halo(x: torch.Tensor, top: int, bottom: int, group, dim: int = -2) -> t
     if host:
         for (dst, _), (src, _) in zip(recvs, landed):
             dst.copy_(src)
+
+
+def _ring_peers(group):
+    """(previous, next) global ranks of this rank in ``group``'s ring (None
+    past the first and the last)."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return (_peer(group, i - 1) if i > 0 else None), (_peer(group, i + 1) if i < n - 1 else None)
+
+
+def _ring_halo(x: torch.Tensor, top: int, bottom: int, group, dim: int, peers) -> torch.Tensor:
+    hb = x.shape[dim]
+    prev, nxt = peers
+    xm = x.movedim(dim, 0)
+    above = xm.new_zeros((top, *xm.shape[1:]))
+    below = xm.new_zeros((bottom, *xm.shape[1:]))
+    sends, recvs = [], []
+    if prev is not None:
+        if bottom:  # my first rows are the previous rank's bottom halo
+            sends.append((xm[:bottom].contiguous(), prev))
+        if top:
+            recvs.append((above, prev))
+    if nxt is not None:
+        if top:  # my last rows are the next rank's top halo
+            sends.append((xm[hb - top:].contiguous(), nxt))
+        if bottom:
+            recvs.append((below, nxt))
+    _exchange(group, sends, recvs, x)
     count("halos")
-    count("halo_bytes", (above.numel() + below.numel()) * x.element_size())
+    count("halo_bytes", sum(t.numel() for t, _ in recvs) * x.element_size())
     return torch.cat([above, xm, below]).movedim(0, dim).contiguous()
+
+
+class _RingHalo(torch.autograd.Function):
+    """:func:`_ring_halo` whose backward returns each halo row's gradient
+    to the rank that sent the row: the top halo's to the previous rank,
+    which adds it to its last ``top`` rows, the bottom halo's to the next,
+    which adds it to its first ``bottom`` rows (the mirror of the forward's
+    sends and receives; the edge ranks' zero rows send nothing)."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, group, dim, peers, sp):
+        ctx.top, ctx.bottom, ctx.hb, ctx.group, ctx.dim, ctx.peers, ctx.sp = (
+            top, bottom, x.shape[dim], group, dim, peers, sp)
+        return _ring_halo(x, top, bottom, group, dim, peers)
+
+    @staticmethod
+    def backward(ctx, g):
+        top, bottom, hb = ctx.top, ctx.bottom, ctx.hb
+        prev, nxt = ctx.peers
+        gm = g.movedim(ctx.dim, 0)
+        dx = gm[top:top + hb].clone()
+        from_next = dx.new_empty((top, *dx.shape[1:]))
+        from_prev = dx.new_empty((bottom, *dx.shape[1:]))
+        sends, recvs = [], []
+        if prev is not None:
+            if top:  # the previous rank's last rows were my top halo
+                sends.append((gm[:top].contiguous(), prev))
+            if bottom:
+                recvs.append((from_prev, prev))
+        if nxt is not None:
+            if bottom:  # the next rank's first rows were my bottom halo
+                sends.append((gm[top + hb:].contiguous(), nxt))
+            if top:
+                recvs.append((from_next, nxt))
+        _exchange(ctx.group, sends, recvs, g)
+        if prev is not None and bottom:
+            dx[:bottom] += from_prev
+        if nxt is not None and top:
+            dx[hb - top:] += from_next
+        _count_grad(ctx.sp, *(t for t, _ in recvs))
+        return dx.movedim(0, ctx.dim).contiguous(), None, None, None, None, None, None
+
+
+def ring_halo(x: torch.Tensor, top: int, bottom: int, group, dim: int = -2) -> torch.Tensor:
+    """``x`` with ``top`` rows of the previous rank of ``group`` above it and
+    ``bottom`` rows of the next rank below it along ``dim`` (zeros past the
+    first and last rank); each must fit in a neighbour's band. Every rank
+    of ``group`` calls it. Its backward sends the halo rows' gradient back
+    (:class:`_RingHalo`)."""
+    hb = x.shape[dim]
+    if top > hb or bottom > hb:
+        raise ValueError(f"a halo of {top}/{bottom} rows is taller than a band of {hb}")
+    return _RingHalo.apply(x, top, bottom, group, dim, _ring_peers(group), _ACTIVE.get())
 
 
 def _peer(group, group_rank: int) -> int:
@@ -262,7 +387,6 @@ def halo(x: torch.Tensor, top: int, bottom: int, global_h: int, dim: int = -2) -
         xm = x.movedim(dim, 0)
         return torch.cat([xm.new_zeros((top, *xm.shape[1:])), xm,
                           xm.new_zeros((bottom, *xm.shape[1:]))]).movedim(0, dim).contiguous()
-    refuse_grad(x)
     sp = _ACTIVE.get()
     hb = x.shape[dim]
     if top <= hb and bottom <= hb:
@@ -309,34 +433,61 @@ def conv_rows(conv: torch.nn.Conv2d, x: torch.Tensor, global_h: Optional[int]) -
     return band_rows(conv._conv_forward(full, conv.weight, conv.bias))
 
 
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    buf = x.cpu() if _through_host(group, x) else x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, group=group)
+    return buf.to(x.device)
+
+
+class _SumOver(torch.autograd.Function):
+    """A SUM all-reduce over ``group`` whose backward all-reduces the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, sp):
+        ctx.group, ctx.sp = group, sp
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count_grad(ctx.sp, g)
+        return _all_reduce_sum(g, ctx.group), None, None
+
+
+def sum_over_space(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the active layout's space group, with its
+    gradient (the losses' per-image sums over the bands); x itself where
+    the layout does not split H."""
+    if not split():
+        return x
+    sp = _ACTIVE.get()
+    count("reductions")
+    return _SumOver.apply(x, sp.space_group, sp)
+
+
 def spatial_mean(x: torch.Tensor, global_h: Optional[int], keepdim: bool = False) -> torch.Tensor:
     """The mean over H and W of an NCHW map at a level of ``global_h``
-    rows: on a band, the bands' fp32 means averaged over the space group
-    (equal bands), in x's dtype; ``x.mean`` otherwise."""
+    rows: on a band, the bands' fp32 means summed over the space group
+    (:func:`sum_over_space`) and divided by ``space`` (equal bands), in x's
+    dtype; ``x.mean`` otherwise."""
     if not split() or global_h is None or not banded(global_h):
         if split() and global_h is None:
             raise ValueError("under a data×space layout a spatial mean needs the map's global height")
         return x.mean(dim=(2, 3), keepdim=keepdim)
-    refuse_grad(x)
-    sp = _ACTIVE.get()
     m = x.float().mean(dim=(2, 3), keepdim=keepdim).contiguous()
-    host = _through_host(sp.space_group, m)
-    t = m.cpu() if host else m
-    dist.all_reduce(t, group=sp.space_group)
-    count("reductions")
-    return (t.to(x.device) / sp.space).to(x.dtype)
+    return (sum_over_space(m) / _ACTIVE.get().space).to(x.dtype)
 
 
 def global_min_max(x: torch.Tensor):
     """The min and max of the whole batch's tensor from this rank's rows
     and band: all-reduces over the space and the data groups (x's own
-    without a layout)."""
+    without a layout). They carry no gradient: they only normalize the
+    texture, an FFT of the input (``models/losses.py``)."""
     sp = _ACTIVE.get()
     lo, hi = x.min(), x.max()
     if sp is None:
         return lo, hi
-    refuse_grad(x)
-    t = torch.stack([-lo.float(), hi.float()])
+    t = torch.stack([-lo.detach().float(), hi.detach().float()])
     for group, n in ((sp.space_group, sp.space), (sp.data_group, sp.data)):
         if n > 1:
             buf = t.cpu() if _through_host(group, t) else t

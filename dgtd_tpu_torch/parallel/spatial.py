@@ -14,9 +14,16 @@ each shard boundary.
 The exchange follows the group's backend: NCCL sends and receives on the
 device (``batch_isend_irecv``); gloo sends host tensors, so CUDA halos go
 through the host (``space.py::ring_halo``). Every stencil step runs where
-x lies. This is the serving path: it records no gradient.
-:func:`spatial_planes` and :func:`spatial_nhwc` take the stencil's own
-layouts (the model's ``MessagePassing`` under a data×space layout).
+x lies. :func:`spatial_planes` and :func:`spatial_nhwc` take the stencil's
+own layouts (the model's ``MessagePassing`` under a data×space layout).
+
+With a gradient to record each step is differentiable: the halo exchange's
+backward returns the halo rows' gradient to their ranks
+(``space.py::ring_halo``), the step's is the stencil backward on the halo'd
+band (``ops/diffusion.py::DiffusionPlanesFn``: one launch of the fused,
+cluster or tiled backward on CUDA), and the zero rows padded beside w take
+a gradient that the pad's backward drops. A train step thus launches one
+forward and one backward kernel a step on each rank's halo'd band.
 """
 
 from __future__ import annotations
@@ -53,7 +60,6 @@ def _check_shard(hs: int, r: int, kernel: int) -> None:
                          "smaller kernel")
 
 
-@torch.no_grad()
 def spatial_planes(planes: torch.Tensor, w: torch.Tensor, kernel: int, steps: int, group=None) -> torch.Tensor:
     """``steps`` stencil steps in plane layout on this rank's rows: planes
     (P, Hs, W) and their normalized w (P, k², Hs, W). Before each step the
@@ -74,7 +80,6 @@ def spatial_planes(planes: torch.Tensor, w: torch.Tensor, kernel: int, steps: in
     return out
 
 
-@torch.no_grad()
 def spatial_nhwc(x: torch.Tensor, norm_weight: torch.Tensor, kernel: int, steps: int, group=None) -> torch.Tensor:
     """The same on NHWC rows, the NHWC stencil (``diffusion_nhwc``) one
     step a call on the halo'd (B, Hs + 2r, W, C) rows: x (B, Hs, W, C),

@@ -19,14 +19,17 @@ SLURM and OMPI launches of more than one task start the group too, and
 ``-o dist.coordinator=host:port`` names a ``tcp://`` rendezvous
 (``parallel/dist.py::detect_launch``).
 
-Serving under the JAX package's data×space layout: ``-m val -o
-dist.space=N`` on data·N ranks splits each val batch over data rows of
-ranks and every activation's H over N ranks (``parallel/space.py``):
+Training and serving under the JAX package's data×space layout: ``-o
+dist.space=N`` on data·N ranks splits each batch over data rows of ranks
+(each row loads its rows of the global batch) and every activation's H
+over the N ranks of a row (``parallel/space.py``):
 
-    torchrun --nproc_per_node=data·N -m dgtd_tpu_torch.train configs/cod.yml -m val -o dist.space=N
+    torchrun --nproc_per_node=data·N -m dgtd_tpu_torch.train configs/cod.yml -o dist.space=N [-m val]
 
-The world must be a multiple of N. In train mode N > 1 raises
-``NotImplementedError`` (the data×space train step, ROADMAP A13c).
+The world must be a multiple of N. A model without a banded forward
+(``DQnet``) raises ``NotImplementedError`` there (ROADMAP A13d). NCCL
+refuses two ranks on one GPU: on one card, start a gloo group in each
+rank's process and call :func:`main` there (every rank on ``cuda:0``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import argparse
 
 import torch
 
+from .. import models as _models  # noqa: F401  (registers the models)
 from ..core.config import get_dotted, load_config
+from ..core.registry import MODELS
 from ..parallel import dist as pdist
 from ..parallel.space import active_space
 from .loop import Runner
@@ -52,13 +57,24 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def refuse_space(space, model_cfg) -> None:
+    """``-o dist.space=N`` with N > 1 for a model without a banded forward
+    (no ``supports_space``: ``DQnet``, ROADMAP A13d) raises before anything
+    is started or written."""
+    kind = (model_cfg or {}).get("type")
+    if int(space) > 1 and kind is not None and not getattr(MODELS.get(kind), "supports_space", False):
+        raise NotImplementedError(
+            f"dist.space={space}: {kind} does not run under the data×space layout (its banded forward is not "
+            "ported yet, ROADMAP A13d); run it with dist.space=1")
+
+
 def main(argv=None):
     """Run the CLI. Train mode returns the Runner's summary plus
     ``work_dir``; val mode returns the metrics."""
     args = parse_args(argv)
     cfg = load_config(args.config, args.override)
     space = get_dotted(cfg, "dist.space", 1)
-    pdist.refuse_space(space, args.mode)
+    refuse_space(space, cfg.get("model"))
     device, started = pdist.init_distributed(get_dotted(cfg, "dist.coordinator"), args.device)
     try:
         with active_space(pdist.start_space(space)):

@@ -17,6 +17,10 @@ or visualizations.
 Under data parallelism (``parallel/dist.py``; ``torchrun --nproc_per_node=N
 -m dgtd_tpu_torch.train``) the recipe's ``batch_size`` is the global batch:
 each rank loads its rows of it and the train step averages the gradients.
+Under a data×space layout (``-o dist.space=N``) the rows are the rank's
+data row's: every rank of a space group loads the same rows, and the
+train step bands them (``models/cod.py``). A checkpoint is whole on every
+rank, so a run resumes under any layout.
 Rank 0 writes the files (``log.jsonl``, checkpoints, visualizations, the
 visualization backends' files, ``ProfilerHook``'s trace), and every rank
 waits for a checkpoint to be written before it goes on. A signal stops
@@ -104,7 +108,9 @@ class Runner:
         if mode == "train":
             if "dataset" not in loader_cfg:
                 raise ValueError("the recipe has no train_dataloader.dataset")
-            self.train_loader = _loader(loader_cfg, True, seed, self.device, self.rank, self.world)
+            layout = space.current()
+            rows = (self.rank, self.world) if layout is None else (layout.data_index, layout.data)
+            self.train_loader = _loader(loader_cfg, True, seed, self.device, *rows)
         # built now when training will validate, so that a missing val folder
         # fails before the first step; a recipe with no val data trains
         # without; otherwise built by the first val()

@@ -82,7 +82,14 @@ def test_diffusion_planes_gradcheck_float64(k, h, w, steps):
     x = torch.rand(2, h, w, generator=g, dtype=torch.float64, requires_grad=True)
     raw = torch.rand(2, k * k, h, w, generator=g, dtype=torch.float64)
     wt = (raw / raw.sum(1, keepdim=True)).requires_grad_()
-    assert torch.autograd.gradcheck(lambda a, b: D.diffusion_planes(a, b, k, steps), (x, wt))
+    # thousands of tiny forwards: on one intra-op thread none of them waits
+    # on a thread pool that other processes keep busy
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.autograd.gradcheck(lambda a, b: D.diffusion_planes(a, b, k, steps), (x, wt))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_message_passing_gradient_reaches_the_regressor():

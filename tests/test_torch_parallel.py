@@ -15,7 +15,7 @@ batch:
   * each rank's rows against ``dgtd_tpu.data.loader.local_row_slices``; the
     loader's split; ``init_distributed``'s launch detection over the cases
     of ``tests/test_sharding.py::test_initialize_multihost_order_and_detection``;
-    ``-o dist.space=2`` refused; the CLI with ``dist.coordinator``.
+    DQnet's ``-o dist.space=2`` refused; the CLI with ``dist.coordinator``.
 
 Each rank is a process started by ``torch.multiprocessing.spawn``
 (``tests/torch_dist_workers.py``, torch only); the one-process runs are in
@@ -330,9 +330,12 @@ def test_single_process_starts_no_group(monkeypatch):
 
 
 def test_dist_space_above_one_raises(tmp_path):
+    """A model without a banded forward (DQnet, ROADMAP A13d) refuses
+    ``-o dist.space=2`` before anything is started or written."""
     cfg = os.path.join(W.ROOT, "configs", "synthetic_smoke.yml")
-    with pytest.raises(NotImplementedError, match="A13c"):
-        cli.main([cfg, "--device", "cpu", "-o", f"work_dir={tmp_path}", "-o", "dist.space=2"])
+    with pytest.raises(NotImplementedError, match="A13d"):
+        cli.main([cfg, "--device", "cpu", "-o", f"work_dir={tmp_path}", "-o", "dist.space=2",
+                  "-o", "model={'type': 'DQnet', 'variant': 'tiny'}"])
     assert not os.listdir(tmp_path)
 
 

@@ -14,7 +14,8 @@ on 2 and 4 gloo ranks of CPU processes:
     replicated at 2 or 4 ranks (``test_sharding.py``'s "every pyramid level
     divides");
   * ``-m val -o dist.space=2`` on 2 ranks against one process (``PERF.md``
-    §2's val bar, rtol 1e-4 / atol 1e-6); gradients refused.
+    §2's val bar, rtol 1e-4 / atol 1e-6).
+The train step under the layout is ``tests/test_torch_space_train.py``'s.
 
 The JAX weights come from the port's seeded init through
 ``dgtd_tpu.tools.convert_ckpt.convert_state_dict`` and back through
@@ -226,14 +227,6 @@ def test_val_under_space_2_matches_one_process(runs):
         for k, v in single.items():
             if k != "val_imgs_per_sec":
                 np.testing.assert_allclose(val[k], v, rtol=VAL_RTOL, atol=VAL_ATOL, err_msg=k)
-
-
-@pytest.mark.parametrize("world", WORLDS)
-def test_gradients_are_refused(runs, world):
-    """A banded primitive on a tensor that requires grad, and ``loss``
-    under a layout, raise NotImplementedError naming A13c."""
-    for res in runs[world]:
-        assert "A13c" in res["grad_refused"] and "A13c" in res["loss_refused"]
 
 
 def test_no_active_space_is_a_no_op():

@@ -1,13 +1,15 @@
 """Rank functions of the port's multi-process CPU tests
 (``tests/test_torch_parallel.py``, ``tests/test_torch_spatial.py``,
-``tests/test_torch_space.py``), started
+``tests/test_torch_space.py``, ``tests/test_torch_space_train.py``), started
 with ``torch.multiprocessing.spawn`` over gloo and a ``file://`` rendezvous.
 This module imports torch and the port only, so that a spawned rank
 imports no JAX; each rank writes what it computed under ``out_dir``.
 """
 
+import contextlib
 import os
 import signal
+import threading
 
 import torch
 import torch.distributed as dist
@@ -130,8 +132,8 @@ def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, ti
     the ``b0`` settings with ``weights`` on ``inputs`` under each (data,
     space) of ``layouts``, gathered whole; the layout counts of ``tiny384``
     (settings, seed) at 384² against one process; ``-m val`` under
-    ``dist.space=world`` when ``val_argv`` is given; the refusals of
-    gradients. Saves what it computed, rank by rank."""
+    ``dist.space=world`` when ``val_argv`` is given. Saves what it
+    computed, rank by rank."""
     start(rank, world, init_file)
     import numpy as np
 
@@ -164,17 +166,9 @@ def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, ti
                     want = torch.nn.Conv2d.forward(m, xf)
                 res[key].append({"case": (cin, cout, k, s, p, groups), "h": h, "got": y, "want": want,
                                  "counts": dict(sp.counts)})
-        try:
-            S.gather_rows(xb.clone().requires_grad_(), 16)
-        except NotImplementedError as e:
-            res["grad_refused"] = str(e)
-        model = cod(dtype=torch.float32, seed=None, **b0)
-        model.load_state_dict(torch.load(weights), strict=False)
-        img, dep = (torch.from_numpy(a) for a in inputs)
-        try:
-            model.loss(img, dep, dep)
-        except NotImplementedError as e:
-            res["loss_refused"] = str(e)
+    model = cod(dtype=torch.float32, seed=None, **b0)
+    model.load_state_dict(torch.load(weights), strict=False)
+    img, dep = (torch.from_numpy(a) for a in inputs)
     for data, spc in layouts:
         sp = S.make_space(data, spc)
         with S.active_space(sp):
@@ -199,3 +193,234 @@ def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, ti
         res["val"] = cli.main(list(val_argv))
     torch.save(res, os.path.join(out_dir, f"space_{rank}.pt"))
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- the train step under the data×space layout
+
+#: the adjoint cases of tests/test_torch_space_train.py: halos within and
+#: taller than a band (NCHW and NHWC), the all-gather, the spatial mean,
+#: every conv geometry of cod banded and the layouts it replicates, the
+#: stencil in plane and NHWC layout on halo'd bands
+ADJOINT_CASES = ([("halo", tb) for tb in SPACE_HALOS] + [("halo_nhwc", (2, 3)), ("gather", None), ("mean", None)]
+                 + [("conv", i) for i in range(len(SPACE_CONVS))]
+                 + [("conv_replicated", i) for i in range(len(SPACE_REPLICATED))]
+                 + [("planes", None), ("nhwc", None)])
+#: the stencil cases' kernel and steps (3 rows of halo: a band of 4 at 4 ranks holds it)
+ADJOINT_KERNEL, ADJOINT_STEPS = 7, 2
+
+
+def adjoint_inputs(i):
+    """Case ``i``'s whole inputs, seeded by ``i``: {"x", and "w" (the
+    stencil's normalized weights) or "conv" (a seeded ``Conv2d``) with the
+    level's height "h"}; H is dim -2 (NCHW), 1 (NHWC, planes)."""
+    from dgtd_tpu_torch.models.layers import Conv2d
+
+    g = torch.Generator().manual_seed(100 + i)
+    kind, arg = ADJOINT_CASES[i]
+    kk = ADJOINT_KERNEL ** 2
+    if kind == "halo_nhwc":
+        return {"x": torch.randn(2, 16, 5, 3, generator=g)}
+    if kind in ("halo", "gather", "mean"):
+        return {"x": torch.randn(2, 3, 16, 5, generator=g)}
+    if kind == "planes":
+        w = torch.rand(3, kk, 16, 7, generator=g)
+        return {"x": torch.randn(3, 16, 7, generator=g), "w": w / w.sum(1, keepdim=True)}
+    if kind == "nhwc":
+        w = torch.rand(2, 16, 7, 3, kk, generator=g)
+        return {"x": torch.randn(2, 16, 7, 3, generator=g), "w": w / w.sum(-1, keepdim=True)}
+    (cin, cout, k, s, p, groups), h = (SPACE_CONVS[arg], 64) if kind == "conv" else SPACE_REPLICATED[arg]
+    m = Conv2d(cin, cout, k, s, p, groups=groups)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=g))
+        m.bias.copy_(torch.randn(m.bias.shape, generator=g))
+    return {"x": torch.randn(2, cin, h, 11, generator=g), "conv": m, "h": h}
+
+
+def adjoint_cotangent(i, rank, shape):
+    """The cotangent rank ``rank`` applies to case ``i``'s output."""
+    return torch.randn(shape, generator=torch.Generator().manual_seed(10000 + 100 * i + rank))
+
+
+def _adjoint(S, spatial, i, rank):
+    """Case ``i`` on this rank's band under the active layout: the forward,
+    then the backward of <cotangent, output>; the bands' gradients and the
+    conv's parameter gradients."""
+    kind, arg = ADJOINT_CASES[i]
+    inp = adjoint_inputs(i)
+    dim = -2 if kind in ("halo", "gather", "mean") or kind.startswith("conv") else 1
+    x = S.band_rows(inp["x"], dim).clone().requires_grad_()
+    bands = [x]
+    if kind == "halo":
+        y = S.halo(x, *arg, 16)
+    elif kind == "halo_nhwc":
+        y = S.halo(x, *arg, 16, dim=1)
+    elif kind == "gather":
+        y = S.gather_rows(x, 16)
+    elif kind == "mean":
+        y = S.spatial_mean(x, 16)
+    elif kind.startswith("conv"):
+        y = inp["conv"](x, inp["h"])
+    else:
+        w = S.band_rows(inp["w"], 2 if kind == "planes" else 1).clone().requires_grad_()
+        bands.append(w)
+        fn = spatial.spatial_planes if kind == "planes" else spatial.spatial_nhwc
+        y = fn(x, w, ADJOINT_KERNEL, ADJOINT_STEPS, S.current().space_group)
+    (y * adjoint_cotangent(i, rank, y.shape)).sum().backward()
+    params = {n: p.grad for n, p in inp["conv"].named_parameters()} if "conv" in inp else {}
+    return {"grads": [b.grad for b in bands], "params": params, "out_shape": tuple(y.shape)}
+
+
+def _grab_optimizer(opt, model, keep):
+    """``opt`` that first copies the (averaged) gradients of step 0 into
+    ``keep``, as the train step hands them to the optimizer."""
+
+    class Grab:
+        def step(self, step):
+            if step == 0:
+                keep.update({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+            return opt.step(step)
+
+    return Grab()
+
+
+@contextlib.contextmanager
+def _backward_on_a_thread(on):
+    """With ``on``, ``train/state.py::backward`` runs ``loss.backward()`` on
+    a fresh thread, whose context holds no layout (as the thread of a CUDA
+    backward)."""
+    from dgtd_tpu_torch.train import state
+
+    if not on:
+        yield
+        return
+    backward = state.backward
+
+    def on_a_thread(loss):
+        err = []
+
+        def run():
+            try:
+                backward(loss)
+            except BaseException as e:  # noqa: BLE001 - re-raised on the caller's thread
+                err.append(e)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        if err:
+            raise err[0]
+
+    state.backward = on_a_thread
+    try:
+        yield
+    finally:
+        state.backward = backward
+
+
+def space_model(state, settings, extra=None):
+    """``cod`` (``extra``'s ``type`` instead, if it names one) of
+    ``settings`` and ``extra``'s other keys, fp32, seeded 0, then every
+    entry of ``state`` whose key and shape it shares (``baseline``'s
+    weight regressor is another shape than ``cod``'s)."""
+    from dgtd_tpu_torch import models  # noqa: F401  (registers the models)
+    from dgtd_tpu_torch.core.registry import MODELS
+
+    extra = dict(extra or {})
+    model = MODELS.get(extra.pop("type", "cod"))(dtype=torch.float32, seed=0, **{**settings, **extra})
+    own = model.state_dict()
+    model.load_state_dict({k: v for k, v in state.items() if k in own and own[k].shape == v.shape}, strict=False)
+    return model
+
+
+def space_train_leg(model, optim_cfg, batches, layout, on_a_thread=False):
+    """AdamW train steps (``train/state.py::train_step``) of ``model`` on
+    ``batches`` (whole global batches, NHWC numpy) under ``layout`` (None:
+    one process): each step's loss terms, the averaged step-0 gradients,
+    the state after the steps and the layout's counts of step 0.
+    ``on_a_thread``: the first batch only, its backward on a fresh
+    thread."""
+    from dgtd_tpu_torch.parallel import space as S
+    from dgtd_tpu_torch.parallel.dist import row_slice
+    from dgtd_tpu_torch.train.optim import Optimizer
+    from dgtd_tpu_torch.train.state import train_step
+
+    opt = Optimizer(model.named_parameters(), optim_cfg, 1, len(batches), frozen_prefixes=model.frozen_param_prefixes)
+    grads = {}
+    grab = _grab_optimizer(opt, model, grads)
+    losses, counts = [], None
+    for step, b in enumerate(batches[:1] if on_a_thread else batches):
+        rows = slice(None) if layout is None else row_slice(b["input"].shape[0], layout.data_index, layout.data)
+        batch = {k: torch.from_numpy(v[rows]) for k, v in b.items()}
+        if layout is not None:
+            layout.reset_counts()
+        with S.active_space(layout), _backward_on_a_thread(on_a_thread):
+            aux = train_step(model, grab, batch, step, seed=1)
+        losses.append({k: float(v) for k, v in aux.items()})
+        if step == 0 and layout is not None:
+            counts = dict(layout.counts)
+    return {"losses": losses, "grads": grads, "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "counts": counts}
+
+
+def space_train_rank(rank, world, init_file, out_dir, weights, settings, batches, optim_cfg, legs, cli_root=None):
+    """The train step under the data×space layout on rank ``rank`` of
+    ``world``: every case of :data:`ADJOINT_CASES` under a 1×world layout;
+    each leg of ``legs`` ((name, (data, space), model overrides,
+    on_a_thread)): :func:`space_model` of ``weights``, ``settings`` and the
+    overrides, :func:`space_train_leg` on ``batches``; with ``cli_root``
+    the tiny recipe through the train CLI data-parallel (2, 1) and its
+    epoch-1 checkpoint resumed under ``-o dist.space=world``. Saves what it
+    computed, rank by rank."""
+    start(rank, world, init_file)
+    from dgtd_tpu_torch.parallel import space as S
+    from dgtd_tpu_torch.parallel import spatial
+
+    res = {"adjoints": {}}
+    with S.active_space(S.make_space(1, world)):
+        for i in range(len(ADJOINT_CASES)):
+            res["adjoints"][i] = _adjoint(S, spatial, i, rank)
+    state = torch.load(weights)
+    for name, (data, spc), extra, on_a_thread in legs:
+        res[name] = space_train_leg(space_model(state, settings, extra), optim_cfg, batches, S.make_space(data, spc),
+                                    on_a_thread)
+    if cli_root:
+        res["cli"] = _cli_resume_leg(rank, world, cli_root)
+    torch.save(res, os.path.join(out_dir, f"space_train_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def train_argv(work_dir, extra=()):
+    """The train CLI's argv for the :func:`overrides` recipe on the CPU."""
+    argv = [os.path.join(ROOT, "configs", "synthetic_smoke.yml"), "--device", "cpu", "--fp32"]
+    for o in overrides(work_dir, extra):
+        argv += ["-o", o]
+    return argv
+
+
+def _cli_resume_leg(rank, world, root):
+    """The tiny recipe through the train CLI data-parallel on every rank
+    (dist.space=1), then its epoch-1 checkpoint resumed under
+    ``-o dist.space=world`` for epoch 2: for each run the state just
+    before its first step and at its end, its loss terms and its summary."""
+    from dgtd_tpu_torch.train import cli, loop
+
+    runs = []
+    train = loop.Runner.train
+
+    def recorded_train(self):
+        rec = _record_hook(None, root, rank)
+        self.hooks.append(rec)
+        run = {"before": {k: v.clone() for k, v in self.model.state_dict().items()}}
+        run["summary"] = train(self)
+        run.update(after={k: v.clone() for k, v in self.model.state_dict().items()}, losses=rec.losses)
+        runs.append(run)
+        return run["summary"]
+
+    loop.Runner.train = recorded_train
+    try:
+        cli.main(train_argv(os.path.join(root, f"dp{rank}")))
+        ckpt = os.path.join(root, "dp0", "epoch_1.pth")
+        cli.main(train_argv(os.path.join(root, f"space{rank}"), [f"dist.space={world}"]) + ["--resume", ckpt])
+    finally:
+        loop.Runner.train = train
+    return {"dp": runs[0], "space": runs[1]}
