@@ -114,7 +114,7 @@ Phases (any failure exits non-zero):
  15. ``cod`` at ``grid=64``: served through ``dgtd_tpu_torch.predict.main``
      with ``-o grid=64`` (bf16, batch 8; one cluster forward a batch) and
      trained through ``dgtd_tpu_torch.train.cli.main`` with
-     ``-o model.grid=64`` (3 steps at batch 10, bf16; one cluster forward and
+     ``-o model.grid=64`` (2 steps at batch 10, bf16; one cluster forward and
      one cluster backward a step), the launch counts read around each run;
      the cluster forward re-checked on the served stencil inputs; fp32 on the
      card held to the CPU on a small input; served ms per batch and train ms
@@ -165,19 +165,17 @@ Phases (any failure exits non-zero):
      host-bound timings);
  19. data parallelism, in processes of their own: full-width ``cod`` at the
      recipe (384², global batch 10, ``configs/cod.yml``'s optimizer), fp32
-     with TF32 off, 3 train steps in one process and on 2 gloo ranks of the
+     with TF32 off, 2 train steps in one process and on 2 gloo ranks of the
      card (5 rows each; NCCL refuses two ranks on one GPU) from the same
      seed and synthetic batches: each step's loss, the parameters and the
-     BatchNorm statistics after step 3 held to the one-process run, the
+     BatchNorm statistics after step 2 held to the one-process run, the
      ranks bit-equal, one fused stencil forward and one backward a step on
-     each rank; then 3 bf16 steps on the ranks, ms a step and the seconds
+     each rank; then 2 bf16 steps on the ranks, ms a step and the seconds
      of the gradient all-reduce;
  20. the train CLI under ``torchrun --standalone --nproc_per_node=1`` (one
      NCCL rank, ``configs/cod.yml``, 2 steps at batch 10 on synthetic
      data): its ``log.jsonl`` (the ``dist`` record, finite losses), its
-     ``epoch_1.pth`` loaded into the model; the CLI (in this process)
-     refuses ``-o dist.space=2`` for ``DQnet`` (no banded forward, ROADMAP
-     A13d) with the NotImplementedError;
+     ``epoch_1.pth`` loaded into the model;
  21. ``parallel/spatial.py::spatial_diffusion`` on 2 gloo ranks of the card
      (k = 7, 4 steps, fp32 and bf16) against the unsharded
      ``diffusion_planes`` on the same tensors: x (1,512,512,24), whose
@@ -242,7 +240,20 @@ Phases (any failure exits non-zero):
      forwards and 4 fused backwards a step a rank (a step each way on the
      halo'd band); the fused backward held to its plain version on a
      captured halo'd band; ms a step a rank, peak memory a rank, the
-     counts and bytes of the forward's and the backward's exchanges.
+     counts and bytes of the forward's and the backward's exchanges; then
+     its DQnet leg in the (1, 2) rank processes: full-width ``DQnet``
+     (PVTv2-b2, channel 32, cross_size 44, seed 0) against one process on
+     the same weights and inputs, served at 384², batch 8, in fp32 (within
+     SPACE_FP32_ATOL) and bf16 (within twice one process's own
+     bf16-vs-fp32 gap, at least BF16_ATOL), and trained SPACE_TRAIN_STEPS
+     fp32 AdamW steps at batch 10 (``configs/cod.yml``'s optimizer with the
+     lr key on DQnet's ``backbone``): the losses within
+     SPACE_TRAIN_LOSS_RTOL, then one fp32 step with cuDNN off: the step-1
+     gradients, with cuDNN on both sides and with ATen's native
+     convolutions on both, within twice DQnet's own one-process
+     cuDNN-vs-native spread of their scale (at least
+     SPACE_TRAIN_GRAD_RTOL), the ranks bit-equal, no stencil, NHWC or MSDA
+     launch; ms a batch and a step a rank, peak memory, counts and bytes.
 
 Prints a ``kernels`` JSON line (the counterparts of the JAX package's seven
 Pallas kernels, the plane stencil's forward and backward as the fused, the
@@ -270,6 +281,7 @@ non-zero before printing any result.
 import functools
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -338,6 +350,8 @@ TINY = dict(variant="tiny", convnext_dims=(8, 16, 32, 64), convnext_depths=(1, 1
 # full-width training run: 30 images, the recipe's batch 10, 2 epochs
 TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 30, 10, 2
 TRAIN_STEPS = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
+# phase 15: cod at grids 64 and 96 trained one epoch of GRID_TRAIN_N images
+GRID_TRAIN_N = 2 * TRAIN_BATCH
 TRAIN_VAL_N = 8  # val after epoch 2: 8 synthetic images at batch 1
 TRAIN_WORKERS = 8  # configs/cod.yml's train_dataloader.num_workers, in force in phase 8
 # phase 8b: tiny cod at the recipe's grid 12 through a train CLI subprocess,
@@ -388,12 +402,12 @@ REMAT_NOISE_FACTOR = 1.5
 # phase 19: data parallelism at full width, DP_RANKS gloo ranks on the one
 # card (NCCL refuses two ranks on one GPU) against one process, DP_STEPS
 # steps at the recipe's global batch, fp32 with TF32 off
-# (tests/test_torch_train.py's bar for 3 AdamW steps): the loss to 1e-4
+# (tests/test_torch_train.py's bars for AdamW steps): the loss to 1e-4
 # relative, the BatchNorm statistics and the parameters to rtol 1e-4 / atol
 # 1e-5, except a share of at most DP_FAR_SHARE of the parameters' entries that
 # Adam's first steps move by up to lr a step the other way on a near-zero
-# gradient (within 3·2·lr); then DP_STEPS bf16 steps on the ranks, timed
-DP_RANKS, DP_STEPS = 2, 3
+# gradient (within DP_STEPS·2·lr); then DP_STEPS bf16 steps on the ranks, timed
+DP_RANKS, DP_STEPS = 2, 2
 DP_LOSS_RTOL, DP_TOL, DP_FAR_SHARE = 1e-4, dict(rtol=1e-4, atol=1e-5), 1e-3
 DP_BN_KEYS = ("running_mean", "running_var", "num_batches_tracked")
 # phase 20: the train CLI under torchrun, one rank on NCCL, 2 steps
@@ -511,8 +525,17 @@ SPACE_TRAIN_STEPS = 2
 # under either (PERF.md §6)
 SPACE_TRAIN_LOSS_RTOL, SPACE_TRAIN_GRAD_RTOL = 1e-4, 1e-3
 CONV_NAMES = {"cudnn": "cuDNN's", "native": "ATen's native"}
+# the farthest parameters a gradient comparison lists
+GRAD_GAP_TOP = 3
 # the layout whose ranks also take a native fp32 step (both axes split)
 SPACE_NATIVE_LAYOUT = (2, 2)
+# phase 27's DQnet leg: full-width DQnet (b2, channel 32, cross_size 44,
+# seed 0) served at SIZE², batch BATCH, and trained SPACE_TRAIN_STEPS fp32
+# steps at TRAIN_BATCH under this layout; configs/cod.yml's lr keys name
+# cod's towers, so DQnet takes phase 17's backbone key
+DQNET_SPACE_LAYOUT = (1, 2)
+DQNET_RECIPE_OVERRIDES = ["model.type=DQnet",
+                          f"optim_wrapper.paramwise_cfg.custom_keys={VARIANT_LR_KEYS['DQnet']}"]
 
 
 _START = time.perf_counter()
@@ -1666,7 +1689,7 @@ def dp_phase(card):
             continue
         diff = (g - v).abs()
         worst_param = max(worst_param, float(diff.max()))
-        check(float(diff.max()) <= 3 * 2 * lr, f"{k}: {float(diff.max())} > 3·2·lr")
+        check(float(diff.max()) <= DP_STEPS * 2 * lr, f"{k}: {float(diff.max())} > {DP_STEPS}·2·lr")
         far += int((diff > DP_TOL["atol"] + DP_TOL["rtol"] * v.abs()).sum())
         total += v.numel()
     check(far <= DP_FAR_SHARE * total, f"{far} of {total} parameter entries outside rtol/atol")
@@ -1684,7 +1707,7 @@ def dp_phase(card):
             f"{', '.join(format(r['float32']['steps'][i]['loss'], '.7f') for r in ranks)}; ms one process "
             f"{s['ms']:.1f}, ranks {', '.join(format(r['float32']['steps'][i]['ms'], '.1f') for r in ranks)}")
     say(f"  after {DP_STEPS} steps: {far} of {total} parameter entries outside rtol 1e-4 / atol 1e-5 (limit "
-        f"{DP_FAR_SHARE:g} of them), largest parameter difference {worst_param:.3e} (limit {3 * 2 * lr:g}), "
+        f"{DP_FAR_SHARE:g} of them), largest parameter difference {worst_param:.3e} (limit {DP_STEPS * 2 * lr:g}), "
         f"BatchNorm statistics within tolerance (largest difference {worst_bn:.3e}); the ranks bit-equal; one "
         f"fused forward and one fused backward a step on each rank")
     for r, res in enumerate(ranks):
@@ -1698,18 +1721,14 @@ def dp_phase(card):
 def torchrun_phase(card):
     """Phase 20: ``torchrun --standalone --nproc_per_node=1 -m
     dgtd_tpu_torch.train configs/cod.yml`` (one rank, NCCL) for 2 steps on
-    synthetic data: its log, a checkpoint that loads into the model; then
-    the same CLI (in this process) refuses ``-o dist.space=2`` for
-    ``DQnet``, which has no banded forward (ROADMAP A13d), with the
-    NotImplementedError, before it starts a group or writes a file."""
+    synthetic data: its log, a checkpoint that loads into the model."""
     import torch
 
     from dgtd_tpu_torch.models.cod import cod
-    from dgtd_tpu_torch.train import cli
 
     steps = TORCHRUN_N // TRAIN_BATCH
     say(f"phase 20: the train CLI under torchrun --standalone --nproc_per_node=1 (NCCL): configs/cod.yml, "
-        f"{steps} steps at batch {TRAIN_BATCH}, {SIZE}², bf16; then DQnet with -o dist.space=2")
+        f"{steps} steps at batch {TRAIN_BATCH}, {SIZE}², bf16")
     t_phase = time.perf_counter()
     recipe = os.path.join(ROOT, "configs", "cod.yml")
     launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
@@ -1736,19 +1755,11 @@ def torchrun_phase(card):
         check(state["meta"] == {"epoch": 1, "iter": steps}, state["meta"])
         cod(seed=None).load_state_dict(state["state_dict"])
         del state
-        refused = None
-        try:
-            cli.main([recipe, "-o", f"work_dir={work}_space", "-o", "dist.space=2",
-                      "-o", "model={'type': 'DQnet'}"])
-        except NotImplementedError as e:
-            refused = str(e)
-        check(refused is not None and "A13d" in refused and not os.path.exists(f"{work}_space"),
-              f"DQnet under dist.space=2: {refused}")
     row = {"launcher": "torchrun --standalone --nproc_per_node=1", "backend": "nccl", "steps": steps,
-           "losses": losses, "run_s": run_s, "checkpoint_loaded": True, "dqnet_dist_space_2": "NotImplementedError",
+           "losses": losses, "run_s": run_s, "checkpoint_loaded": True,
            "phase_s": time.perf_counter() - t_phase, "card": card}
     say(f"  {steps} steps on one NCCL rank, losses {losses}, {run_s:.1f} s with the launcher; epoch_1.pth loads "
-        f"into cod; DQnet with -o dist.space=2 raises NotImplementedError (ROADMAP A13d) [{card}]")
+        f"into cod [{card}]")
     return row
 
 
@@ -2349,17 +2360,19 @@ def space_train_batches():
             for _ in range(SPACE_TRAIN_STEPS)]
 
 
-def space_train(model, weights, layout, name, grads_path=None, n_steps=SPACE_TRAIN_STEPS):
+def space_train(model, weights, layout, name, grads_path=None, n_steps=SPACE_TRAIN_STEPS, recipe_overrides=(),
+                nudge=False):
     """``n_steps`` train steps (``train/state.py::train_step``,
-    configs/cod.yml's optimizer) of ``model`` reloaded with seed 0's
-    ``weights``, in dtype ``name``, on this process's rows of
+    configs/cod.yml's optimizer under ``recipe_overrides``) of ``model``
+    reloaded with seed 0's ``weights``, in dtype ``name``, on this process's rows of
     :func:`space_train_batches` under ``layout`` (None: one process, every
     row). The stencil's launch counters and the layout's counts are reset
     just before each step and read just after. Returns each step's loss
     terms, ms, launches and counts, the peak memory, and whether every
     rank holds the same parameters and statistics bit for bit afterwards;
-    ``grads_path`` receives the step-1 gradients the optimizer is handed.
-    cuDNN is used as the caller has set it."""
+    ``grads_path`` receives the step-1 gradients the optimizer is handed;
+    ``nudge`` moves every input pixel one fp32 ulp up (how far rounding
+    alone moves the gradients). cuDNN is used as the caller has set it."""
     import torch
     import torch.distributed as dist
 
@@ -2372,7 +2385,7 @@ def space_train(model, weights, layout, name, grads_path=None, n_steps=SPACE_TRA
 
     model.load_state_dict(torch.load(weights))
     model.dtype = getattr(torch, name)
-    cfg = load_config(os.path.join(ROOT, "configs", "cod.yml"))
+    cfg = load_config(os.path.join(ROOT, "configs", "cod.yml"), list(recipe_overrides))
     opt = Optimizer(model.named_parameters(), cfg["optim_wrapper"], int(cfg["train_cfg"]["max_epochs"]),
                     SPACE_TRAIN_STEPS, frozen_prefixes=model.frozen_param_prefixes, model_cfg=cfg["model"])
 
@@ -2389,6 +2402,8 @@ def space_train(model, weights, layout, name, grads_path=None, n_steps=SPACE_TRA
     steps = []
     for step, b in enumerate(space_train_batches()[:n_steps]):
         batch = {k: v[rows].cuda() for k, v in b.items()}
+        if nudge:
+            batch["input"] = torch.nextafter(batch["input"], torch.full_like(batch["input"], math.inf))
         torch.cuda.synchronize()
         if layout is not None:
             dist.barrier()
@@ -2413,7 +2428,90 @@ def space_train(model, weights, layout, name, grads_path=None, n_steps=SPACE_TRA
             "rows": TRAIN_BATCH if layout is None else TRAIN_BATCH // layout.data}
 
 
-def space_rank(rank, world, init_file, out_dir, weights):
+def other_launches(D, A):
+    """The NHWC stencil's and the MSDA kernels' launch counters."""
+    return (D.NHWC_PLANE_LAUNCHES, D.NHWC_GRID_LAUNCHES, D.NHWC_LAUNCHES, A.LAUNCHES, A.DVALUE_LAUNCHES,
+            A.DLOCW_LAUNCHES)
+
+
+def reset_other_launches(D, A):
+    D.NHWC_PLANE_LAUNCHES = D.NHWC_GRID_LAUNCHES = D.NHWC_LAUNCHES = 0
+    A.LAUNCHES = A.DVALUE_LAUNCHES = A.DLOCW_LAUNCHES = 0
+
+
+def dqnet_space_leg(weights, layout, out_dir, save):
+    """Phase 27's DQnet leg in one process (``layout`` None) or on one rank
+    of DQNET_SPACE_LAYOUT: full-width ``DQnet`` with seed 0's ``weights``
+    served at SIZE², batch BATCH, fp32 (TF32 off) and bf16 (one warm-up
+    batch, then SPACE_ITERS timed ones, every stencil, NHWC and MSDA
+    counter and the layout's counts reset just before the first and read
+    just after it; peak memory; ``save``: the probability gathered whole
+    into ``out_dir``); then SPACE_TRAIN_STEPS fp32 train steps
+    (:func:`space_train`, every counter reset before and read after; with
+    ``save`` the step-1 gradients), then one fp32 step with cuDNN off
+    (ATen's native convolutions; in one process its gradients against the
+    cuDNN step's are the card's own spread); in one process also one cuDNN
+    step on inputs nudged one ulp up (:func:`space_train`'s ``nudge``)."""
+    import torch
+    import torch.distributed as dist
+
+    from dgtd_tpu_torch.models.dqnet import DQnet
+    from dgtd_tpu_torch.ops import diffusion as D
+    from dgtd_tpu_torch.ops import msda as A
+    from dgtd_tpu_torch.parallel import space as S
+
+    model = DQnet(seed=None)
+    model.load_state_dict(torch.load(weights))
+    model = model.cuda()
+    img, dep = space_inputs(SIZE, BATCH)
+    tag = "one" if layout is None else "space"
+    out = {}
+    for name in ("float32", "bfloat16"):
+        model.dtype = getattr(torch, name)
+        with S.active_space(layout):
+            model.predict(img, dep)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = []
+            for it in range(SPACE_ITERS):
+                if it == 0:
+                    reset_plane_launches(D)
+                    reset_other_launches(D, A)
+                    if layout is not None:
+                        layout.reset_counts()
+                if layout is not None:
+                    dist.barrier()
+                t0 = time.perf_counter()
+                prob = model.predict(img, dep)[0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if it == 0:
+                    launches = plane_launches(D) + other_launches(D, A)
+                    counts = None if layout is None else dict(layout.counts)
+            peak = torch.cuda.max_memory_allocated()
+            full = S.gather_map(prob, SIZE)
+        if save:
+            torch.save(full.float().cpu(), os.path.join(out_dir, f"dqnet_{tag}_{name}.pt"))
+        out[name] = {"band": list(prob.shape), "ms": ms, "launches": launches, "counts": counts,
+                     "peak_memory_bytes": peak, "peak_above_start_bytes": peak - base}
+        del prob, full
+    del img, dep
+    torch.cuda.empty_cache()
+    runs = [("train", True, False), ("native", False, False)] + ([("nudged", True, True)] if layout is None else [])
+    for key, cudnn, nudge in runs:
+        grads = os.path.join(out_dir, f"dqnet_{tag}_{key}_grads.pt") if save else None
+        reset_other_launches(D, A)
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            out[key] = space_train(model, weights, layout, "float32", grads, 1 if key != "train" else SPACE_TRAIN_STEPS,
+                                   DQNET_RECIPE_OVERRIDES, nudge)
+        out[key]["other_launches"] = other_launches(D, A)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def space_rank(rank, world, init_file, out_dir, weights, dqnet_weights):
     """One rank of phase 27: full-width ``cod`` (seed 0's ``weights``) served under each
     SPACE_CASES layout of ``world`` ranks, fp32 (TF32 off) and bf16: one
     warm-up batch, then SPACE_ITERS timed ones with the launch counters and
@@ -2425,7 +2523,8 @@ def space_rank(rank, world, init_file, out_dir, weights):
     and bf16, then at SPACE_NATIVE_LAYOUT one fp32 step with cuDNN off;
     rank 0 saves the fp32 step-1 gradients), and rank 0 holds the
     fused backward on the first captured halo'd band to its plain
-    version."""
+    version; on DQNET_SPACE_LAYOUT's ranks, the DQnet leg
+    (:func:`dqnet_space_leg`)."""
     import torch
     import torch.distributed as dist
 
@@ -2516,6 +2615,10 @@ def space_rank(rank, world, init_file, out_dir, weights):
                 out[f"train_{data}x{spc}_native"] = space_train(model, weights, layout, "float32", grads, n_steps=1)
             model.zero_grad(set_to_none=True)
             torch.cuda.empty_cache()
+    if world == DQNET_SPACE_LAYOUT[0] * DQNET_SPACE_LAYOUT[1]:
+        del model
+        torch.cuda.empty_cache()
+        out["dqnet"] = dqnet_space_leg(dqnet_weights, S.make_space(*DQNET_SPACE_LAYOUT), out_dir, rank == 0)
     if rank == 0:
         for dtype, (x, w, kernel, steps) in grabbed.items():
             route = D.plane_route(*x.shape[1:], kernel, dtype, steps)
@@ -2544,12 +2647,13 @@ def space_phase(D, card):
     import torch.multiprocessing as mp
 
     from dgtd_tpu_torch.models.cod import cod
+    from dgtd_tpu_torch.models.dqnet import DQnet
 
     say("phase 27: cod served under the data×space layout (H banded over the space ranks), gloo ranks of the "
         "card vs one process, fp32 (TF32 off) and bf16: " + ", ".join(
             f"{size}² batch {batch} at (data, space) = {layout}" for size, batch, layout in SPACE_CASES)
         + f"; then trained {SPACE_TRAIN_STEPS} steps at {SIZE}², batch {TRAIN_BATCH}, at (data, space) = "
-        + " and ".join(map(str, SPACE_TRAIN_LAYOUTS)))
+        + " and ".join(map(str, SPACE_TRAIN_LAYOUTS)) + f"; then DQnet served and trained at {DQNET_SPACE_LAYOUT}")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -2594,12 +2698,19 @@ def space_phase(D, card):
     model.zero_grad(set_to_none=True)
     del model
     torch.cuda.empty_cache()
+    dq = DQnet(seed=0)
+    dqnet_bytes = sum(t.numel() * t.element_size() for t in dq.state_dict().values())
+    dqnet_weights = os.path.join(tmp.name, "dqnet_seed0.pt")
+    torch.save(dq.state_dict(), dqnet_weights)
+    del dq
+    single_dq = dqnet_space_leg(dqnet_weights, None, tmp.name, True)
+    torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     with tmp:
         for world in sorted({d * s for _, _, (d, s) in SPACE_CASES}):
             out = os.path.join(tmp.name, f"w{world}")
             os.makedirs(out)
-            mp.spawn(space_rank, args=(world, os.path.join(out, "init"), out, weights), nprocs=world)
+            mp.spawn(space_rank, args=(world, os.path.join(out, "init"), out, weights, dqnet_weights), nprocs=world)
             ranks[world] = [read_json(os.path.join(out, f"space_{r}.json")) for r in range(world)]
             for i, (size, batch, (data, spc)) in enumerate(SPACE_CASES):
                 if data * spc == world:
@@ -2607,6 +2718,7 @@ def space_phase(D, card):
                         single[(i, name)] = torch.load(os.path.join(out, f"space_{i}_{name}.pt")).float()
         band_checks = {k: v for k, v in ranks[min(ranks)][0].items() if k.startswith("band_check")}
         train = space_train_checks(tmp.name, ranks, single_train, card)
+        dqnet = dqnet_space_checks(tmp.name, ranks, single_dq, dqnet_bytes, card)
     cases = {}
     for i, (size, batch, (data, spc)) in enumerate(SPACE_CASES):
         world = data * spc
@@ -2650,8 +2762,39 @@ def space_phase(D, card):
     check({"band_check_bwd_torch.float32", "band_check_bwd_torch.bfloat16"} <= set(band_checks),
           f"no captured backward band: {sorted(band_checks)}")
     return {"model": "cod, full width (PVTv2-b2, ConvNeXt-B), seed 0", "backend": "gloo (ranks share the card)",
-            "cases": cases, "train": train, "band_checks": band_checks, "phase_s": time.perf_counter() - t_phase,
-            "card": card}
+            "cases": cases, "train": train, "band_checks": band_checks, "dqnet": dqnet,
+            "phase_s": time.perf_counter() - t_phase, "card": card}
+
+
+def grad_gap(got, ref_grads):
+    """How far the step-1 gradients ``got`` lie from ``ref_grads``: the
+    largest difference over its parameter's scale (a floor of 1e-4 of the
+    largest gradient) and that parameter, its difference and its scale over
+    the largest gradient, the relative L2 norm of every gradient's
+    difference, and the GRAD_GAP_TOP farthest parameters with their
+    differences over their scales."""
+    check(set(got) == set(ref_grads), "train: the parameters with a gradient differ")
+    scale = max(float(g.abs().max()) for g in ref_grads.values())
+    each = sorted(((float((got[n] - ref).abs().max()) / max(float(ref.abs().max()), 1e-4 * scale), n)
+                   for n, ref in ref_grads.items()), reverse=True)
+    to_scale, name = each[0]
+    ref = ref_grads[name]
+    num = sum(float(((got[n] - r).double() ** 2).sum()) for n, r in ref_grads.items())
+    den = sum(float((r.double() ** 2).sum()) for r in ref_grads.values())
+    return {"to_scale": to_scale, "param": name,
+            "param_diff_to_largest": float((got[name] - ref).abs().max()) / scale,
+            "param_scale_to_largest": float(ref.abs().max()) / scale, "rel_l2": (num / den) ** 0.5,
+            "top": [[n, d] for d, n in each[:GRAD_GAP_TOP]]}
+
+
+def top_text(gap):
+    return ", ".join(f"{n} {d:.3e}" for n, d in gap["top"])
+
+
+def gap_text(gap):
+    return (f"{gap['to_scale']:.3e} of their scale at the most ({gap['param']}, whose gradient is "
+            f"{gap['param_scale_to_largest']:.2e} of the largest and differs by {gap['param_diff_to_largest']:.2e} "
+            f"of it); relative L2 {gap['rel_l2']:.3e}")
 
 
 def space_train_checks(tmp, ranks, single, card):
@@ -2667,27 +2810,6 @@ def space_train_checks(tmp, ranks, single, card):
 
     refs = {"cudnn": torch.load(os.path.join(tmp, "space_train_grads_1.pt")),
             "native": torch.load(os.path.join(tmp, "space_train_grads_native.pt"))}
-
-    def grad_gap(got, ref_grads):
-        """How far ``got`` lies from ``ref_grads``: the largest difference over
-        its parameter's scale (a floor of 1e-4 of the largest gradient) and
-        that parameter, its difference and its scale over the largest
-        gradient, and the relative L2 norm of every gradient's difference."""
-        check(set(got) == set(ref_grads), "train: the parameters with a gradient differ")
-        scale = max(float(g.abs().max()) for g in ref_grads.values())
-        to_scale, name = max((float((got[n] - ref).abs().max()) / max(float(ref.abs().max()), 1e-4 * scale), n)
-                             for n, ref in ref_grads.items())
-        ref = ref_grads[name]
-        num = sum(float(((got[n] - r).double() ** 2).sum()) for n, r in ref_grads.items())
-        den = sum(float((r.double() ** 2).sum()) for r in ref_grads.values())
-        return {"to_scale": to_scale, "param": name,
-                "param_diff_to_largest": float((got[name] - ref).abs().max()) / scale,
-                "param_scale_to_largest": float(ref.abs().max()) / scale, "rel_l2": (num / den) ** 0.5}
-
-    def gap_text(gap):
-        return (f"{gap['to_scale']:.3e} of their scale at the most ({gap['param']}, whose gradient is "
-                f"{gap['param_scale_to_largest']:.2e} of the largest and differs by {gap['param_diff_to_largest']:.2e} "
-                f"of it); relative L2 {gap['rel_l2']:.3e}")
 
     spread = grad_gap(refs["native"], refs["cudnn"])
     grad_bar = max(SPACE_TRAIN_GRAD_RTOL, 2 * spread["to_scale"])
@@ -2747,6 +2869,108 @@ def space_train_checks(tmp, ranks, single, card):
                 f"{per_rank[0]['steps'][0]['launches']}; the ranks bit-equal [{card}]")
         rows[key] = row
     return rows
+
+
+def dqnet_space_checks(tmp, ranks, single, model_bytes, card):
+    """Phase 27's DQnet leg against one process: the served fp32
+    probability within SPACE_FP32_ATOL and the bf16 one within twice one
+    process's own bf16-vs-fp32 gap (at least BF16_ATOL); the fp32 losses of
+    every step within SPACE_TRAIN_LOSS_RTOL; rank 0's step-1 gradients
+    (the world's average), with cuDNN on both sides and with ATen's native
+    convolutions on both, within twice one process's own cuDNN-vs-native
+    spread of their scale (at least SPACE_TRAIN_GRAD_RTOL); the ranks
+    bit-equal; no stencil, NHWC or MSDA launch anywhere. Prints and
+    returns the ``space`` line's ``dqnet`` entry."""
+    import torch
+
+    data, spc = DQNET_SPACE_LAYOUT
+    world = data * spc
+    per_rank = [r["dqnet"] for r in ranks[world]]
+    none = NO_LAUNCHES + (0,) * 6
+    for who, run in [("one process", single)] + [(f"rank {r}", pr) for r, pr in enumerate(per_rank)]:
+        for name in ("float32", "bfloat16"):
+            check(tuple(run[name]["launches"]) == none, f"DQnet served {name} {who}: launches {run[name]['launches']}")
+        for key in ("train", "native"):
+            check(all(tuple(st["launches"]) == NO_LAUNCHES for st in run[key]["steps"])
+                  and tuple(run[key]["other_launches"]) == (0,) * 6,
+                  f"DQnet {key} {who}: launches {[st['launches'] for st in run[key]['steps']]} "
+                  f"{run[key]['other_launches']}")
+    ref = {name: torch.load(os.path.join(tmp, f"dqnet_one_{name}.pt")) for name in ("float32", "bfloat16")}
+    gap = (ref["bfloat16"] - ref["float32"]).abs()
+    row = {"model": "DQnet, full width (PVTv2-b2, channel 32, cross_size 44), seed 0", "data": data, "space": spc,
+           "ranks": world, "size": SIZE, "batch": BATCH, "model_bytes": model_bytes,
+           "bf16_vs_fp32_gap": {"max": float(gap.max()), "mean_abs": float(gap.mean())}}
+    for name in ("float32", "bfloat16"):
+        got = torch.load(os.path.join(tmp, f"w{world}", f"dqnet_space_{name}.pt"))
+        check(tuple(got.shape) == tuple(ref[name].shape) and bool(torch.isfinite(got).all()),
+              f"DQnet space {name}: gathered {tuple(got.shape)}")
+        diff = (got - ref[name]).abs()
+        err = float(diff.max())
+        bar = SPACE_FP32_ATOL if name == "float32" else max(BF16_ATOL, 2 * float(gap.max()))
+        c = per_rank[0][name]["counts"]
+        check(c["banded"] > 0 and c["halos"] > 0 and c["full"] > 0, f"DQnet {name}: counts {c}")
+        row[name] = {"max_abs_err": err, "mean_abs_err": float(diff.mean()), "limit": bar,
+                     "one_process": single[name], "ranks": [pr[name] for pr in per_rank]}
+        say(f"  DQnet {SIZE}² batch {BATCH}, (data, space) = {DQNET_SPACE_LAYOUT}, {name}: max_abs_err {err:.3e} "
+            f"(limit {bar:.3e}); band {per_rank[0][name]['band']}; ms a batch a rank "
+            f"{[[round(t, 1) for t in pr[name]['ms']] for pr in per_rank]} vs one process "
+            f"{[round(t, 1) for t in single[name]['ms']]}; peak memory of a batch above the weights and inputs a "
+            f"rank {[round(pr[name]['peak_above_start_bytes'] / 2**30, 3) for pr in per_rank]} GiB vs one process "
+            f"{single[name]['peak_above_start_bytes'] / 2**30:.3f} (the weights {model_bytes / 2**30:.3f}); layers "
+            f"banded {c['banded']}, replicated {c['replicated']}, whole-level ops {c['full']}; gathers "
+            f"{c['gathers']} ({c['gather_bytes'] / 1e6:.1f} MB), halo exchanges {c['halos']} "
+            f"({c['halo_bytes'] / 1e6:.2f} MB), reductions {c['reductions']}; no stencil, NHWC or MSDA launch [{card}]")
+        check(err <= bar, f"DQnet space {name}: {err:.3e} > {bar:.3e}")
+    one, one_native = single["train"], single["native"]
+    refs = {k: torch.load(os.path.join(tmp, f"dqnet_one_{k}_grads.pt")) for k in ("train", "native", "nudged")}
+    spread = grad_gap(refs["native"], refs["train"])
+    grad_bar = max(SPACE_TRAIN_GRAD_RTOL, 2 * spread["to_scale"])
+    say(f"  DQnet train: one process's fp32 step-1 gradients, cuDNN vs ATen's native convolutions: "
+        f"{gap_text(spread)}; farthest {top_text(spread)}; the bar {grad_bar:.3e}")
+    nudged = grad_gap(refs["nudged"], refs["train"])
+    say(f"  DQnet train: one process's cuDNN step-1 gradients, every input pixel one ulp up vs as it was: "
+        f"{gap_text(nudged)}; farthest {top_text(nudged)}")
+    gaps = {}
+    for key, conv in (("train", "cudnn"), ("native", "native")):
+        gaps[conv] = grad_gap(torch.load(os.path.join(tmp, f"w{world}", f"dqnet_space_{key}_grads.pt")), refs[key])
+        say(f"  DQnet train {data}x{spc}: step-1 gradients with {CONV_NAMES[conv]} convolutions on both sides: "
+            f"{gap_text(gaps[conv])}; farthest {top_text(gaps[conv])} (bar {grad_bar:.3e})")
+        check(gaps[conv]["to_scale"] <= grad_bar, f"DQnet train {conv}: gradient {gaps[conv]['param']} at "
+                                                  f"{gaps[conv]['to_scale']:.3e} of its scale (bar {grad_bar:.3e})")
+    errs = []
+    for i, st in enumerate(one["steps"]):
+        want = st["losses"]["loss"]
+        for r, pr in enumerate(per_rank):
+            got = pr["train"]["steps"][i]["losses"]["loss"]
+            errs.append(abs(got - want))
+            check(errs[-1] <= SPACE_TRAIN_LOSS_RTOL * abs(want),
+                  f"DQnet train step {i + 1} rank {r}: loss {got} vs one process {want}")
+    for r, pr in enumerate(per_rank):
+        check(pr["train"]["bit_equal"], f"DQnet train: rank {r}'s parameters or statistics differ")
+    c = per_rank[0]["train"]["steps"][0]["counts"]
+    check(c["banded"] > 0 and c["halos"] > 0 and c["grad_exchanges"] > 0, f"DQnet train: counts {c}")
+    row["train"] = {"max_loss_err": max(errs), "grad_gap_cudnn": gaps["cudnn"], "grad_gap_native": gaps["native"],
+                    "one_process_cudnn_vs_native": spread, "one_process_nudged": nudged, "grad_bar": grad_bar,
+                    "one_process": one,
+                    "one_process_native": one_native, "ranks": [pr["train"] for pr in per_rank],
+                    "ranks_native": [pr["native"] for pr in per_rank]}
+    say(f"  DQnet train {data}x{spc} float32: {SPACE_TRAIN_STEPS} steps at batch {TRAIN_BATCH}, losses "
+        f"{[round(st['losses']['loss'], 6) for st in per_rank[0]['train']['steps']]} vs one process "
+        f"{[round(st['losses']['loss'], 6) for st in one['steps']]} (largest difference {max(errs):.3e}); step-1 "
+        f"gradients {gaps['cudnn']['to_scale']:.3e} of their scale at the most with cuDNN and "
+        f"{gaps['native']['to_scale']:.3e} with native convolutions (the spread {spread['to_scale']:.3e}, bar "
+        f"{grad_bar:.3e}); ms a step a rank "
+        f"{[[round(st['ms'], 1) for st in pr['train']['steps']] for pr in per_rank]} vs one process "
+        f"{[round(st['ms'], 1) for st in one['steps']]}; peak memory a rank "
+        f"{[round(pr['train']['peak_memory_bytes'] / 2**30, 2) for pr in per_rank]} GiB vs one process "
+        f"{one['peak_memory_bytes'] / 2**30:.2f} (the native step: "
+        f"{[round(pr['native']['peak_memory_bytes'] / 2**30, 2) for pr in per_rank]} vs "
+        f"{one_native['peak_memory_bytes'] / 2**30:.2f}); a step: banded {c['banded']}, replicated {c['replicated']}, "
+        f"whole-level ops {c['full']}; forward gathers {c['gathers']} ({c['gather_bytes'] / 1e6:.1f} MB), halos "
+        f"{c['halos']} ({c['halo_bytes'] / 1e6:.1f} MB), reductions {c['reductions']}; backward exchanges "
+        f"{c['grad_exchanges']} ({c['grad_bytes'] / 1e6:.1f} MB); no stencil, NHWC or MSDA launch; the ranks "
+        f"bit-equal [{card}]")
+    return row
 
 
 def main():
@@ -3705,7 +3929,7 @@ def run(keep):
     # ---- 15. cod at grid 64: served and trained through the CLIs ----
     grid = GRID64[0]
     say(f"phase 15: cod at grid {grid} (the paper's scale{grid} ablation): served through predict.main -o grid={grid} "
-        f"(bf16, batch {BATCH}), trained through train.cli.main -o model.grid={grid} ({TRAIN_N} images, batch "
+        f"(bf16, batch {BATCH}), trained through train.cli.main -o model.grid={grid} ({GRID_TRAIN_N} images, batch "
         f"{TRAIN_BATCH}, 1 epoch, bf16)")
     grab64 = {}
 
@@ -3767,7 +3991,7 @@ def run(keep):
         overrides64 = [
             f"work_dir={work}", "train_cfg.max_epochs=1", "train_cfg.val_interval=0",
             f"train_dataloader.batch_size={TRAIN_BATCH}",
-            f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {TRAIN_N}, 'size': {SIZE}}}",
+            f"train_dataloader.dataset={{'type': 'SyntheticSODDataset', 'n': {GRID_TRAIN_N}, 'size': {SIZE}}}",
             "default_hooks.logger.interval=1", f"model.grid={grid}",
         ]
         MD.diffusion_planes = spy_planes64
@@ -3778,7 +4002,7 @@ def run(keep):
             train64_launches = plane_launches(D)
         finally:
             MD.diffusion_planes = planes_unspied
-        steps64 = TRAIN_N // TRAIN_BATCH
+        steps64 = GRID_TRAIN_N // TRAIN_BATCH
         say(f"  trained: {trained64['steps']} steps in {trained64['loop_s']:.3f} s; stencil launches ({LAUNCH_NAMES}) "
             f"{train64_launches}")
         check(trained64["steps"] == steps64, trained64)
@@ -3831,7 +4055,7 @@ def run(keep):
     # cod at grid 96: the tiled kernels' main path (a plane beyond a cluster's reach)
     grid96 = LARGE[0]
     say(f"  cod at grid {grid96}: served through predict.main -o grid={grid96} (bf16, batch {BATCH}), trained through "
-        f"train.cli.main -o model.grid={grid96} ({TRAIN_N} images, batch {TRAIN_BATCH}, 1 epoch, bf16)")
+        f"train.cli.main -o model.grid={grid96} ({GRID_TRAIN_N} images, batch {TRAIN_BATCH}, 1 epoch, bf16)")
     grab96 = {}
 
     def capture96(module, inputs, output):

@@ -15,8 +15,8 @@ that band; ``space.gather_map`` joins the ranks' results into the whole
 map. ``loss`` under a layout takes this rank's rows (what the loader gives
 rank (d, s): data row d's rows of the global batch), runs the train
 forward on its band of them, and returns its data row's loss, the same on
-every space rank of the row (``parallel/space.py``'s convention). A model
-without ``supports_space`` (``DQnet``) raises under a layout (ROADMAP A13d).
+every space rank of the row (``parallel/space.py``'s convention). Every
+registered model runs under a layout.
 """
 
 from __future__ import annotations
@@ -46,8 +46,9 @@ def _nhwc(x):
 
 class SegModel(nn.Module):
     """The modes shared by the registered models. A subclass builds its
-    modules, calls :meth:`finish_init`, and defines ``forward(image, depth)``
-    on NCHW tensors -> (texture or None, [stage logits], second logits).
+    modules, calls :meth:`finish_init`, and defines ``forward(image, depth,
+    H=None)`` on NCHW tensors -> (texture or None, [stage logits], second
+    logits); ``H`` is the image's global height under a data×space layout.
 
     ``dtype`` is the compute policy: bfloat16 runs the forward under
     ``torch.autocast`` (LayerNorm statistics, softmax, BatchNorm statistics,
@@ -60,9 +61,6 @@ class SegModel(nn.Module):
     returns a texture."""
 
     use_ssim = True
-    #: whether the forward takes the image's global height and runs on a
-    #: band under a data×space layout
-    supports_space = False
 
     def finish_init(self, dtype: torch.dtype, seed: Optional[int]) -> None:
         if dtype not in (torch.float32, torch.bfloat16):
@@ -102,8 +100,6 @@ class SegModel(nn.Module):
         inputs are this rank's rows, banded here; the loss is their data
         row's."""
         sp = space.current()
-        if sp is not None:
-            self._refuse_space()
         if generator is None and any(isinstance(m, DropPath) and m.rate for m in self.modules()):
             raise ValueError(f"{type(self).__name__}.loss needs a generator for DropPath (or drop-path rates of 0)")
         h = image.shape[1]
@@ -136,7 +132,6 @@ class SegModel(nn.Module):
         with self._mode(False), self._autocast(image.device.type):
             if space.current() is None:
                 return self(_nchw(image), _nchw(depth)), h
-            self._refuse_space()
             sp = space.current()
             rows = row_slice(image.shape[0], sp.data_index, sp.data)
             image, depth = space.band_rows(image[rows], 1), space.band_rows(depth[rows], 1)
@@ -145,11 +140,6 @@ class SegModel(nn.Module):
     def texture_height(self, h: int) -> int:
         """The global height of the texture for an image of ``h`` rows."""
         return h
-
-    def _refuse_space(self) -> None:
-        if not self.supports_space:
-            raise NotImplementedError(f"{type(self).__name__} does not run under a data×space layout: its "
-                                      "banded forward is not ported yet (ROADMAP A13d)")
 
     @torch.inference_mode()
     def tensor(self, image, depth):
@@ -185,7 +175,6 @@ class cod(SegModel):
     accepted and unused, as in the reference."""
 
     use_ssim = True
-    supports_space = True
     #: this model's HitNet settings; HitNet's defaults are ``cod``'s
     net_kwargs: Dict[str, Any] = {}
 

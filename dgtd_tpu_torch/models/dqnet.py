@@ -15,6 +15,18 @@ JAX package, this restores the evident intent,
 ``prompt_i = shared_mlp(gelu(lightweight_mlp_i(depth_adapter(depth))))``.
 Keys follow the JAX package's tree: ``backbone`` (PVTv2) and
 ``depth_generator{s}`` at top level, the decoder under HitNet's names.
+
+Under a data×space layout (``parallel/space.py``) the image, the depth and
+every activation of the backbone and the decoder are this rank's band, as
+in ``HitNet``. The prompt grid is a replicated level instead: each rank
+gathers the 1-channel depth once, computes the cue grid and every prompt
+whole (pointwise Linears on ``cross_size``² tokens), and each block takes
+its band's rows of its prompt resized to the stage
+(``utils/image.py::resize_to_band``): no exchange per prompt, the same
+rows and arithmetic as the whole forward. So ``depth_generator{s}``'s
+gradients reach a rank only through its own band's rows, as a layer that
+``space.conv_rows`` replicates (gather, compute whole, band) does, and the
+train step's average over the world counts them once.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.registry import MODELS
-from ..utils.image import resize_bilinear
+from ..utils.image import resize_gathered
 from .cod import SegModel
 from .hitnet import HitNetDecoder
 from .layers import linear
@@ -63,11 +75,16 @@ class DQnetNet(HitNetDecoder):
         self.backbone = PVTv2(variant)
         self.build_decoder(dims, channel, refine_iters=4)
 
-    def forward(self, image, depth):
+    def forward(self, image, depth, H=None):
+        """``H``: the image's global height under a data×space layout, where
+        image and depth are this rank's bands and so are the outputs; the
+        cue grid and the prompts are whole on every rank."""
+        H = image.shape[-2] if H is None else H
         g = self.cross_size
-        cues = resize_bilinear(depth, (g, g)).permute(0, 2, 3, 1)
+        cues = resize_gathered(depth, (g, g), in_h=H).permute(0, 2, 3, 1)
         prompts = [[p.permute(0, 3, 1, 2) for p in getattr(self, f"depth_generator{s}")(cues)] for s in range(4)]
-        stage_preds, pred2 = self.decode(image, *self.backbone(image, prompts))
+        outs = self.backbone(image, prompts, H, whole_prompts=True)
+        stage_preds, pred2 = self.decode(image, *outs, heights=[H, *self.backbone.heights(H)])
         return None, stage_preds, pred2
 
 

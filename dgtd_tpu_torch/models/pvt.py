@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import space
-from ..utils.image import resize_bilinear
+from ..utils.image import resize_bilinear, resize_to_band
 from .layers import DropPath, LayerNorm, checkpointed, conv2d, linear
 
 PVT_V2_CONFIGS = {
@@ -148,7 +148,9 @@ class PVTv2(nn.Module):
 
     Returns the 4 stage maps (NCHW, strides 4/8/16/32). Under a data×space
     layout ``H`` is the input's global height and ``prompt_h`` the prompts'
-    (:meth:`heights` gives the stages')."""
+    (:meth:`heights` gives the stages'); with ``whole_prompts`` every rank
+    holds the prompts whole (DQnet's), and each block takes its band's rows
+    of the prompt resized to its stage."""
 
     def __init__(self, variant="b2", prompt_encoder: Optional[nn.Module] = None,
                  prompt_decoder: Optional[nn.Module] = None, drop_path_rate: float = 0.1, remat: bool = False):
@@ -178,14 +180,17 @@ class PVTv2(nn.Module):
             out.append(H)
         return out
 
-    def forward(self, x, prompts: Optional[List[List[torch.Tensor]]] = None, H=None, prompt_h=None):
+    def forward(self, x, prompts: Optional[List[List[torch.Tensor]]] = None, H=None, prompt_h=None,
+                whole_prompts: bool = False):
         remat = self.remat and self.training and torch.is_grad_enabled()
         outs = []
         for s in range(4):
             x, h, w, H = getattr(self, f"patch_embed{s + 1}")(x, H)
             for i, blk in enumerate(getattr(self, f"block{s + 1}")):
                 if prompts is not None:
-                    p = resize_bilinear(prompts[s][i], (H, w), exact=False, in_h=prompt_h)
+                    p = prompts[s][i]
+                    p = (resize_to_band(p, (H, w)) if whole_prompts
+                         else resize_bilinear(p, (H, w), exact=False, in_h=prompt_h))
                     x = x + p.flatten(2).transpose(1, 2).to(x.dtype)
                 x = checkpointed(blk, x, h, w, H) if remat else blk(x, h, w, H)
             x = getattr(self, f"norm{s + 1}")(x)

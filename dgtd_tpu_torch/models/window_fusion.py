@@ -7,6 +7,14 @@ The modules take NCHW maps, as the port's other modules do; the window
 helpers work on (B, H, W, C), as Swin's do. The attention is the plain
 ``softmax(q·kᵀ + bias)·v``, the softmax in fp32 (the JAX version is jnp,
 not a Pallas kernel).
+
+Under a data×space layout (``parallel/space.py``) x and y are this rank's
+bands of maps of global height ``h``, and so are the outputs; each module
+computes the whole map's answer, as the JAX package's traced under a mesh
+does. ``WindowFusion`` runs on the gathered maps, so that its padding and
+windows are the whole map's, and keeps its band of the result.
+``NewWindowFusion`` keeps its queries on the band and gathers every key and
+value.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import space
 from .layers import linear
 
 
@@ -59,8 +68,9 @@ def rel_pos_spatial_bias(q: torch.Tensor, q_shape: Tuple[int, int], k_shape: Tup
 class WindowFusion(nn.Module):
     """Windowed cross-attention with relative position bias: ``x`` gives the
     queries, ``y`` the keys and values; maps are zero-padded at the bottom
-    and right to whole windows. forward(x, y) NCHW (B, dim, H, W) ->
-    (attended·y + y, sigmoid(attended))."""
+    and right to whole windows. forward(x, y, h=None) NCHW (B, dim, H, W)
+    -> (attended·y + y, sigmoid(attended)); ``h``: the maps' global height
+    under a data×space layout."""
 
     def __init__(self, dim: int, window: int = 10, num_heads: int = 8, qkv_bias: bool = True):
         super().__init__()
@@ -73,7 +83,16 @@ class WindowFusion(nn.Module):
         self.kv = linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = linear(dim, dim)
 
-    def forward(self, x, y):
+    def forward(self, x, y, h=None):
+        if not space.split():
+            return self._fuse(x, y)
+        if h is None:
+            raise ValueError("under a data×space layout WindowFusion needs the maps' global height")
+        space.count("replicated")
+        out, gate = self._fuse(space.gather_rows(x, h), space.gather_rows(y, h))
+        return space.band_rows(out), space.band_rows(gate)
+
+    def _fuse(self, x, y):
         b, c, h, w = x.shape
         win, nh = self.window, self.num_heads
         hd = c // nh
@@ -97,8 +116,9 @@ class WindowFusion(nn.Module):
 
 class NewWindowFusion(nn.Module):
     """Global cross-attention fusion (the reference's ``new_WindowFusion``):
-    queries and keys from ``x``, values from ``y``; forward(x, y) NCHW ->
-    attended + x + y."""
+    queries and keys from ``x``, values from ``y``; forward(x, y, h=None)
+    NCHW -> attended + x + y; ``h``: the maps' global height under a
+    data×space layout."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
         super().__init__()
@@ -107,13 +127,20 @@ class NewWindowFusion(nn.Module):
         self.v = linear(dim, dim, bias=qkv_bias)
         self.proj = linear(dim, dim)
 
-    def forward(self, x, y):
-        b, c, h, w = x.shape
-        n, nh = h * w, self.num_heads
+    def forward(self, x, y, h=None):
+        b, c, hb, w = x.shape
+        n, nh = hb * w, self.num_heads
         hd = c // nh
         xt, yt = x.flatten(2).transpose(1, 2), y.flatten(2).transpose(1, 2)
-        q, k = self.qk(xt).reshape(b, n, 2, nh, hd).permute(2, 0, 3, 1, 4)
-        v = self.v(yt).reshape(b, n, nh, hd).transpose(1, 2)
+        q, k = self.qk(xt).reshape(b, n, 2, nh, hd).unbind(2)
+        v = self.v(yt).reshape(b, n, nh, hd)
+        if space.split():
+            if h is None:
+                raise ValueError("under a data×space layout NewWindowFusion needs the maps' global height")
+            space.count("banded" if space.banded(h) else "replicated")
+            # every key and value: the whole map's tokens
+            k, v = space.gather_rows(k, h, dim=1), space.gather_rows(v, h, dim=1)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         attn = ((q * hd ** -0.5) @ k.transpose(-2, -1)).float().softmax(dim=-1).to(v.dtype)
         out = self.proj((attn @ v).transpose(1, 2).reshape(b, n, c)) + xt + yt
-        return out.transpose(1, 2).reshape(b, c, h, w)
+        return out.transpose(1, 2).reshape(b, c, hb, w)

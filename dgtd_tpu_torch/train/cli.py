@@ -26,8 +26,7 @@ over the N ranks of a row (``parallel/space.py``):
 
     torchrun --nproc_per_node=data·N -m dgtd_tpu_torch.train configs/cod.yml -o dist.space=N [-m val]
 
-The world must be a multiple of N. A model without a banded forward
-(``DQnet``) raises ``NotImplementedError`` there (ROADMAP A13d). NCCL
+The world must be a multiple of N; every registered model runs there. NCCL
 refuses two ranks on one GPU: on one card, start a gloo group in each
 rank's process and call :func:`main` there (every rank on ``cuda:0``).
 """
@@ -40,7 +39,6 @@ import torch
 
 from .. import models as _models  # noqa: F401  (registers the models)
 from ..core.config import get_dotted, load_config
-from ..core.registry import MODELS
 from ..parallel import dist as pdist
 from ..parallel.space import active_space
 from .loop import Runner
@@ -57,24 +55,12 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def refuse_space(space, model_cfg) -> None:
-    """``-o dist.space=N`` with N > 1 for a model without a banded forward
-    (no ``supports_space``: ``DQnet``, ROADMAP A13d) raises before anything
-    is started or written."""
-    kind = (model_cfg or {}).get("type")
-    if int(space) > 1 and kind is not None and not getattr(MODELS.get(kind), "supports_space", False):
-        raise NotImplementedError(
-            f"dist.space={space}: {kind} does not run under the data×space layout (its banded forward is not "
-            "ported yet, ROADMAP A13d); run it with dist.space=1")
-
-
 def main(argv=None):
     """Run the CLI. Train mode returns the Runner's summary plus
     ``work_dir``; val mode returns the metrics."""
     args = parse_args(argv)
     cfg = load_config(args.config, args.override)
     space = get_dotted(cfg, "dist.space", 1)
-    refuse_space(space, cfg.get("model"))
     device, started = pdist.init_distributed(get_dotted(cfg, "dist.coordinator"), args.device)
     try:
         with active_space(pdist.start_space(space)):

@@ -11,7 +11,10 @@ high-pass and ``normalize_01`` take this rank's band of a level whose
 global height is ``in_h``; sizes are global. They work on the whole level
 (gather, compute, band), as XLA gathers the JAX package's resize einsums
 and FFT; a bilinear resize by a whole factor down (``align_corners``
-False) needs only the band's own rows and runs there.
+False) needs only the band's own rows and runs there. A level that every
+rank holds whole (DQnet's cue grid and prompts) is resized by
+:func:`resize_gathered` (gather once, keep the whole output) and
+:func:`resize_to_band` (the whole resize, then the band's rows).
 """
 
 from __future__ import annotations
@@ -67,12 +70,35 @@ def _resize_level(x, out_h, out_w, align_corners, exact, in_h):
     return space.full_level(lambda full: _resize(full, out_h, out_w, align_corners, exact), x, in_h)
 
 
-def resize_scale(x: torch.Tensor, scale: float, align_corners: bool = False) -> torch.Tensor:
+def resize_gathered(x: torch.Tensor, size: Tuple[int, int], in_h: Optional[int] = None) -> torch.Tensor:
+    """``resize_bilinear(x, size)`` whose output every rank holds whole:
+    under a data×space layout the level whose band is x (global height
+    ``in_h``) is gathered and resized on every rank (counted ``full``)."""
+    if space.split():
+        space.count("full")
+        x = space.gather_rows(x, _level_h(in_h, "resize_gathered"))
+    return _resize(x, int(size[0]), int(size[1]), False, True)
+
+
+def resize_to_band(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``resize_bilinear(x, size, exact=False)`` of a level that every rank
+    holds whole, then this rank's band of the result where its level is
+    banded (``space.band_rows``): no exchange, and the band's rows are the
+    whole resize's (counted ``replicated`` under a layout)."""
+    if space.split():
+        space.count("replicated")
+    return space.band_rows(_resize(x, int(size[0]), int(size[1]), False, False))
+
+
+def resize_scale(x: torch.Tensor, scale: float, align_corners: bool = False,
+                 in_h: Optional[int] = None) -> torch.Tensor:
     """``F.interpolate(scale_factor=scale)``'s output size, floor(size·scale),
     with the source indices of a resize to that size (as the JAX package
-    does)."""
-    h, w = x.shape[-2:]
-    return resize_bilinear(x, (int(np.floor(h * scale)), int(np.floor(w * scale))), align_corners)
+    does). ``in_h``: x's global height under a data×space layout, whose
+    floor(in_h·scale) is the output's global height."""
+    h = x.shape[-2] if in_h is None else in_h
+    w = x.shape[-1]
+    return resize_bilinear(x, (int(np.floor(h * scale)), int(np.floor(w * scale))), align_corners, in_h=in_h)
 
 
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int], in_h: Optional[int] = None) -> torch.Tensor:

@@ -7,8 +7,6 @@ on synthetic towers; the window helpers and fusion modules and the MPRNet
 blocks on seeded inputs and weights carried across by their key names.
 """
 
-import re
-
 import numpy as np
 import pytest
 import torch
@@ -23,7 +21,7 @@ from dgtd_tpu_torch.core.registry import MODELS
 from dgtd_tpu_torch.models import mprnet as PM
 from dgtd_tpu_torch.models import window_fusion as PW
 from dgtd_tpu_torch.train.hooks import PretrainInitHook, our_init
-from torch_jax_parity import (SHAPE, assert_matches_jax, batch, carry, flat_variables, jax_results, nested,
+from torch_jax_parity import (SHAPE, assert_matches_jax, batch, carry, flat_variables, jax_results, mpr_key, nested,
                               no_drop_path, serve_and_check)
 
 DQ = dict(variant="tiny", channel=8)
@@ -161,39 +159,11 @@ def test_new_window_fusion_matches_jax():
 
 # ---------------------------------------------------------------- MPRNet
 
-CAB_INNER = {"Conv_0/Conv_0": "body.0", "PReLU_0": "body.1", "Conv_1/Conv_0": "body.2",
-             "CALayer_0/Conv_0/Conv_0": "CA.conv_du.0", "CALayer_0/Conv_1/Conv_0": "CA.conv_du.2"}
-
-
-def _mpr_key(path: str, num_cab: int) -> str:
-    """A flax MPRNet param path -> the port's key (MPRNet's own names)."""
-    t = path.split("/")
-    leaf = t.pop()
-    out = []
-    for i, tok in enumerate(t):
-        rest = "/".join(t[i:])
-        if rest in CAB_INNER:
-            out.append(CAB_INNER[rest])
-            break
-        m = re.fullmatch(r"(up_(?:enc|dec)2)_(\d)", tok)
-        if t[i + 1:] == ["Conv_0", "Conv_0"] and (tok.startswith(("down", "up")) or m):
-            out += ([m.group(1), m.group(2)] if m else [tok]) + ["down.1" if tok.startswith("down") else "up.1"]
-            break
-        if tok == "tail":
-            out += ["body", str(num_cab)]
-            break
-        m = re.fullmatch(r"cab(\d+)", tok)
-        out.append(m.group(1) if m else tok)
-        if t[i + 1:] == ["Conv_0"]:
-            break
-    return ".".join(out) + "." + {"kernel": "weight", "bias": "bias", "alpha": "weight"}[leaf]
-
-
 def _load_mpr(module, params, num_cab=0):
     state = {}
     for path, v in flat_variables({"p": params}).items():
         v = np.array(v)
-        state[_mpr_key(path[2:], num_cab)] = torch.from_numpy(np.ascontiguousarray(
+        state[mpr_key(path[2:], num_cab)] = torch.from_numpy(np.ascontiguousarray(
             np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v))
     module.load_state_dict(state, strict=True)
     return module

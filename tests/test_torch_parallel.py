@@ -15,7 +15,8 @@ batch:
   * each rank's rows against ``dgtd_tpu.data.loader.local_row_slices``; the
     loader's split; ``init_distributed``'s launch detection over the cases
     of ``tests/test_sharding.py::test_initialize_multihost_order_and_detection``;
-    DQnet's ``-o dist.space=2`` refused; the CLI with ``dist.coordinator``.
+    ``-o dist.space=2`` refused in one process; the CLI with
+    ``dist.coordinator``.
 
 Each rank is a process started by ``torch.multiprocessing.spawn``
 (``tests/torch_dist_workers.py``, torch only); the one-process runs are in
@@ -330,10 +331,11 @@ def test_single_process_starts_no_group(monkeypatch):
 
 
 def test_dist_space_above_one_raises(tmp_path):
-    """A model without a banded forward (DQnet, ROADMAP A13d) refuses
-    ``-o dist.space=2`` before anything is started or written."""
+    """``-o dist.space=2`` in one process raises before anything is
+    written: the world (1) is not a multiple of 2. DQnet, like every
+    registered model, runs under the layout on a world that is."""
     cfg = os.path.join(W.ROOT, "configs", "synthetic_smoke.yml")
-    with pytest.raises(NotImplementedError, match="A13d"):
+    with pytest.raises(ValueError, match="dist.space=2 needs a world"):
         cli.main([cfg, "--device", "cpu", "-o", f"work_dir={tmp_path}", "-o", "dist.space=2",
                   "-o", "model={'type': 'DQnet', 'variant': 'tiny'}"])
     assert not os.listdir(tmp_path)

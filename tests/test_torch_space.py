@@ -14,14 +14,22 @@ on 2 and 4 gloo ranks of CPU processes:
     replicated at 2 or 4 ranks (``test_sharding.py``'s "every pyramid level
     divides");
   * ``-m val -o dist.space=2`` on 2 ranks against one process (``PERF.md``
-    §2's val bar, rtol 1e-4 / atol 1e-6).
+    §2's val bar, rtol 1e-4 / atol 1e-6);
+  * tiny ``DQnet`` (``tests/test_torch_dqnet.py``'s) ``predict`` under the
+    same layouts against ``dgtd_tpu``'s ``DQnet.predict`` on the same
+    weights (the same bar) and against one process (1e-5); each prompt's
+    resize to its stage adds one replicated layer and no exchange, the cue
+    grid's one gather of the depth; its ``-m val -o dist.space=2``
+    against one process.
 The train step under the layout is ``tests/test_torch_space_train.py``'s.
 
 The JAX weights come from the port's seeded init through
 ``dgtd_tpu.tools.convert_ckpt.convert_state_dict`` and back through
-``convert.state_dict_from_flax``, which the ranks load. The ranks
+``convert.state_dict_from_flax``, which the ranks load (DQnet's through
+``torch_jax_parity.flax_from_port``). The ranks
 (``tests/torch_dist_workers.py::space_rank``, torch only) run while this
-process computes the JAX reference eagerly (no jit compile).
+process computes the JAX reference: cod's eagerly, DQnet's jitted (a
+3-second compile where its eager forward takes 30).
 """
 
 import os
@@ -34,15 +42,18 @@ import torch
 import torch.multiprocessing as mp
 from flax.traverse_util import unflatten_dict
 
+from dgtd_tpu.core.registry import MODELS as JAX_MODELS
 from dgtd_tpu.models import cod as JaxCod
 from dgtd_tpu.tools.convert_ckpt import convert_state_dict
 from dgtd_tpu_torch.convert import state_dict_from_flax
 from dgtd_tpu_torch.models.cod import cod
+from dgtd_tpu_torch.models.dqnet import DQnet
 from dgtd_tpu_torch.parallel import dist as pdist
 from dgtd_tpu_torch.parallel import space as S
 from dgtd_tpu_torch.train import cli
 
 import torch_dist_workers as W
+from torch_jax_parity import flax_from_port, nested
 
 #: tests/test_sharding.py::tiny_model's cod
 B0 = dict(variant="b0", channel=8, latent_dim=8, diffusion_steps=1, refine_iters=1, convnext_dims=(8, 16, 32, 64),
@@ -52,6 +63,9 @@ TINY384 = dict(variant="tiny", convnext_dims=(8, 16, 32, 64), convnext_depths=(1
                refine_iters=2)
 LAYOUTS = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 RTOL, ATOL = 2e-4, 2e-5  # tests/test_sharding.py:208
+# the layout against one process: the same arithmetic but for the spatial
+# means' order
+ONE_TOL = dict(rtol=1e-5, atol=1e-5)
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-6
 
 
@@ -70,8 +84,9 @@ def _val_argv(work_dir, extra=()):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{2: [rank results], 4: [...], "jax": the JAX prob, "port": one
-    process's prob, "val": one process's val metrics}: both worlds' ranks
-    started at once, the JAX reference computed while they run."""
+    process's prob, "val": one process's val metrics, and DQnet's
+    "dqnet_jax", "dqnet_port", "val_dqnet"}: both worlds' ranks started at
+    once, the JAX reference computed while they run."""
     root = tmp_path_factory.mktemp("space")
     pm = cod(dtype=torch.float32, seed=0, **B0)
     flat, skipped = convert_state_dict({k: v.numpy() for k, v in pm.state_dict().items()}, "full")
@@ -82,22 +97,34 @@ def runs(tmp_path_factory):
     assert result.unexpected_keys == [] and all(k.endswith("num_batches_tracked") for k in result.missing_keys)
     weights = str(root / "weights.pt")
     torch.save(carried, weights)
+    dq = DQnet(dtype=torch.float32, seed=0, **W.DQ)
+    dq_weights = str(root / "dqnet.pt")
+    torch.save(dq.state_dict(), dq_weights)
     img, dep = _inputs()
     procs = {}
     for world in (2, 4):
         out = root / f"w{world}"
         out.mkdir()
-        val = tuple(_val_argv(str(out / "val"), ["dist.space=2"])) if world == 2 else None
+        vals = {}
+        if world == 2:
+            vals = {"val": tuple(_val_argv(str(out / "val"), ["dist.space=2"])),
+                    "val_dqnet": tuple(_val_argv(str(out / "val_dq"), W.DQ_CLI + ["dist.space=2"]))}
         procs[world] = (out, mp.start_processes(
             W.space_rank, args=(world, str(out / "init"), str(out), weights, B0, (img, dep), LAYOUTS[world],
-                                (TINY384, 0), val), nprocs=world, join=False, start_method="spawn"))
+                                (TINY384, 0), vals, (dq_weights, W.DQ)),
+            nprocs=world, join=False, start_method="spawn"))
     jm = JaxCod(dtype=jnp.float32, **B0)
     variables = unflatten_dict({tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
     with jax.disable_jit():
         jax_prob = np.asarray(jm.predict(variables, jnp.asarray(img), jnp.asarray(dep))[0])
     port_prob, port_extras = pm.predict(torch.from_numpy(img), torch.from_numpy(dep))
     val = cli.main(_val_argv(str(root / "val_single")))
-    runs = {"jax": jax_prob, "port": port_prob.numpy(), "texture": port_extras["texture"].numpy(), "val": val}
+    jdq = JAX_MODELS.get("DQnet")(dtype=jnp.float32, **W.DQ)
+    dq_vars = nested(flax_from_port(jdq, [(1, *img.shape[1:])], dq.state_dict()))
+    dq_jax = np.asarray(jax.jit(lambda v, i, d: jdq.predict(v, i, d))(dq_vars, img, dep)[0])
+    runs = {"jax": jax_prob, "port": port_prob.numpy(), "texture": port_extras["texture"].numpy(), "val": val,
+            "dqnet_jax": dq_jax, "dqnet_port": dq.predict(torch.from_numpy(img), torch.from_numpy(dep))[0].numpy(),
+            "val_dqnet": cli.main(_val_argv(str(root / "val_dq_single"), W.DQ_CLI))}
     for world, (out, ctx) in procs.items():
         while not ctx.join():
             pass
@@ -223,6 +250,53 @@ def test_val_under_space_2_matches_one_process(runs):
     single = runs["val"]
     for res in runs[2]:
         val = res["val"]
+        assert set(val) == set(single)
+        for k, v in single.items():
+            if k != "val_imgs_per_sec":
+                np.testing.assert_allclose(val[k], v, rtol=VAL_RTOL, atol=VAL_ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("world,data,space", _layouts())
+def test_tiny_dqnet_predict_under_the_layout_matches_jax(runs, world, data, space):
+    """``DQnet`` under the layout against ``dgtd_tpu``'s ``DQnet.predict``
+    on the same weights, at ``test_sharding.py``'s bar."""
+    for res in runs[world]:
+        got = res[f"dqnet_{data}x{space}"]
+        assert tuple(got["band"]) == (4 // data, 48 // space, 48, 1)
+        np.testing.assert_allclose(got["prob"].numpy(), runs["dqnet_jax"], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("world,data,space", _layouts())
+def test_tiny_dqnet_predict_under_the_layout_matches_one_process(runs, world, data, space):
+    """The ranks' gathered maps equal each other and one process's within
+    1e-5."""
+    first = runs[world][0][f"dqnet_{data}x{space}"]
+    for res in runs[world]:
+        got = res[f"dqnet_{data}x{space}"]
+        np.testing.assert_allclose(got["prob"].numpy(), runs["dqnet_port"], **ONE_TOL)
+        assert torch.equal(got["prob"], first["prob"])
+
+
+@pytest.mark.parametrize("world,data,space", _layouts())
+def test_dqnet_prompts_come_from_the_whole_grid(runs, world, data, space):
+    """The cue grid is computed whole on every rank from one gather of the
+    1-channel depth (counted ``full``), and each block's prompt (4 in PVT
+    ``tiny``) is resized to its stage from the whole prompt with no
+    exchange: one replicated layer each, no ``full`` level, no gather."""
+    rows = 4 // data
+    for res in runs[world]:
+        got = res[f"dqnet_{data}x{space}"]
+        assert got["cues"] == [{"full": 1, "gathers": 1, "gather_bytes": rows * 48 * 48 * 4}]
+        assert got["prompts"] == [{"replicated": 1}] * 4
+        assert got["counts"]["banded"] > 0 and got["counts"]["halos"] > 0
+
+
+def test_dqnet_val_under_space_2_matches_one_process(runs):
+    """``-m val -o dist.space=2`` of tiny DQnet (its own model block) on 2
+    ranks: one process's metrics."""
+    single = runs["val_dqnet"]
+    for res in runs[2]:
+        val = res["val_dqnet"]
         assert set(val) == set(single)
         for k, v in single.items():
             if k != "val_imgs_per_sec":

@@ -21,6 +21,19 @@ TINY_OVERRIDES = ["model.variant=tiny", "model.convnext_dims=[8,16,32,64]", "mod
                   "model.channel=8", "model.latent_dim=8", "model.grid=12", "model.refine_iters=2"]
 
 
+#: tiny DQnet (tests/test_torch_dqnet.py's): PVT ``tiny``, channel 8, the
+#: default cross_size 44; its drop-path rate stays the PVT's 0.1
+DQ = dict(variant="tiny", channel=8)
+#: the train CLI's DQnet overrides (as chip_smoke.py's phase 17 gives
+#: them): its own model block, the PVT's lr multiplier on its top-level
+#: ``backbone`` (the recipe's key names cod's), its init hook
+DQ_CLI = ["model={'type': 'DQnet', 'variant': 'tiny', 'channel': 8}",
+          "optim_wrapper.paramwise_cfg.custom_keys={'backbone': {'lr_mult': 0.2}}",
+          "custom_hooks=[{'type': 'PretrainInitHook'}]"]
+#: one train step of 4 images, then the val pass
+ONE_STEP = ["train_cfg.max_epochs=1", "train_cfg.val_interval=1", "train_dataloader.dataset.n=4"]
+
+
 def overrides(work_dir, extra=()):
     """configs/synthetic_smoke.yml at tiny width: 2 epochs of 3 steps at a
     global batch of 4 on 32² images, a checkpoint every epoch, a log record
@@ -126,14 +139,16 @@ SPACE_REPLICATED = [((4, 6, 3, 2, 1, 1), 15), ((4, 4, 8, 8, 0, 1), 24), ((4, 4, 
 SPACE_HALOS = [(1, 1), (3, 0), (0, 2), (2, 3), (7, 6), (9, 10)]
 
 
-def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, tiny384, val_argv):
+def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, tiny384, val_argvs, dqnet):
     """``parallel/space.py`` on rank ``rank`` of ``world``: the primitives
     and the banded ``Conv2d`` under a 1×world layout; ``cod.predict`` of
     the ``b0`` settings with ``weights`` on ``inputs`` under each (data,
-    space) of ``layouts``, gathered whole; the layout counts of ``tiny384``
-    (settings, seed) at 384² against one process; ``-m val`` under
-    ``dist.space=world`` when ``val_argv`` is given. Saves what it
-    computed, rank by rank."""
+    space) of ``layouts``, gathered whole; ``DQnet.predict`` of ``dqnet``
+    (weights, settings) the same way, with the layout's counts of each
+    prompt's and the cue grid's resize; the layout counts of ``tiny384``
+    (settings, seed) at 384² against one process; each argv of
+    ``val_argvs`` ({name: argv}: ``-m val`` under ``dist.space=world``).
+    Saves what it computed, rank by rank."""
     start(rank, world, init_file)
     import numpy as np
 
@@ -177,6 +192,7 @@ def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, ti
             res[f"predict_{data}x{spc}"] = {"band": prob.shape, "prob": S.gather_map(prob, img.shape[1]),
                                              "texture": S.gather_map(extras["texture"], img.shape[1]),
                                              "counts": counts}
+    res.update(_dqnet_predicts(S, dqnet, img, dep, layouts))
     settings, seed = tiny384
     model = cod(dtype=torch.float32, seed=seed, **settings)
     x384 = torch.randn(1, 384, 384, 3, generator=g)
@@ -187,12 +203,57 @@ def space_rank(rank, world, init_file, out_dir, weights, b0, inputs, layouts, ti
         res["tiny384"] = {"counts": dict(sp.counts), "prob": prob, "one_process": None}
     if rank == 0:
         res["tiny384"]["one_process"] = model.predict(x384, d384)[0]
-    if val_argv:
-        from dgtd_tpu_torch.train import cli
+    from dgtd_tpu_torch.train import cli
 
-        res["val"] = cli.main(list(val_argv))
+    for name, argv in val_argvs.items():
+        res[name] = cli.main(list(argv))
     torch.save(res, os.path.join(out_dir, f"space_{rank}.pt"))
     dist.destroy_process_group()
+
+
+def _counted(module, name, log):
+    """Replace ``module.name`` (a function) by one that appends the active
+    layout's counts that each call adds to ``log``; returns the undo."""
+    from dgtd_tpu_torch.parallel import space as S
+
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        before = dict(S.current().counts)
+        out = fn(*args, **kwargs)
+        log.append({k: v - before[k] for k, v in S.current().counts.items() if v != before[k]})
+        return out
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, fn)
+
+
+def _dqnet_predicts(S, dqnet, img, dep, layouts):
+    """``DQnet.predict`` of ``dqnet`` (weights, settings) on (img, dep) under
+    each (data, space) of ``layouts``: the gathered probability, the band's
+    shape, the counts, and the counts that each prompt's resize to its stage
+    and the cue grid's resize added."""
+    from dgtd_tpu_torch.models import dqnet as MQ
+    from dgtd_tpu_torch.models import pvt
+
+    weights, settings = dqnet
+    model = MQ.DQnet(dtype=torch.float32, seed=None, **settings)
+    model.load_state_dict(torch.load(weights))
+    out = {}
+    for data, spc in layouts:
+        sp = S.make_space(data, spc)
+        prompts, cues = [], []
+        undo = [_counted(pvt, "resize_to_band", prompts), _counted(MQ, "resize_gathered", cues)]
+        try:
+            with S.active_space(sp):
+                prob = model.predict(img, dep)[0]
+                counts = dict(sp.counts)
+                out[f"dqnet_{data}x{spc}"] = {"band": prob.shape, "prob": S.gather_map(prob, img.shape[1]),
+                                              "counts": counts, "prompts": prompts, "cues": cues}
+        finally:
+            for u in undo:
+                u()
+    return out
 
 
 # ---------------------------------------------------------------- the train step under the data×space layout
@@ -317,18 +378,27 @@ def _backward_on_a_thread(on):
         state.backward = backward
 
 
-def space_model(state, settings, extra=None):
-    """``cod`` (``extra``'s ``type`` instead, if it names one) of
-    ``settings`` and ``extra``'s other keys, fp32, seeded 0, then every
-    entry of ``state`` whose key and shape it shares (``baseline``'s
-    weight regressor is another shape than ``cod``'s)."""
+def space_model(family, extra=None):
+    """``cod`` (``extra``'s ``type`` instead, if it names one) of its
+    family's settings and ``extra``'s other keys, fp32, seeded 0, then
+    every entry of its family's state whose key and shape it shares
+    (``baseline``'s weight regressor is another shape than ``cod``'s).
+    ``family``: {"cod": (state, settings), "DQnet": (state, settings)}
+    (``baseline`` is of cod's). ``extra``'s ``no_drop`` sets every
+    drop-path rate to 0 (DQnet takes none)."""
     from dgtd_tpu_torch import models  # noqa: F401  (registers the models)
     from dgtd_tpu_torch.core.registry import MODELS
+    from dgtd_tpu_torch.models.layers import DropPath
 
     extra = dict(extra or {})
-    model = MODELS.get(extra.pop("type", "cod"))(dtype=torch.float32, seed=0, **{**settings, **extra})
+    kind, no_drop = extra.pop("type", "cod"), extra.pop("no_drop", False)
+    state, settings = family["DQnet" if kind == "DQnet" else "cod"]
+    model = MODELS.get(kind)(dtype=torch.float32, seed=0, **{**settings, **extra})
     own = model.state_dict()
     model.load_state_dict({k: v for k, v in state.items() if k in own and own[k].shape == v.shape}, strict=False)
+    for m in model.modules():
+        if no_drop and isinstance(m, DropPath):
+            m.rate = 0.0
     return model
 
 
@@ -364,27 +434,33 @@ def space_train_leg(model, optim_cfg, batches, layout, on_a_thread=False):
 
 def space_train_rank(rank, world, init_file, out_dir, weights, settings, batches, optim_cfg, legs, cli_root=None):
     """The train step under the data×space layout on rank ``rank`` of
-    ``world``: every case of :data:`ADJOINT_CASES` under a 1×world layout;
-    each leg of ``legs`` ((name, (data, space), model overrides,
-    on_a_thread)): :func:`space_model` of ``weights``, ``settings`` and the
-    overrides, :func:`space_train_leg` on ``batches``; with ``cli_root``
-    the tiny recipe through the train CLI data-parallel (2, 1) and its
-    epoch-1 checkpoint resumed under ``-o dist.space=world``. Saves what it
-    computed, rank by rank."""
+    ``world``: every case of :data:`ADJOINT_CASES` and of
+    :data:`FUSION_CASES` under a 1×world layout; each leg of ``legs``
+    ((name, (data, space), model overrides, on_a_thread)):
+    :func:`space_model` of its family's ``weights`` and ``settings`` (each
+    {"cod": …, "DQnet": …}) and the overrides, :func:`space_train_leg` on
+    ``batches`` with its family's ``optim_cfg``; with ``cli_root`` the tiny recipe through the train CLI
+    data-parallel (2, 1) and its epoch-1 checkpoint resumed under ``-o
+    dist.space=world``, and tiny DQnet's step and val pass through the CLI
+    under ``-o dist.space=world``. Saves what it computed, rank by rank."""
     start(rank, world, init_file)
     from dgtd_tpu_torch.parallel import space as S
     from dgtd_tpu_torch.parallel import spatial
 
-    res = {"adjoints": {}}
+    res = {"adjoints": {}, "fusion": {}}
     with S.active_space(S.make_space(1, world)):
         for i in range(len(ADJOINT_CASES)):
             res["adjoints"][i] = _adjoint(S, spatial, i, rank)
-    state = torch.load(weights)
+        for i in range(len(FUSION_CASES)):
+            res["fusion"][i] = _fusion(S, i, rank)
+    family = {k: (torch.load(weights[k]), settings[k]) for k in weights}
     for name, (data, spc), extra, on_a_thread in legs:
-        res[name] = space_train_leg(space_model(state, settings, extra), optim_cfg, batches, S.make_space(data, spc),
-                                    on_a_thread)
+        cfg = optim_cfg["DQnet" if extra.get("type") == "DQnet" else "cod"]
+        res[name] = space_train_leg(space_model(family, extra), cfg, batches, S.make_space(data, spc), on_a_thread)
     if cli_root:
         res["cli"] = _cli_resume_leg(rank, world, cli_root)
+        res["cli_dqnet"] = cli_run(train_argv(os.path.join(cli_root, f"dq{rank}"),
+                                              ONE_STEP + DQ_CLI + [f"dist.space={world}"]), cli_root, rank)
     torch.save(res, os.path.join(out_dir, f"space_train_{rank}.pt"))
     dist.destroy_process_group()
 
@@ -424,3 +500,145 @@ def _cli_resume_leg(rank, world, root):
     finally:
         loop.Runner.train = train
     return {"dp": runs[0], "space": runs[1]}
+
+
+def cli_run(argv, root, tag):
+    """The train CLI on ``argv`` (every rank of a started group, or one
+    process), recorded: every step's loss terms, each val pass's metrics
+    and the state at the end."""
+    from dgtd_tpu_torch.train import cli, loop
+
+    rec = _record_hook(None, root, tag)
+    vals, end = [], {}
+    train, val = loop.Runner.train, loop.Runner.val
+
+    def recorded_train(self):
+        self.hooks.append(rec)
+        out = train(self)
+        end.update({k: v.clone() for k, v in self.model.state_dict().items()})
+        return out
+
+    def recorded_val(self, *args, **kwargs):
+        vals.append(val(self, *args, **kwargs))
+        return vals[-1]
+
+    loop.Runner.train, loop.Runner.val = recorded_train, recorded_val
+    try:
+        summary = cli.main(argv)
+    finally:
+        loop.Runner.train, loop.Runner.val = train, val
+    return {"summary": summary, "losses": rec.losses, "vals": vals, "after": end}
+
+
+# ---------------------------------------------------------------- the fusion modules and the MPRNet blocks on bands
+
+#: (case, the input level's global height): WindowFusion where a band's rows
+#: are a multiple of its window (16 rows: bands of 8 and 4) and where they
+#: are not (20 rows: bands of 10 and 5, the window 4), gathered in both;
+#: NewWindowFusion;
+#: the MPRNet encoder, decoder and cross-stage encoder; ORSNet; the three
+#: resizers. Every map is 20 wide
+FUSION_CASES = [("window", 16), ("window", 20), ("new_window", 20), ("encoder_decoder", 24), ("orsnet", 24),
+                ("resizers", 24)]
+FUSION_W, FUSION_DIM, FUSION_WIN, FUSION_HEADS = 20, 16, 4, 2
+#: MPRNet widths: n_feat, scale_unetfeats, scale_orsnetfeats, CABs an ORB
+MPR_FEAT, MPR_UNET, MPR_ORS, MPR_CABS = 16, 8, 4, 2
+
+
+def fusion_case(i):
+    """Case ``i``'s seeded modules (an ``nn.ModuleDict``; the JAX package's
+    initializers, and random relative position tables) and its whole
+    inputs with their global heights: [(tensor, height)]; fp32."""
+    import torch.nn as nn
+
+    from dgtd_tpu_torch.models import mprnet as PM
+    from dgtd_tpu_torch.models import window_fusion as PW
+    from dgtd_tpu_torch.models.layers import init_parameters
+
+    kind, h = FUSION_CASES[i]
+    g = torch.Generator().manual_seed(200 + i)
+    w = FUSION_W
+    if kind == "window":
+        mods = {"m": PW.WindowFusion(FUSION_DIM, window=FUSION_WIN, num_heads=FUSION_HEADS)}
+    elif kind == "new_window":
+        mods = {"m": PW.NewWindowFusion(FUSION_DIM, num_heads=FUSION_HEADS)}
+    elif kind == "encoder_decoder":
+        mods = {"enc": PM.Encoder(MPR_FEAT, scale_unetfeats=MPR_UNET), "dec": PM.Decoder(MPR_FEAT, scale_unetfeats=MPR_UNET),
+                "enc2": PM.Encoder(MPR_FEAT, bias=True, scale_unetfeats=MPR_UNET, csff=True)}
+    elif kind == "orsnet":
+        mods = {"m": PM.ORSNet(MPR_FEAT, MPR_ORS, bias=True, scale_unetfeats=MPR_UNET, num_cab=MPR_CABS)}
+    else:
+        mods = {"down": PM.DownSample(MPR_FEAT, MPR_UNET), "up": PM.UpSample(MPR_FEAT, MPR_UNET),
+                "skip": PM.SkipUpSample(MPR_FEAT, MPR_UNET)}
+    mods = init_parameters(nn.ModuleDict(mods), g)
+    with torch.no_grad():
+        for n, p in mods.named_parameters():
+            if "rel_pos" in n:
+                p.copy_(torch.randn(p.shape, generator=g))
+    if kind in ("window", "new_window"):
+        shapes = [((2, FUSION_DIM, h, w), h)] * 2
+    elif kind == "encoder_decoder":
+        shapes = [((1, MPR_FEAT, h, w), h)]
+    elif kind == "orsnet":
+        levels = [(h, w), (h // 2, w // 2), (h // 4, w // 4)]
+        shapes = [((1, MPR_FEAT + MPR_ORS, h, w), h)] + [
+            ((1, MPR_FEAT + j * MPR_UNET, *levels[j]), levels[j][0]) for _ in range(2) for j in range(3)]
+    else:
+        shapes = [((1, MPR_FEAT, h, w), h), ((1, MPR_FEAT + MPR_UNET, h // 2, w // 2), h // 2),
+                  ((1, MPR_FEAT, h, w), h)]
+    return mods, [(torch.randn(shape, generator=g), hh) for shape, hh in shapes]
+
+
+def fusion_forward(i, mods, xs, h):
+    """Case ``i``'s outputs on inputs ``xs`` (bands under a layout, whole
+    without one), the first at a level of ``h`` global rows: [(output, its
+    global height)]."""
+    kind = FUSION_CASES[i][0]
+    if kind == "window":
+        out, gate = mods["m"](*xs, h=h)
+        return [(out, h), (gate, h)]
+    if kind == "new_window":
+        return [(mods["m"](*xs, h=h), h)]
+    heights = [h, h // 2, h // 4]
+    if kind == "encoder_decoder":
+        enc = mods["enc"](xs[0], h=h)
+        dec = mods["dec"](enc, h=h)
+        enc2 = mods["enc2"](xs[0], enc, dec, h=h)
+        return list(zip(enc + dec + enc2, heights * 3))
+    if kind == "orsnet":
+        return [(mods["m"](xs[0], xs[1:4], xs[4:7], h=h), h)]
+    return [(mods["down"](xs[0], h), h // 2), (mods["up"](xs[1], h // 2), h), (mods["skip"](xs[1], xs[2], h // 2), h)]
+
+
+def fusion_cotangent(i, k, shape):
+    """The whole cotangent of case ``i``'s output ``k``."""
+    return torch.randn(shape, generator=torch.Generator().manual_seed(20000 + 100 * i + k))
+
+
+def _fusion(S, i, rank):
+    """Case ``i`` on this rank's bands under the active layout, in float64
+    (so that only the layout's logic can part it from the whole module: a
+    scalar parameter's gradient sums ~10⁴ products, which fp32 rounds by
+    1e-5 of the sum): the outputs gathered whole and the layout's counts;
+    then the backward of the sum over the outputs of <this rank's share of
+    the cotangent, output> (a banded output's band; the whole of a
+    replicated one on rank 0, nothing on the others), the inputs'
+    gradients (bands, or the whole tensor where its level is not banded)
+    and the parameters'."""
+    mods, inputs = fusion_case(i)
+    mods = mods.double()
+    xs = [S.band_rows(x.double()).clone().requires_grad_() for x, _ in inputs]
+    S.current().reset_counts()
+    outs = fusion_forward(i, mods, xs, inputs[0][1])
+    counts = dict(S.current().counts)
+    total = 0
+    gathered = []
+    for k, (y, h) in enumerate(outs):
+        whole = S.gather_rows(y.detach(), h)
+        gathered.append(whole)
+        cot = fusion_cotangent(i, k, whole.shape).double()
+        share = S.band_rows(cot) if S.banded(h) else (cot if rank == 0 else torch.zeros_like(cot))
+        total = total + (y * share).sum()
+    total.backward()
+    return {"outs": gathered, "grads": [x.grad for x in xs], "counts": counts,
+            "params": {n: p.grad for n, p in mods.named_parameters() if p.grad is not None}}

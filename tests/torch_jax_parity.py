@@ -6,6 +6,7 @@ predictions with DropPath off (the port's drop-path rates are 0 there).
 """
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -17,7 +18,7 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 
 from dgtd_tpu.models.layers import DropPath as JaxDropPath
 from dgtd_tpu_torch import predict as port_predict
-from dgtd_tpu_torch.convert import state_dict_from_flax
+from dgtd_tpu_torch.convert import _split, map_flax_key, state_dict_from_flax
 from dgtd_tpu_torch.data.device_norm import IMAGENET_MEAN, IMAGENET_STD
 from dgtd_tpu_torch.models import diffusion as MD
 from dgtd_tpu_torch.models.layers import DropPath
@@ -44,6 +45,59 @@ def flat_variables(variables) -> dict:
 
 def nested(flat: dict) -> dict:
     return unflatten_dict({tuple(k.split("/")): v for k, v in flat.items()})
+
+
+def flax_from_port(jm, init_args, state: dict, key_of=None) -> dict:
+    """The JAX module ``jm``'s variables (flat numpy, ``params/…`` and
+    ``batch_stats/…``) holding the port's ``state``: the tree of
+    ``jm.init(key, *init_args)`` from ``jax.eval_shape`` (nothing compiled
+    or run), each leaf the port entry named by ``key_of(path)`` (default:
+    ``convert.map_flax_key``'s) in flax's layout (a conv kernel (kh, kw,
+    in, out), a Dense kernel (in, out))."""
+    tree = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *init_args))
+    out = {}
+    for key, leaf in flatten_dict(dict(tree), sep="/").items():
+        coll, path = _split(key)
+        t = state[key_of(path) if key_of else map_flax_key(path, coll)[0]].detach().cpu().numpy()
+        t = t.transpose(2, 3, 1, 0) if t.ndim == 4 else t.T if path.endswith("kernel") else t
+        assert t.shape == leaf.shape, (key, t.shape, leaf.shape)
+        out[key] = t
+    return out
+
+
+def linear_key(path: str) -> str:
+    """A flax ``{name: {Dense_0: {kernel, bias}}}`` or bare-array path ->
+    the port's key (``WindowFusion``'s)."""
+    t = path.split("/")
+    return t[0] if len(t) == 1 else f"{t[0]}.{'weight' if t[-1] == 'kernel' else 'bias'}"
+
+
+CAB_INNER = {"Conv_0/Conv_0": "body.0", "PReLU_0": "body.1", "Conv_1/Conv_0": "body.2",
+             "CALayer_0/Conv_0/Conv_0": "CA.conv_du.0", "CALayer_0/Conv_1/Conv_0": "CA.conv_du.2"}
+
+
+def mpr_key(path: str, num_cab: int = 0) -> str:
+    """A flax MPRNet param path -> the port's key (MPRNet's own names)."""
+    t = path.split("/")
+    leaf = t.pop()
+    out = []
+    for i, tok in enumerate(t):
+        rest = "/".join(t[i:])
+        if rest in CAB_INNER:
+            out.append(CAB_INNER[rest])
+            break
+        m = re.fullmatch(r"(up_(?:enc|dec)2)_(\d)", tok)
+        if t[i + 1:] == ["Conv_0", "Conv_0"] and (tok.startswith(("down", "up")) or m):
+            out += ([m.group(1), m.group(2)] if m else [tok]) + ["down.1" if tok.startswith("down") else "up.1"]
+            break
+        if tok == "tail":
+            out += ["body", str(num_cab)]
+            break
+        m = re.fullmatch(r"cab(\d+)", tok)
+        out.append(m.group(1) if m else tok)
+        if t[i + 1:] == ["Conv_0"]:
+            break
+    return ".".join(out) + "." + {"kernel": "weight", "bias": "bias", "alpha": "weight"}[leaf]
 
 
 def batch(seed: int, shape=SHAPE) -> dict:
