@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..core.registry import MODELS
+from ..core.trace import span
 from ..parallel import space
 from ..parallel.dist import row_slice
 from ..utils.image import resize_bilinear
@@ -113,15 +114,16 @@ class SegModel(nn.Module):
                                                        _nchw(space.band_rows(depth, 1)), h)
         finally:
             set_drop_path_generator(self, None)
-        loss = staged_losses(stage_preds, pred2, _nchw(label))
-        aux = {"loss_seg": loss}
-        if self.use_ssim and texture is not None:
-            # the SSIM term on the whole rows: it carries no gradient
-            texture = space.gather_rows(texture, self.texture_height(h))
-            loss_ssim = texture_ssim_loss(texture, _nchw(image))
-            loss = loss + loss_ssim
-            aux["loss_ssim"] = loss_ssim
-        aux["loss"] = loss
+        with span("dgtd.loss"):
+            loss = staged_losses(stage_preds, pred2, _nchw(label))
+            aux = {"loss_seg": loss}
+            if self.use_ssim and texture is not None:
+                # the SSIM term on the whole rows: it carries no gradient
+                texture = space.gather_rows(texture, self.texture_height(h))
+                loss_ssim = texture_ssim_loss(texture, _nchw(image))
+                loss = loss + loss_ssim
+                aux["loss_ssim"] = loss_ssim
+            aux["loss"] = loss
         return loss, aux
 
     def _forward(self, image, depth):
@@ -154,12 +156,13 @@ class SegModel(nn.Module):
         ((B,H',W',1) fp32 probability map, {"texture": NHWC texture or None});
         under a data×space layout this rank's rows and band of each (the
         resize to ``out_size`` on the gathered logits)."""
-        (texture, stage_preds, pred2), h = self._forward(image, depth)
-        with self._autocast(image.device.type):
-            logits = stage_preds[-1] + pred2
-        if out_size is not None and tuple(out_size) != (h, image.shape[2]):
-            logits = resize_bilinear(logits, out_size, in_h=h)
-        prob = torch.sigmoid(logits.float())
+        with span("dgtd.predict"):
+            (texture, stage_preds, pred2), h = self._forward(image, depth)
+            with self._autocast(image.device.type):
+                logits = stage_preds[-1] + pred2
+            if out_size is not None and tuple(out_size) != (h, image.shape[2]):
+                logits = resize_bilinear(logits, out_size, in_h=h)
+            prob = torch.sigmoid(logits.float())
         return _nhwc(prob), {"texture": _nhwc(texture)}
 
 

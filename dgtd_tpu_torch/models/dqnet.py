@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.registry import MODELS
+from ..core.trace import span
 from ..utils.image import resize_gathered
 from .cod import SegModel
 from .hitnet import HitNetDecoder
@@ -81,10 +82,13 @@ class DQnetNet(HitNetDecoder):
         cue grid and the prompts are whole on every rank."""
         H = image.shape[-2] if H is None else H
         g = self.cross_size
-        cues = resize_gathered(depth, (g, g), in_h=H).permute(0, 2, 3, 1)
-        prompts = [[p.permute(0, 3, 1, 2) for p in getattr(self, f"depth_generator{s}")(cues)] for s in range(4)]
-        outs = self.backbone(image, prompts, H, whole_prompts=True)
-        stage_preds, pred2 = self.decode(image, *outs, heights=[H, *self.backbone.heights(H)])
+        with span("dgtd.prompt_decoders"):
+            cues = resize_gathered(depth, (g, g), in_h=H).permute(0, 2, 3, 1)
+            prompts = [[p.permute(0, 3, 1, 2) for p in getattr(self, f"depth_generator{s}")(cues)] for s in range(4)]
+        with span("dgtd.backbone"):
+            outs = self.backbone(image, prompts, H, whole_prompts=True)
+        with span("dgtd.decode"):
+            stage_preds, pred2 = self.decode(image, *outs, heights=[H, *self.backbone.heights(H)])
         return None, stage_preds, pred2
 
 

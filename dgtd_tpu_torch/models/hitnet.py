@@ -13,6 +13,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..core.trace import span
 from ..utils.image import resize_bilinear
 from .diffusion import PromptDecoder, PromptEncoder
 from .layers import BasicConv2d, CABStack, SAMFusion, conv2d
@@ -121,9 +122,13 @@ class HitNet(HitNetDecoder):
         H = image.shape[-2] if H is None else H
         texture = prompts = prompt_h = None
         if self.use_prompts and self.inject_prompts:
-            texture, embedding = bb.prompt_encoder(image, depth, H)
+            with span("dgtd.prompt_encoder"):
+                texture, embedding = bb.prompt_encoder(image, depth, H)
             prompt_h = bb.prompt_encoder.encoder2.out_rows(H)
-            prompts = [dec(embedding, prompt_h) for dec in bb.prompt_decoder]
-        outs = bb(image, prompts, H, prompt_h)
-        stage_preds, pred2 = self.decode(image, *outs, heights=[H, *bb.heights(H)])
+            with span("dgtd.prompt_decoders"):
+                prompts = [dec(embedding, prompt_h) for dec in bb.prompt_decoder]
+        with span("dgtd.backbone"):
+            outs = bb(image, prompts, H, prompt_h)
+        with span("dgtd.decode"):
+            stage_preds, pred2 = self.decode(image, *outs, heights=[H, *bb.heights(H)])
         return texture, stage_preds, pred2

@@ -25,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core.trace import span
 from ..data.device_norm import normalize_batch
 from ..parallel.dist import all_mean_, grad_group
 
@@ -46,15 +47,22 @@ def backward(loss: torch.Tensor) -> None:
 
 def train_step(model, optimizer, batch: Dict[str, torch.Tensor], step: int, seed: int) -> Dict[str, torch.Tensor]:
     """Train step ``step`` (0-based) on a batch already on the model's
-    device; returns the loss terms (detached device scalars)."""
-    batch = normalize_batch(batch)
-    gen = step_generator(seed, step, batch["input"].device)
-    loss, aux = model.loss(batch["input"], batch["depth"], batch["label"], generator=gen)
-    backward(loss)
-    aux = {k: v.detach() for k, v in aux.items()}
-    group = grad_group()
-    if group is not None:
-        aux = {k: v.clone() for k, v in aux.items()}
-        all_mean_([p.grad for p in model.parameters() if p.grad is not None] + list(aux.values()), group)
-    optimizer.step(step)
-    return aux
+    device; returns the loss terms (detached device scalars). Each phase
+    runs in a ``core/trace.py`` span, the whole step in ``dgtd.train.step``."""
+    with span("dgtd.train.step", str(step)):
+        with span("dgtd.train.normalize"):
+            batch = normalize_batch(batch)
+        gen = step_generator(seed, step, batch["input"].device)
+        with span("dgtd.train.forward"):
+            loss, aux = model.loss(batch["input"], batch["depth"], batch["label"], generator=gen)
+        with span("dgtd.train.backward"):
+            backward(loss)
+        aux = {k: v.detach() for k, v in aux.items()}
+        group = grad_group()
+        if group is not None:
+            aux = {k: v.clone() for k, v in aux.items()}
+            with span("dgtd.train.all_reduce"):
+                all_mean_([p.grad for p in model.parameters() if p.grad is not None] + list(aux.values()), group)
+        with span("dgtd.train.optimizer"):
+            optimizer.step(step)
+        return aux
