@@ -44,7 +44,9 @@ Phases (any failure exits non-zero):
      images for 2 epochs (6 steps), validating after epoch 2 on 8 synthetic
      images at batch 1: finite losses, one val record with finite E, F, S
      and MAE, the launch counts (one fused forward and one fused backward a
-     step; 8 fused forwards and no backward around the val pass alone), two
+     step launched from the host: the eager warm-up and the CUDA graphs'
+     capture, the other 4 steps replays; 8 fused forwards and no backward
+     around the val pass alone), two
      epoch checkpoints, the second served through ``predict.main``; one fp32
      first step held to the bf16 one; the backward kernel re-checked on the
      stencil inputs and upstream gradient captured in a train step; both
@@ -1239,7 +1241,10 @@ def variants_phase(D, MD, P, card):
     overrides), serve 1 batch of 8 through ``dgtd_tpu_torch.predict.main
     --model …`` on the trained weights, each run's stencil launches read from
     the counters around it against what the route says (none for baseline,
-    DQnet and use_prompts=false); the parameter count, ms per served batch
+    DQnet and use_prompts=false; the train steps' are the warm-up's and the
+    CUDA graphs' capture's), then two replayed steps under the profiler: no
+    counter moves, and the stencil kernels run where the route launches
+    them; the parameter count, ms per served batch
     and per train step (back to back), the peak memory. Then: baseline's
     prompt modules bit-equal after its steps; the tiled kernels (k = 9 and
     11), the fused kernel (k = 3, 6 steps) and the per-step kernels (k = 13)
@@ -1256,6 +1261,7 @@ def variants_phase(D, MD, P, card):
     from dgtd_tpu_torch.core.config import load_config
     from dgtd_tpu_torch.core.registry import MODELS
     from dgtd_tpu_torch.models.layers import DropPath
+    from dgtd_tpu_torch.train import state as S
     from dgtd_tpu_torch.train.loop import Runner
     from dgtd_tpu_torch.train.state import step_generator, train_step
 
@@ -1335,6 +1341,16 @@ def variants_phase(D, MD, P, card):
                 counter[0] += 1
 
             step_ms = cuda_time_ms(one_step, 3, warmup=1)
+            # the steps after the capture replay its graphs and call no kernel
+            # wrapper: the counters stay still, and the stencil kernels the
+            # profiler finds in a replayed step ran from the graphs
+            reset_plane_launches(D)
+            graph_steps = S.GRAPH_STEPS
+            replayed_ms = device_ms(one_step, 1, "stencil_")
+            check(S.GRAPH_STEPS == graph_steps + 2 and plane_launches(D) == NO_LAUNCHES,
+                  f"{label}: {S.GRAPH_STEPS - graph_steps} replayed steps, launches {plane_launches(D)}")
+            check((replayed_ms is not None) == (want != NO_LAUNCHES),
+                  f"{label}: stencil device ms {replayed_ms} in a replayed step, expected launches {want}")
             served_ms = cuda_time_ms(lambda: model.predict(img, depth), 5, warmup=2)
             dead_equal = all(torch.equal(p.detach(), dead[n]) for n, p in model.named_parameters() if n in dead)
             check(dead_equal, f"{label}: a frozen prompt-module parameter moved")
@@ -1363,13 +1379,14 @@ def variants_phase(D, MD, P, card):
             rows[label] = {"model": model_type, "overrides": overrides, "parameters": n_params,
                            "served_ms_per_batch": served_ms, "served_cli_loop_s": served["loop_s"],
                            "train_ms_per_step": step_ms, "train_loop_s": trained["loop_s"],
+                           "replayed_stencil_device_ms": replayed_ms,
                            "peak_memory_bytes_train": train_peak, "losses": [r["loss"] for r in records],
                            "launches_train": train_launches, "launches_served": served_launches,
                            "frozen_parameters": len(dead), "frozen_bit_equal": dead_equal if dead else None}
             say(f"  {label} ({model_type} {overrides}): {n_params} parameters; served {served_ms:.3f} ms per batch of "
                 f"{BATCH}; train {step_ms:.3f} ms per step at batch {TRAIN_BATCH}, peak memory {train_peak / 2**30:.3f} "
                 f"GiB; stencil launches ({LAUNCH_NAMES}) train {train_launches}, served {served_launches}"
-                + (f"; {len(dead)} frozen parameters bit-equal after {VARIANT_STEPS + 4} steps" if dead else "")
+                + (f"; {len(dead)} frozen parameters bit-equal after {VARIANT_STEPS + 6} steps" if dead else "")
                 + f" [{card}]")
 
     # the tiled kernels (k = 9, 11) and the fused kernel at k = 3, 6 steps,
@@ -3245,6 +3262,7 @@ def run(keep):
         f"{TRAIN_N} images at {SIZE}², batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs, bf16")
     from dgtd_tpu_torch.core.config import load_config
     from dgtd_tpu_torch.train import cli as TC
+    from dgtd_tpu_torch.train import state as S
     from dgtd_tpu_torch.train.loop import Runner
     from dgtd_tpu_torch.train.state import train_step
 
@@ -3291,8 +3309,12 @@ def run(keep):
         try:
             torch.cuda.reset_peak_memory_stats()
             reset_plane_launches(D)
+            hosted = S.EAGER_STEPS + S.CAPTURES
             trained = TC.main(argv)
             train_launches = plane_launches(D)
+            # the steps whose kernels their wrappers launched (and counted):
+            # the eager warm-up and the CUDA graphs' capture; replays call none
+            hosted = S.EAGER_STEPS + S.CAPTURES - hosted
             cli_peak = torch.cuda.max_memory_allocated()
         finally:
             MD.diffusion_planes = planes_unspied
@@ -3309,9 +3331,10 @@ def run(keep):
         check(trained["steps"] == TRAIN_STEPS, trained)
         check(train_val_launches == launch_tuple("fused", TRAIN_VAL_N),
               f"val launches {train_val_launches}: one fused forward a val batch of 1, {TRAIN_VAL_N} batches, no backward")
-        check(train_launches == launch_tuple("fused", TRAIN_STEPS + TRAIN_VAL_N, TRAIN_STEPS),
-              f"launches {train_launches}: one fused forward and one fused backward a step in {TRAIN_STEPS} steps, "
-              f"and {TRAIN_VAL_N} val forwards")
+        check(hosted == 2, f"{hosted} of {TRAIN_STEPS} steps eager or captured: expected the warm-up and the capture")
+        check(train_launches == launch_tuple("fused", hosted + TRAIN_VAL_N, hosted),
+              f"launches {train_launches}: one fused forward and one fused backward a step in the {hosted} steps "
+              f"launched from the host, and {TRAIN_VAL_N} val forwards")
         with open(os.path.join(work, "log.jsonl")) as f:
             records = [json.loads(line) for line in f]
         losses = [r for r in records if "loss" in r]

@@ -14,10 +14,14 @@ The spans (names are fixed: ``tools/profile_step.py`` and the benchmark's
 per-layer metrics read them by name):
 
 * ``train/state.py::train_step``: ``dgtd.train.step`` (its ``args`` the
-  step index) and inside it ``dgtd.train.normalize``,
-  ``dgtd.train.forward`` (``model.loss``, the losses included),
-  ``dgtd.train.backward``, ``dgtd.train.all_reduce`` (only under data
-  parallelism) and ``dgtd.train.optimizer``;
+  step index and ``graph`` or ``eager``) and inside it
+  ``dgtd.train.normalize``, ``dgtd.train.forward`` (``model.loss``, the
+  losses included), ``dgtd.train.backward``, ``dgtd.train.all_reduce``
+  (only under data parallelism) and ``dgtd.train.optimizer``. A replayed
+  step launches each phase's CUDA graph inside that phase's span (the
+  copy into the graph's inputs in ``dgtd.train.normalize``), so its device
+  work is put down to the same spans by the graph launch's correlation id;
+  it opens none of the spans inside the forward (their Python does not run);
 * ``models/cod.py::SegModel``: ``dgtd.predict`` around ``predict`` and
   ``dgtd.loss`` around the loss terms of ``loss``;
 * the networks' forwards (``models/hitnet.py``, ``models/dqnet.py``):

@@ -14,6 +14,12 @@ decay of ``train/layer_decay.py``) whose keys replace ``custom_keys``; an
 unknown name raises. ``optim_wrapper.bf16_state: true`` stores AdamW's m and
 v in bf16 (:class:`AdamWBf16State`), as the JAX package's
 ``scale_by_adam_bf16`` does.
+
+On CUDA parameters ``torch.optim.AdamW`` runs its fused update, built
+``capturable``: the step count and each group's lr live on the card (the
+lr a 0-dim tensor filled before each step), so the update reads nothing
+from the host and ``train/state.py`` can capture it in a CUDA graph, whose
+replay :meth:`Optimizer.step` then runs in its place.
 """
 
 from __future__ import annotations
@@ -162,11 +168,25 @@ class Optimizer:
             groups.setdefault(lr_mult(n, keys), []).append(p)
         self.params = [p for _, p in named]
         self.bf16_state = bool(optim_cfg.get("bf16_state", False))
-        self.opt = (AdamWBf16State if self.bf16_state else torch.optim.AdamW)(
-            [{"params": ps, "lr_mult": m} for m, ps in sorted(groups.items())],
-            lr=self.base_lr, betas=tuple(opt.get("betas", (0.9, 0.999))), eps=1e-8,
-            weight_decay=float(opt.get("weight_decay", 0.1)),
-        )
+        self.device = self.params[0].device if self.params else torch.device("cpu")
+        #: torch AdamW on the card: the fused update, which train/state.py
+        #: may capture
+        self.capturable = not self.bf16_state and self.device.type == "cuda"
+        param_groups = [{"params": ps, "lr_mult": m, "lr": self._lr_slot(self.base_lr)}
+                        for m, ps in sorted(groups.items())]
+        hyper = dict(lr=self.base_lr, betas=tuple(opt.get("betas", (0.9, 0.999))), eps=1e-8,
+                     weight_decay=float(opt.get("weight_decay", 0.1)))
+        if self.bf16_state:
+            self.opt = AdamWBf16State(param_groups, **hyper)
+        else:
+            self.opt = torch.optim.AdamW(param_groups, capturable=self.capturable,
+                                         fused=self.capturable or None, **hyper)
+            # the eager steps run the update that the graph replays: torch's
+            # warning on a capturable update run uncaptured does not apply
+            self.opt._warned_capturable_if_run_uncaptured = True
+        #: the train step's captured graphs (``train/state.py``); a loaded
+        #: state drops them, since they hold the tensors of the state before
+        self.graphed = None
         self.clip_value = self.max_norm = None
         cg = optim_cfg.get("clip_grad")
         if cg:
@@ -180,24 +200,59 @@ class Optimizer:
     def lr(self, step: int) -> float:
         return cosine_epoch_lr(step, self.base_lr, self.max_epochs, self.steps_per_epoch)
 
-    def step(self, step: int) -> None:
-        """Apply the gradients of train step ``step`` (0-based)."""
-        ran = [n for n, p in self.frozen if p.grad is not None]
-        if ran:
-            raise RuntimeError(f"{len(ran)} frozen parameters received a gradient (first: {ran[:3]}): "
-                               "the forward ran a module it should skip")
+    def _lr_slot(self, lr: float):
+        """A param group's lr as AdamW reads it: a 0-dim tensor on the card
+        for the capturable update, else the number."""
+        return torch.full((), lr, device=self.device) if self.capturable else lr
+
+    def update(self) -> None:
+        """Clip the gradients and step AdamW at the lr already set: the part
+        of :meth:`step` that a CUDA graph can hold."""
         if self.clip_value is not None:
             torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
         if self.max_norm is not None:
             torch.nn.utils.clip_grad_norm_(self.params, self.max_norm)
+        self.opt.step()
+
+    def step(self, step: int, graph=None) -> None:
+        """Apply the gradients of train step ``step`` (0-based): set each
+        group's lr for the step, run :meth:`update`, or replay ``graph``, a
+        captured :meth:`update` (``train/state.py``) that reads the gradients
+        where its capture found them, then drop the gradients."""
+        ran = [n for n, p in self.frozen if p.grad is not None]
+        if ran:
+            raise RuntimeError(f"{len(ran)} frozen parameters received a gradient (first: {ran[:3]}): "
+                               "the forward ran a module it should skip")
         lr = self.lr(step)
         for group in self.opt.param_groups:
-            group["lr"] = lr * group["lr_mult"]
-        self.opt.step()
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr * group["lr_mult"])
+            else:
+                group["lr"] = lr * group["lr_mult"]
+        if graph is None:
+            self.update()
+        else:
+            graph.replay()
         self.opt.zero_grad(set_to_none=True)
 
     def state_dict(self):
-        return self.opt.state_dict()
+        """AdamW's state, each group's lr as a number."""
+        state = self.opt.state_dict()
+        for group in state["param_groups"]:
+            group["lr"] = float(group["lr"])
+        return state
 
     def load_state_dict(self, state):
+        """Load AdamW's state, saved on any device: the update stays this
+        optimizer's (capturable or not), its lr and step counts where that
+        update keeps them."""
         self.opt.load_state_dict(state)
+        self.graphed = None
+        if self.bf16_state:
+            return
+        for group in self.opt.param_groups:
+            group["capturable"], group["fused"] = self.capturable, self.capturable or None
+            group["lr"] = self._lr_slot(float(group["lr"]))
+        if self.capturable:
+            for st in self.opt.state.values():
+                st["step"] = st["step"].to(self.device, torch.float32)

@@ -4,7 +4,8 @@
 The JAX package emulates ``F.interpolate``/``F.unfold`` with dense matrices
 and slices; here the torch operators are the definition itself. Only the
 legacy ``nearest`` rule and the FFT high-pass mask are spelled out, so their
-index arithmetic matches the JAX side exactly.
+index arithmetic matches the JAX side exactly; their index and mask arrays
+are made on a device once per shape (``core/device.py::constant``).
 
 Under a data×space layout (``parallel/space.py``) the resizes, the FFT
 high-pass and ``normalize_01`` take this rank's band of a level whose
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import constant
 from ..parallel import space
 
 
@@ -120,11 +122,14 @@ def _resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     out_h, out_w = int(size[0]), int(size[1])
     if (h, w) == (out_h, out_w):
         return x
-    rows = np.floor(np.arange(out_h) * (h / out_h)).astype(np.int64)
-    cols = np.floor(np.arange(out_w) * (w / out_w)).astype(np.int64)
-    rows_t = torch.as_tensor(rows, device=x.device)
-    cols_t = torch.as_tensor(cols, device=x.device)
-    return x.index_select(-2, rows_t).index_select(-1, cols_t)
+    rows = constant(("nearest_index", h, out_h), x.device, lambda: _nearest_index(h, out_h))
+    cols = constant(("nearest_index", w, out_w), x.device, lambda: _nearest_index(w, out_w))
+    return x.index_select(-2, rows).index_select(-1, cols)
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The legacy ``nearest`` source index of each of ``n_out`` outputs."""
+    return np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
 
 
 def extract_patches(x: torch.Tensor, kernel: int, padding: int) -> torch.Tensor:
@@ -179,10 +184,16 @@ def fft_high_pass(x: torch.Tensor, rate: float, in_h: Optional[int] = None) -> t
 
 def _fft_high_pass(x: torch.Tensor, rate: float) -> torch.Tensor:
     h, w = x.shape[-2:]
+    keep = constant(("fft_high_pass", h, w, rate), x.device, lambda: _high_pass_keep(h, w, rate))
+    spec = torch.fft.fft2(x.float(), dim=(-2, -1), norm="forward") * keep
+    inv = torch.fft.ifft2(spec, dim=(-2, -1), norm="forward").real
+    return inv.abs().to(x.dtype)
+
+
+def _high_pass_keep(h: int, w: int, rate: float) -> np.ndarray:
+    """The unshifted spectrum's mask of :func:`fft_high_pass`: 0 on the
+    centered low-frequency square, 1 elsewhere."""
     line = int((h * w * rate) ** 0.5 // 2)
     keep = np.ones((h, w), dtype=np.float32)
     keep[h // 2 - line : h // 2 + line, w // 2 - line : w // 2 + line] = 0.0
-    keep_t = torch.as_tensor(np.fft.ifftshift(keep), device=x.device)
-    spec = torch.fft.fft2(x.float(), dim=(-2, -1), norm="forward") * keep_t
-    inv = torch.fft.ifft2(spec, dim=(-2, -1), norm="forward").real
-    return inv.abs().to(x.dtype)
+    return np.fft.ifftshift(keep)

@@ -4,7 +4,8 @@
   * under ``torch.profiler.profile``, a train step and a served batch of a
     tiny ``cod`` and a tiny ``DQnet`` record every span, each once and
     nested as the train step and the forwards run them; ``dgtd.train.step``
-    is opened with the step index; ``dgtd.train.all_reduce`` only where a
+    is opened with the step index and the path (``eager`` on the CPU);
+    ``dgtd.train.all_reduce`` only where a
     gradient group exists;
   * a ``torch.export`` of a tiny ``cod`` bundle holds no profiler operation
     and still equals the eager ``predict``;
@@ -101,7 +102,7 @@ def test_train_step_records_its_spans_nested(kind, monkeypatch):
     forward = FORWARD if kind == "cod" else FORWARD[1:]
     want = {"dgtd.train.step", *PHASES, "dgtd.loss", *forward}
     assert set(spans) == want and all(len(v) == 1 for v in spans.values())
-    assert ("dgtd.train.step", "3") in opened
+    assert ("dgtd.train.step", "3 eager") in opened
     step = spans["dgtd.train.step"][0]
     assert all(_within(spans[p][0], step) for p in PHASES)
     # the phases in order, each after the last has closed
