@@ -26,7 +26,13 @@ per-layer metrics read them by name):
   ``dgtd.loss`` around the loss terms of ``loss``;
 * the networks' forwards (``models/hitnet.py``, ``models/dqnet.py``):
   ``dgtd.prompt_encoder``, ``dgtd.prompt_decoders`` (HitNet's 28 decoders,
-  DQnet's depth prompts), ``dgtd.backbone`` and ``dgtd.decode``.
+  DQnet's depth prompts), ``dgtd.backbone`` and ``dgtd.decode``;
+* the offline depther: ``dgtd.depther`` around
+  ``tools/depth_gen.py::Dinov2Depther.batch`` (the copy to the card, the
+  normalization, the model), inside it ``dgtd.depther.backbone``
+  (``models/dpt.py::DinoDPTDepther.features``), ``dgtd.depther.head`` (the
+  DPT head, the expectation over the bins, the resize) and, in each
+  DINOv2 block, ``dgtd.depther.attention`` around the SDPA call alone.
 """
 
 from __future__ import annotations

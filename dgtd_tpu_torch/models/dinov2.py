@@ -17,7 +17,8 @@ bicubic ``F.interpolate`` with ``scale_factor=(h0 + 0.1) / M`` per axis (the
 
 Compute policy as in the JAX package: under bf16 autocast the tokens and
 the residual stream stay bf16, the LayerNorm statistics and the attention
-softmax run in fp32.
+softmax run in fp32. Each attention call (the SDPA alone) opens the span
+``dgtd.depther.attention`` (``core/trace.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.trace import span
 from .layers import LayerNorm
 
 # (embed_dim, depth, num_heads, ffn_layer) for the four released sizes; the
@@ -92,7 +94,8 @@ class DinoAttention(nn.Module):
     def forward(self, x):
         b, t, c = x.shape
         qkv = self.qkv(x).reshape(b, t, 3, self.num_heads, c // self.num_heads).permute(2, 0, 3, 1, 4)
-        out = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+        with span("dgtd.depther.attention"):
+            out = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
         return self.proj(out.transpose(1, 2).reshape(b, t, c))
 
 

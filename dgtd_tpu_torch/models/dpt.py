@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.trace import span
 from ..utils.image import resize_bilinear
 from .dinov2 import DINOV2_ARCHS, PATCH_SIZE, DinoViT
 
@@ -174,7 +175,9 @@ class DinoDPTDepther(nn.Module):
     """CenterPadding -> DINOv2 intermediate layers -> DPT head -> bilinear
     resize (align_corners=False) to the input. ``forward`` takes NCHW
     normalized images, returns (B, 1, H, W) fp32 depth. ``dtype`` bfloat16
-    runs it under autocast, as the JAX depther's "bfloat16" policy."""
+    runs it under autocast, as the JAX depther's "bfloat16" policy.
+    ``features`` opens the span ``dgtd.depther.backbone``, ``head`` the
+    span ``dgtd.depther.head``."""
 
     def __init__(self, arch: str = "vitl14", out_indices: Sequence[int] = (), classify: bool = True,
                  n_bins: int = 256, channels: int = 256,
@@ -195,14 +198,16 @@ class DinoDPTDepther(nn.Module):
 
     def features(self, x: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """The backbone's part: centre padding and the intermediate layers."""
-        with self._autocast(x):
+        with span("dgtd.depther.backbone"), self._autocast(x):
             return self.backbone(center_pad(x, PATCH_SIZE), self.out_indices)
 
     def head(self, feats, size: Tuple[int, int]) -> torch.Tensor:
-        """The head's part: the DPT head and the resize to ``size``."""
-        with self._autocast(feats[0][0]):
-            pred = self.decode_head(feats)
-        return resize_bilinear(pred, size)
+        """The head's part: the DPT head, the expectation over the bins and
+        the resize to ``size``."""
+        with span("dgtd.depther.head"):
+            with self._autocast(feats[0][0]):
+                pred = self.decode_head(feats)
+            return resize_bilinear(pred, size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x), tuple(x.shape[-2:]))

@@ -7,6 +7,10 @@
     is opened with the step index and the path (``eager`` on the CPU);
     ``dgtd.train.all_reduce`` only where a
     gradient group exists;
+  * a traced batched call of a tiny depther opens ``dgtd.depther`` once,
+    ``dgtd.depther.backbone`` and ``dgtd.depther.head`` inside it in that
+    order, and ``dgtd.depther.attention`` once a block inside the
+    backbone; an untraced one opens none;
   * a ``torch.export`` of a tiny ``cod`` bundle holds no profiler operation
     and still equals the eager ``predict``;
   * ``tools/profile_step.py``'s layer table names the spans.
@@ -19,9 +23,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from dgtd_tpu_torch.core import trace
 from dgtd_tpu_torch.models.cod import cod
+from dgtd_tpu_torch.models import dinov2
+from dgtd_tpu_torch.models.dpt import DinoDPTDepther
 from dgtd_tpu_torch.models.dqnet import DQnet
 from dgtd_tpu_torch.tools import export_serving as E
 from dgtd_tpu_torch.tools import profile_step
+from dgtd_tpu_torch.tools.depth_gen import Dinov2Depther
 from dgtd_tpu_torch.train import state
 from dgtd_tpu_torch.train.optim import Optimizer
 
@@ -140,6 +147,35 @@ def test_all_reduce_span_only_with_a_gradient_group(monkeypatch):
     ar = spans["dgtd.train.all_reduce"][0]
     assert _within(ar, spans["dgtd.train.step"][0])
     assert spans["dgtd.train.backward"][0][1] <= ar[0] and ar[1] <= spans["dgtd.train.optimizer"][0][0]
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_depther_batch_records_its_spans_nested(traced, monkeypatch):
+    opened = []
+    real = trace.record_function
+
+    def recording(name, args=None):
+        opened.append(name)
+        return real(name, args)
+
+    monkeypatch.setattr(trace, "record_function", recording)
+    monkeypatch.setitem(dinov2.DINOV2_ARCHS, "tiny", (16, 3, 2, "mlp"))
+    torch.manual_seed(0)
+    model = DinoDPTDepther(arch="tiny", n_bins=8, channels=8, post_process_channels=(4, 8, 16, 32), pretrain_grid=3)
+    depther = Dinov2Depther(model, torch.device("cpu"))
+    images = torch.randint(0, 256, (2, 30, 44, 3), dtype=torch.uint8)
+    if not traced:
+        assert depther.batch(images).shape == (2, 30, 44) and opened == []
+        return
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        depther.batch(images)
+    spans = _spans(prof)
+    assert set(spans) == {"dgtd.depther", "dgtd.depther.backbone", "dgtd.depther.head", "dgtd.depther.attention"}
+    assert len(spans["dgtd.depther.attention"]) == 3 and sorted(opened) == sorted(
+        ["dgtd.depther", "dgtd.depther.backbone", "dgtd.depther.head"] + ["dgtd.depther.attention"] * 3)
+    outer, backbone, head = spans["dgtd.depther"][0], spans["dgtd.depther.backbone"][0], spans["dgtd.depther.head"][0]
+    assert _within(backbone, outer) and _within(head, outer) and backbone[1] <= head[0]
+    assert all(_within(a, backbone) for a in spans["dgtd.depther.attention"])
 
 
 def test_export_holds_no_profiler_op_and_equals_eager(tmp_path):
