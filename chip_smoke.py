@@ -23,7 +23,8 @@ Phases (any failure exits non-zero):
      at 384², batch 8, through ``dgtd_tpu_torch.predict.main`` with a saved
      ``.pth``: once in bf16, once with ``--fp32``. The kernels' launch counts
      are reset just before each run and read just after (one fused forward a
-     batch); masks are checked, bf16 is held to fp32, and the fp32 model on
+     batch; one LayerNorm kernel launch for each of the 93 LayerNorm calls
+     of a batch, counted by a forward hook); masks are checked, bf16 is held to fp32, and the fp32 model on
      the card to the same model on the CPU on a small input;
   4. re-check the fused kernel against the plain version on the exact
      ``MessagePassing`` inputs captured during phase 3;
@@ -98,7 +99,11 @@ Phases (any failure exits non-zero):
      accesses, a row on 1 to 32 lanes), C = 130 and every C one element off
      a 16-byte boundary (``x[1:]`` of a flat buffer) on the scalar route,
      C = 2048 on the block route; fp32 and bf16, mean-0 and mean-100 rows;
-     then forward and backward at a PVTv2-b2 stage-1 and a ConvNeXt-B
+     the models' ``LayerNorm`` (and ``LayerNorm2d``) under
+     ``inference_mode`` at the served cells' shapes, bf16: PVTv2-b2 stage 1
+     at batch 128, ConvNeXt-B stage 1 at batch 64 on the permuted NCHW map,
+     ViT-L at batch 32, one launch a call, held to the plain version; then
+     forward and backward at a PVTv2-b2 stage-1 and a ConvNeXt-B
      stage-1 shape of a served batch (bf16), timed L2-warm (one input back
      to back) and L2-cold (8 input/output pairs in turn, more bytes than the
      L2), ``F.layer_norm`` timed both ways beside it (device times in phase
@@ -464,6 +469,16 @@ LOC_PIN_ATOL = 1e-6
 LN_FP32_TOL = {0.0: dict(rtol=1e-4, atol=1e-5), 100.0: dict(rtol=1e-4, atol=1e-4)}
 LN_BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 LN_SHAPES = {"pvt_b2_stage1": (8 * 96 * 96, 64), "convnext_b_stage1": (8 * 96 * 96, 128)}
+# the models' LayerNorm module at the served cells' shapes, as the models
+# hold x (whether the module sees it permuted): PVTv2-b2 stage 1 at
+# dqnet.serve.b128, ConvNeXt-B stage 1 at cod.serve.b64 (its blocks' NCHW
+# dwconv output read channels-last, and LayerNorm2d), ViT-L at
+# depther.vitl14.518
+LN_MODULE_SHAPES = {"pvt_b2_stage1_b128": ((128, 96 * 96, 64), False),
+                    "convnext_b_stage1_b64": ((64, 128, 96, 96), True),
+                    "vit_l_b32": ((32, 1037, 1024), False)}
+# LayerNorm calls in a served cod batch: PVTv2-b2 53, ConvNeXt-B 40
+LN_SERVED_CALLS = 93
 # phase 13's widths: the lane-group route at 1 to 32 lanes a row and 1 to 8
 # 16-byte vectors a lane, C = 130 (a row not a multiple of 16 bytes: the
 # scalar route) and 2048 (the block route); each also one element off a
@@ -3013,8 +3028,10 @@ def run(keep):
     from dgtd_tpu_torch import predict as P
     from dgtd_tpu_torch.models import diffusion as MD
     from dgtd_tpu_torch.models.cod import cod
+    from dgtd_tpu_torch.models.layers import LayerNorm, LayerNorm2d
     from dgtd_tpu_torch.ops import _build
     from dgtd_tpu_torch.ops import diffusion as D
+    from dgtd_tpu_torch.ops import layernorm as L
 
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -3063,10 +3080,13 @@ def run(keep):
     captured = {}
     run = {"name": None}
     probs = {}
+    ln_calls = {}
 
     def capture(module, inputs, output):
         if isinstance(module, MD.MessagePassing) and run["name"] not in captured:
             captured[run["name"]] = (inputs[0].detach().clone(), inputs[1].detach().clone())
+        if isinstance(module, LayerNorm):  # LayerNorm2d too, once a call
+            ln_calls[run["name"]] = ln_calls.get(run["name"], 0) + 1
 
     predict_unspied = cod.predict
 
@@ -3075,7 +3095,7 @@ def run(keep):
         probs.setdefault(run["name"], []).append(out[0])
         return out
 
-    summaries, launches = {}, {}
+    summaries, launches, ln_served = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model = cod(seed=0)
         n_params = sum(p.numel() for p in model.parameters())
@@ -3093,13 +3113,21 @@ def run(keep):
                         "--size", str(SIZE), "--batch", str(BATCH)] + extra
                 run["name"] = name
                 reset_plane_launches(D)
+                L.LAUNCHES = 0
                 summaries[name] = P.main(argv)
                 launches[name] = plane_launches(D)
+                ln_served[name] = (L.LAUNCHES, ln_calls.get(name, 0))
                 torch.cuda.synchronize()
                 nb = summaries[name]["batches"]
                 say(f"  {name}: {summaries[name]['images']} images in {nb} batches, "
-                    f"loop {summaries[name]['loop_s']:.3f} s, stencil launches ({LAUNCH_NAMES}) {launches[name]}")
+                    f"loop {summaries[name]['loop_s']:.3f} s, stencil launches ({LAUNCH_NAMES}) {launches[name]}, "
+                    f"LayerNorm kernel launches {ln_served[name][0]} for {ln_served[name][1]} LayerNorm calls")
                 check(launches[name] == launch_tuple("fused", nb), (name, launches[name], nb))
+                # every LayerNorm of the served forward (PVTv2-b2 and ConvNeXt-B:
+                # 93 a batch) is one launch of the kernel
+                check(ln_served[name][1] == LN_SERVED_CALLS * nb and ln_served[name][0] == ln_served[name][1],
+                      f"{name} served: {ln_served[name][0]} LayerNorm kernel launches for {ln_served[name][1]} "
+                      f"LayerNorm calls in {nb} batches")
                 outs = sorted(os.listdir(out_dir))
                 check(len(outs) == N_IMAGES and all(f.endswith("_output.png") for f in outs), outs)
                 for f in outs:
@@ -3432,7 +3460,6 @@ def run(keep):
     torch.cuda.empty_cache()
 
     # ---- 10. MSDA kernels vs plain ----
-    from dgtd_tpu_torch.ops import layernorm as L
     from dgtd_tpu_torch.ops import msda as A
     from dgtd_tpu_torch.tools import profile_msda
 
@@ -3753,6 +3780,39 @@ def run(keep):
         say(f"  C={c}: fp32 and bf16, mean 0 and 100, 16-byte aligned and one element off: within tolerance")
     check(set(ln_routes) == {"group", "scalar", "block"}, f"LayerNorm routes driven: {sorted(ln_routes)}")
     say("  routes: " + "; ".join(f"{r} C {sorted(cs)}" for r, cs in sorted(ln_routes.items())))
+    ln_module = {}
+    for shape_name, (shape, permuted) in LN_MODULE_SHAPES.items():
+        # the models' LayerNorm (LayerNorm2d on the NCHW map) under
+        # inference_mode: one launch a call, held to the plain version
+        c = shape[1] if permuted else shape[-1]
+        sc, bi = torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
+        mods = [LayerNorm(c, eps=1e-6)] + ([LayerNorm2d(c, eps=1e-6)] if permuted else [])
+        for m in mods:
+            with torch.no_grad():
+                m.to(dev).weight.copy_(sc)
+                m.bias.copy_(bi)
+        xm = (torch.randn(*shape, generator=g, device=dev) * 3 + 1).bfloat16()
+        xin = xm.permute(0, 2, 3, 1) if permuted else xm
+        ref = L.layer_norm_plain(xin, sc, bi, 1e-6)
+        errs = []
+        for m, arg, unpermute in zip(mods, (xin, xm), (False, True)):
+            L.LAUNCHES = 0
+            with torch.inference_mode():
+                out = m(arg)
+            torch.cuda.synchronize()
+            out = out.permute(0, 2, 3, 1) if unpermute else out
+            check(L.LAUNCHES == 1 and out.dtype == torch.bfloat16 and out.shape == ref.shape,
+                  f"LayerNorm module {shape_name} ({type(m).__name__}): {L.LAUNCHES} launches, {out.dtype}")
+            torch.testing.assert_close(out.float(), ref.float(), **LN_BF16_TOL,
+                                       msg=lambda msg: f"LayerNorm module {shape_name} ({type(m).__name__}): {msg}")
+            errs.append(float((out.float() - ref.float()).abs().max()))
+        ln_module[shape_name] = dict(shape=list(shape), permuted=permuted, dtype="bfloat16", max_abs_err=max(errs),
+                                     modules=[type(m).__name__ for m in mods])
+        say(f"  LayerNorm module {shape_name} {tuple(shape)} bf16{' permuted' if permuted else ''} "
+            f"({', '.join(type(m).__name__ for m in mods)}) under inference_mode: one launch a call, max_abs_err "
+            f"{max(errs):.3e} against the plain version (limit one bf16 ulp)")
+        del xm, xin, ref, out
+        torch.cuda.empty_cache()
     ln_rows, ln_launches = {}, 0
     for shape_name, (rows_n, c) in LN_SHAPES.items():
         xl = (torch.randn(rows_n, c, generator=g, device=dev) * 3 + 1).bfloat16()
@@ -4374,8 +4434,13 @@ def run(keep):
         "route": "cuda",
         "source": "dgtd_tpu_torch/csrc/layernorm.cu",
         "replaces": "dgtd_tpu/ops/layernorm_pallas.py:50",
-        "launches": ln_launches,
-        "max_abs_err": ln_rows["pvt_b2_stage1"]["err"],
+        "launches": sum(n for n, _ in ln_served.values()),
+        "main_path": " and ".join(f"{n} launches for the {calls} LayerNorm calls of phase 3's {name} cod predict.main "
+                                  f"run" for name, (n, calls) in ln_served.items())
+                     + f" ({summaries['bf16']['batches']} batches of {BATCH} at {SIZE}² each)",
+        "standalone_launches": ln_launches,
+        "module": ln_module,
+        "max_abs_err": max(ln_rows["pvt_b2_stage1"]["err"], *(r["max_abs_err"] for r in ln_module.values())),
         "ms": ln_rows["pvt_b2_stage1"]["ms"],
         "plain_ms": ln_rows["pvt_b2_stage1"]["plain_ms"],
         "bound_ms": ln_rows["pvt_b2_stage1"]["bound_ms"],

@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..ops import layernorm as _ln
 from ..parallel import space
 from ..parallel.dist import all_reduce_sum, data_group, rank_world
 
@@ -114,17 +115,38 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def layer_norm_takes_kernel(x: torch.Tensor, weight, bias) -> bool:
+    """Whether :class:`LayerNorm` runs x through one launch of
+    ``ops/layernorm.py``'s kernel: the kernel takes x, weight and bias
+    (``ops/layernorm.py::takes``) and autograd records nothing (grad mode
+    off, or no input requires grad). Elsewhere ``F.layer_norm`` in fp32."""
+    return (weight is not None and bias is not None
+            and not (torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or bias.requires_grad))
+            and _ln.takes(x, weight, bias))
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis with fp32 statistics; the output keeps
-    the input's dtype (the JAX ``LayerNorm`` under a bf16 policy)."""
+    the input's dtype (the JAX ``LayerNorm`` under a bf16 policy).
+
+    Where autograd records nothing on a CUDA x (every served, validated and
+    depth_gen forward: they run under ``torch.inference_mode``), one launch
+    of the hand-written kernel (``ops/layernorm.py::layer_norm_nograd``)
+    reads x in its dtype, keeps the statistics in fp32 and writes x's dtype.
+    On the CPU, and in a forward that records gradients (the train step),
+    ``F.layer_norm`` on x cast to fp32, the output cast back
+    (:func:`layer_norm_takes_kernel` chooses)."""
 
     def forward(self, x):
+        if layer_norm_takes_kernel(x, self.weight, self.bias):
+            return _ln.layer_norm_nograd(x, self.weight, self.bias, self.eps)
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(x.dtype)
 
 
 class LayerNorm2d(LayerNorm):
-    """The channels-last LayerNorm applied to an NCHW map."""
+    """The channels-last LayerNorm applied to an NCHW map (on the kernel's
+    path the permuted view is copied once, in its own dtype)."""
 
     def forward(self, x):
         return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)

@@ -1,5 +1,5 @@
 """The port's ops: what ``dgtd_tpu/ops/__init__.py`` exports, under the
-port's names, and the standalone LayerNorm."""
+port's names, and the LayerNorm."""
 
 from .diffusion import (  # noqa: F401
     diffusion_nhwc,

@@ -3,13 +3,20 @@
 
 Counterpart of ``dgtd_tpu/ops/layernorm_pallas.py::layer_norm_pallas``: the
 forward kernel replaces the Pallas kernel, the backward is autograd through
-the plain version (the JAX backward is the VJP of ``_ln_reference``). Like
-the JAX kernel it is standalone: no model of the port calls it (the models
-use ``models/layers.py::LayerNorm``). CPU tensors take the plain version; a
-CUDA tensor gets the kernel or an exception. The forward is the
-``torch.library`` custom op ``dgtd_torch::layer_norm``. The kernel has three routes,
-picked by :func:`ln_route` (the lane-group route with 16-byte accesses, the
-scalar warp route, the block route).
+the plain version (the JAX backward is the VJP of ``_ln_reference``). CPU
+tensors take the plain version; a CUDA tensor gets the kernel or an
+exception. The forward is the ``torch.library`` custom op
+``dgtd_torch::layer_norm``. The kernel has three routes, picked by
+:func:`ln_route` (the lane-group route with 16-byte accesses, the scalar warp
+route, the block route).
+
+The models reach the kernel through ``models/layers.py::LayerNorm`` (and
+``LayerNorm2d``), which calls :func:`layer_norm_nograd` wherever the kernel
+takes x (:func:`takes`) and autograd records nothing: every LayerNorm of a
+served, validated or depth_gen forward (``SegModel.predict``,
+``Dinov2Depther.batch``, under ``torch.inference_mode``). A forward that
+records gradients (the train step) keeps ATen's ``F.layer_norm``: the kernel
+has no backward of its own.
 """
 
 from __future__ import annotations
@@ -89,25 +96,41 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, e
     return (y * scale.to(acc) + bias.to(acc)).to(x.dtype)
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
+def _refusal(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """Why the kernel does not take x (of any strides), scale and bias, as
+    (exception type, message); None where it takes them."""
     if x.device.type != "cuda" or scale.device != x.device or bias.device != x.device:
-        raise ValueError(f"layer_norm needs x, scale and bias on one CUDA device, got {x.device}, {scale.device}, {bias.device}")
+        return ValueError, f"layer_norm needs x, scale and bias on one CUDA device, got {x.device}, {scale.device}, {bias.device}"
     if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"layer_norm takes float32 or bfloat16 x, got {x.dtype}")
+        return TypeError, f"layer_norm takes float32 or bfloat16 x, got {x.dtype}"
     c = x.shape[-1] if x.dim() else 0
     if x.dim() == 0 or tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,):
-        raise ValueError(f"layer_norm takes x (..., C) and scale, bias (C,); got {tuple(x.shape)}, {tuple(scale.shape)}, {tuple(bias.shape)}")
+        return ValueError, (f"layer_norm takes x (..., C) and scale, bias (C,); got {tuple(x.shape)}, "
+                            f"{tuple(scale.shape)}, {tuple(bias.shape)}")
     if not 1 <= c <= MAX_C:
-        raise ValueError(f"layer_norm takes 1 <= C <= {MAX_C}, got {c}")
+        return ValueError, f"layer_norm takes 1 <= C <= {MAX_C}, got {c}"
+    return None
+
+
+def takes(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> bool:
+    """Whether the kernel takes x, scale and bias once x is contiguous: one
+    CUDA device, x fp32 or bf16, scale and bias (C,) with 1 <= C <=
+    ``MAX_C`` the last axis of x."""
+    return _refusal(x, scale, bias) is None
+
+
+def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
+    refusal = _refusal(x, scale, bias)
+    if refusal is not None:
+        raise refusal[0](refusal[1])
     if not x.is_contiguous():
         raise ValueError("layer_norm needs a contiguous x")
 
 
 def _fp32(t: torch.Tensor) -> torch.Tensor:
     """t as the kernel reads scale and bias: fp32 and contiguous, converted
-    only when it is not already."""
-    t = t.detach()
-    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+    only when it is not already (the kernel reads only its data pointer)."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.detach().float().contiguous()
 
 
 def launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, out: torch.Tensor, eps: float) -> None:
@@ -135,6 +158,27 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps
     return layer_norm_op(x, scale, bias, float(eps))
 
 
+def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """One launch of the kernel into a new tensor of x's shape and dtype; x
+    contiguous and taken (:func:`takes`)."""
+    out = torch.empty_like(x)
+    launch(x, _fp32(scale), _fp32(bias), out, eps)
+    return out
+
+
+def layer_norm_nograd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward for a caller that records no gradient on inputs the
+    kernel takes (:func:`takes`: the caller has asked). Eagerly one launch
+    of the kernel straight from Python, without the op's dispatch: a
+    permuted x is first made contiguous in its own dtype, and the output is
+    a new contiguous tensor of x's shape and dtype. While a program is
+    traced (``torch.export``, ``torch.compile``) the ``dgtd_torch::layer_norm``
+    op, which the trace records."""
+    if torch.compiler.is_compiling():  # torch.export's trace too
+        return layer_norm_op(x, scale, bias, float(eps))
+    return _forward(x.contiguous(), scale, bias, eps)
+
+
 @torch.library.custom_op("dgtd_torch::layer_norm", mutates_args=(), device_types="cuda")
 def layer_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm's forward as a ``torch.library`` op, so that
@@ -143,19 +187,18 @@ def layer_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps:
     contiguous here: an exported program's strides are the trace's."""
     x = x.contiguous()
     _check(x, scale, bias)
-    out = torch.empty_like(x)
-    launch(x, _fp32(scale), _fp32(bias), out, eps)
-    return out
+    return _forward(x, scale, bias, eps)
 
 
 @layer_norm_op.register_kernel("cpu")
 def _layer_norm_cpu(x, scale, bias, eps):
-    return layer_norm_plain(x, scale, bias, eps)
+    return layer_norm_plain(x.contiguous(), scale, bias, eps)
 
 
 @layer_norm_op.register_fake
 def _layer_norm_fake(x, scale, bias, eps):
-    return torch.empty_like(x)
+    # contiguous whatever x's strides, as both kernels write it
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 class LayerNormFn(torch.autograd.Function):

@@ -282,9 +282,11 @@ def _msda_args():
     return (value, loc, aw, shapes)
 
 
-def _ln_args():
+def _ln_args(permuted=False):
+    """x (5, 12), or an NCHW map's channels-last view (LayerNorm2d's x)"""
     g = torch.Generator().manual_seed(3)
-    return (torch.randn(5, 12, generator=g), torch.randn(12, generator=g), torch.randn(12, generator=g), 1e-6)
+    x = torch.randn(2, 12, 3, 4, generator=g).permute(0, 2, 3, 1) if permuted else torch.randn(5, 12, generator=g)
+    return (x, torch.randn(12, generator=g), torch.randn(12, generator=g), 1e-6)
 
 
 @pytest.mark.parametrize("op,args", [
@@ -294,7 +296,8 @@ def _ln_args():
     (D.diffusion_nhwc_op, _nhwc_args(False)),
     (A.msda_fwd_op, _msda_args()),
     (L.layer_norm_op, _ln_args()),
-], ids=["planes_keep", "planes", "nhwc_keep", "nhwc", "msda_fwd", "layer_norm"])
+    (L.layer_norm_op, _ln_args(permuted=True)),
+], ids=["planes_keep", "planes", "nhwc_keep", "nhwc", "msda_fwd", "layer_norm", "layer_norm_permuted"])
 def test_opcheck(op, args):
     """(f): schema, fake (shape) implementation and tracing of each op."""
     torch.library.opcheck(op, args)

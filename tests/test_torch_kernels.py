@@ -18,6 +18,7 @@ import torch
 
 from dgtd_tpu_torch.metrics.device import batch_statistics, statistics_to_host
 from dgtd_tpu_torch.models.diffusion import affinity_planes
+from dgtd_tpu_torch.models.layers import LayerNorm, LayerNorm2d, layer_norm_takes_kernel
 from dgtd_tpu_torch.ops import diffusion as D
 from dgtd_tpu_torch.ops import layernorm as L
 
@@ -929,6 +930,164 @@ def test_cuda_layer_norm_refuses_bad_inputs(cuda):
         L.layer_norm(x.t(), s[:8], b[:8])
     with pytest.raises(ValueError, match="CUDA"):
         L.layer_norm(x, s.cpu(), b)
+
+
+# the models' LayerNorm module: the kernel where autograd records nothing on
+# the card, ATen's fp32 LayerNorm everywhere else
+
+def _ln_module(cls, c, seed, device="cpu"):
+    m = cls(c, eps=1e-6)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(c, generator=g))
+        m.bias.copy_(torch.randn(c, generator=g))
+    return m.to(device)
+
+
+def _ln_x(seed, c, dtype, layout, device="cpu"):
+    """(2, 5, 7, C) channels-last: contiguous, or the permuted view of a
+    contiguous NCHW map (what ConvNeXt's blocks and LayerNorm2d normalize)"""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(2, c, 5, 7, generator=g) * 3 + 1).to(device=device, dtype=dtype)
+    return x.permute(0, 2, 3, 1) if layout == "permuted" else x.permute(0, 2, 3, 1).contiguous()
+
+
+def _ln_today(m, x):
+    """LayerNorm's forward before the kernel path: ATen on x cast to fp32"""
+    return torch.nn.functional.layer_norm(x.float(), m.normalized_shape, m.weight, m.bias, m.eps).to(x.dtype)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["inference", "grad"])
+@pytest.mark.parametrize("layout", ["contiguous", "permuted"])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+def test_layer_norm_module_cpu_is_the_fp32_aten_path(dtype, layout, grad):
+    """On the CPU LayerNorm and LayerNorm2d give F.layer_norm(x.float())
+    cast back bit for bit, with its strides and its gradient, and launch
+    nothing."""
+    dt = LN_DTYPES[dtype]
+    m = _ln_module(LayerNorm, 24, 0)
+    x = _ln_x(1, 24, dt, layout).requires_grad_(grad)
+    before = L.LAUNCHES
+    with torch.set_grad_enabled(grad) if grad else torch.inference_mode():
+        out, ref = m(x), _ln_today(m, x)
+        out2d = _ln_module(LayerNorm2d, 24, 0)(x.permute(0, 3, 1, 2))
+    assert L.LAUNCHES == before
+    assert out.dtype == dt and out.stride() == ref.stride()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    torch.testing.assert_close(out2d, ref.permute(0, 3, 1, 2), rtol=0, atol=0)
+    if grad:
+        (gx,) = torch.autograd.grad(out.float().square().sum(), x)
+        (rx,) = torch.autograd.grad(ref.float().square().sum(), x)
+        torch.testing.assert_close(gx, rx, rtol=0, atol=0)
+
+
+def test_layer_norm_path_chooser():
+    """The kernel only for a CUDA fp32 or bf16 x with C <= MAX_C where
+    autograd records nothing; CUDA tensors are fake here (no card needed)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def path(device="cuda", dtype=torch.bfloat16, c=64, x_grad=False, w_grad=False, grad_mode=False):
+        x = torch.empty(3, c, device=device, dtype=dtype, requires_grad=x_grad)
+        w = torch.empty(c, device=device, requires_grad=w_grad)
+        b = torch.empty(c, device=device, requires_grad=w_grad)
+        with torch.set_grad_enabled(grad_mode):
+            return layer_norm_takes_kernel(x, w, b)
+
+    assert not path(device="cpu", dtype=torch.float32)
+    assert not path(device="cpu", w_grad=True, grad_mode=True)
+    with FakeTensorMode():
+        for dt in LN_DTYPES.values():
+            assert path(dtype=dt)
+            assert path(dtype=dt, c=L.MAX_C)
+            assert not path(dtype=dt, c=L.MAX_C + 1)
+        assert not path(dtype=torch.float16) and not path(dtype=torch.float64)
+        # grad mode on, but nothing requires grad: nothing is recorded
+        assert path(grad_mode=True)
+        # grad mode off: nothing is recorded whatever requires grad
+        assert path(x_grad=True, w_grad=True)
+        assert not path(w_grad=True, grad_mode=True)
+        assert not path(x_grad=True, grad_mode=True)
+        with torch.inference_mode():
+            x, w = torch.empty(3, 64, device="cuda"), torch.empty(64, device="cuda")
+            assert layer_norm_takes_kernel(x, w, w)
+        x, w = torch.empty(3, 64, device="cuda"), torch.empty(64, device="cuda")
+        assert not layer_norm_takes_kernel(x, None, None)
+        narrow, square = torch.empty(32, device="cuda"), torch.empty(8, 8, device="cuda")
+        assert not layer_norm_takes_kernel(x, narrow, narrow)
+        assert not layer_norm_takes_kernel(x, square, square)
+        # a permuted view is taken: the module copies it once
+        assert layer_norm_takes_kernel(torch.empty(2, 64, 5, device="cuda", dtype=torch.bfloat16).transpose(1, 2), w, w)
+
+
+#: the served widths: PVTv2-b2 64, 128, 320, 512; ConvNeXt-B 128..1024; ViT-L 1024
+LN_MODEL_CS = (64, 128, 320, 512, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "permuted"])
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("c", LN_MODEL_CS)
+def test_cuda_layer_norm_module_launches_once_a_call(cuda, c, dtype, layout):
+    """Under inference_mode LayerNorm and LayerNorm2d launch the kernel once
+    a call, on contiguous and permuted x, and match the grad path (ATen in
+    fp32 bit for bit, no launch) within one bf16 ulp (fp32: 1e-5), in its
+    shape, dtype and strides."""
+    dt = LN_DTYPES[dtype]
+    tol = LN_BF16_TOL if dt == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    m, m2d = _ln_module(LayerNorm, c, c, cuda), _ln_module(LayerNorm2d, c, c, cuda)
+    x = _ln_x(c + 1, c, dt, layout, cuda)
+    before = L.LAUNCHES
+    with torch.enable_grad():
+        ref = m(x)
+        ref2d = m2d(x.permute(0, 3, 1, 2))
+    assert ref.requires_grad and L.LAUNCHES == before
+    torch.testing.assert_close(ref, _ln_today(m, x), rtol=0, atol=0)
+    with torch.inference_mode():
+        out = m(x)
+        assert L.LAUNCHES == before + 1
+        out2d = m2d(x.permute(0, 3, 1, 2))
+        assert L.LAUNCHES == before + 2
+    assert out.dtype == dt and out.shape == ref.shape and out.stride() == ref.stride()
+    assert out2d.stride() == ref2d.stride()
+    torch.testing.assert_close(out.float(), ref.detach().float(), **tol)
+    torch.testing.assert_close(out2d.float(), ref2d.detach().float(), **tol)
+
+
+def _tiny_backbone(net, cuda):
+    from dgtd_tpu_torch.models.convnext import ConvNeXtFPNEncoder
+    from dgtd_tpu_torch.models.layers import init_parameters
+    from dgtd_tpu_torch.models.pvt import PVTv2
+    m = PVTv2("tiny") if net == "pvt" else ConvNeXtFPNEncoder(dims=(8, 16, 32, 64), depths=(1, 1, 1, 1))
+    return init_parameters(m, torch.Generator().manual_seed(0)).to(cuda).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("net", ["pvt", "convnext"])
+def test_cuda_backbone_launches_the_kernel_once_a_layer_norm(cuda, net, dtype):
+    """A tiny PVTv2 and a tiny ConvNeXt under inference_mode launch the
+    kernel once for each LayerNorm call; with grad enabled, never."""
+    m = _tiny_backbone(net, cuda)
+    calls = []
+    for mod in m.modules():
+        if isinstance(mod, LayerNorm):
+            mod.register_forward_hook(lambda *_: calls.append(1))
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+    autocast = torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == "bf16")
+    before = L.LAUNCHES
+    with torch.inference_mode(), autocast:
+        fast = m(x)
+    torch.cuda.synchronize()
+    n = len(calls)
+    assert n > 0 and L.LAUNCHES == before + n
+    with torch.enable_grad(), autocast:
+        slow = m(x)
+    assert len(calls) == 2 * n and L.LAUNCHES == before + n
+    fast, slow = (fast if net == "convnext" else fast[-1]).float(), (slow if net == "convnext" else slow[-1]).detach().float()
+    if dtype == "fp32":
+        torch.testing.assert_close(fast, slow, rtol=1e-4, atol=1e-4)
+    else:  # a one-ulp flip of a bf16 norm output grows through the blocks after it
+        assert ((fast - slow).norm() / slow.norm()).item() < 1e-2
 
 
 @pytest.mark.cuda
